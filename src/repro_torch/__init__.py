@@ -1,0 +1,10 @@
+"""CoLA: Decentralized Linear Learning, ported to PyTorch and CUDA.
+
+The JAX package ``repro`` is the reference; this package mirrors its layout
+(``repro_torch.core.cola`` <-> ``repro.core.cola``, ...) and imports nothing
+of it. Entry points take ``device=`` and default to ``"cuda"``.
+"""
+from repro_torch.core.cola import (ColaConfig, ColaEnv, ColaState,  # noqa: F401
+                                   RunResult, build_env, init_state, run_cola,
+                                   solve_reference)
+from repro_torch.core.problems import PROBLEMS, Problem  # noqa: F401

@@ -1,0 +1,230 @@
+"""The CoLA local-subproblem CD solver: Hopper kernels, their wrappers and
+their plain PyTorch versions.
+
+Two formulations of the same recurrence (see ``repro_torch.core.subproblem``
+for the math and the cost model):
+
+* residual — ``cd_solve_blocks``: carries r = A_[k] dx (d,); each step an
+  O(d) column dot and an O(d) rank-1 update. Kernel ``cd_residual_kernel``
+  in ``csrc/cd_glm.cu`` (replaces the TPU kernel
+  ``src/repro/kernels/cd_glm.py::_cd_kernel``).
+* Gram-cached — ``cd_solve_blocks_gram``: carries h = G dx (n_k,) over the
+  node's Gram block; each step one O(n_k) column axpy. Kernel
+  ``cd_gram_kernel`` (replaces ``_cd_kernel_gram``).
+
+The residual wrapper takes A as contiguous rows A_i, layout ``(K, n_k, d)``
+(``ColaEnv.a_cols``), so every step reads one contiguous row instead of a
+stride-n_k gather out of the reference's ``(K, d, n_k)`` blocks.
+
+Both take an optional ``(K,)`` int32 step budget: a step t >= budget[k]
+makes no update (heterogeneous Theta_k). Without budgets the result is the
+TPU kernel's.
+
+A wrapper given CPU tensors runs the plain version next to it; given CUDA
+tensors it launches the kernel or raises. ``LAUNCHES`` counts kernel
+launches (never plain-version calls).
+"""
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {"cd_residual": 0, "cd_gram": 0}
+
+# Dynamic shared memory a block may ask for: the 232,448 B opt-in limit of
+# Hopper less room for the kernels' static shared memory.
+SMEM_OPT_IN = 232_448
+SMEM_DYNAMIC_MAX = SMEM_OPT_IN - 1024
+_RESIDUAL_THREADS = 256
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def gram_smem_bytes(n_k: int, itemsize: int = 4) -> int:
+    """Shared memory of the Gram kernel with G and its vectors resident:
+    G at an odd row stride plus seven (n_k,) vectors."""
+    return (n_k * (n_k | 1) + 7 * n_k) * itemsize
+
+
+def gram_fits_smem(n_k: int, itemsize: int = 4) -> bool:
+    return gram_smem_bytes(n_k, itemsize) <= SMEM_DYNAMIC_MAX
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (vectorised over K, a Python loop over steps)
+# ---------------------------------------------------------------------------
+
+def _prox_delta(z, g, q, lin, mask, live, l1, l2, box):
+    q_safe = torch.where(q > 0, q, torch.ones_like(q))
+    step = 1.0 / q_safe
+    u = z - g * step - step * lin
+    soft = torch.sign(u) * torch.clamp(torch.abs(u) - step * l1, min=0.0)
+    z_new = torch.clamp(soft / (1.0 + step * l2), -box, box)
+    ok = (q > 0) & (mask > 0) & live
+    return torch.where(ok, z_new - z, torch.zeros_like(z))
+
+
+def _live_range(num_steps: int, budgets) -> int:
+    """Steps after every node's budget change nothing: stop there."""
+    if budgets is None:
+        return num_steps
+    return min(num_steps, max(int(budgets.max()), 0)) if budgets.numel() else 0
+
+
+def cd_residual_plain(a_cols, x_parts, grads, lin_parts, masks, *, num_steps,
+                      sigma_over_tau, l1, l2, box, budgets=None):
+    """Plain version of ``cd_residual_kernel``: a_cols (K, n_k, d)."""
+    k, n_k, d = a_cols.shape
+    sot = float(sigma_over_tau)
+    q = sot * torch.sum(a_cols * a_cols, dim=-1)            # (K, n_k)
+    dx = torch.zeros_like(x_parts)
+    r = torch.zeros_like(grads)
+    for t in range(_live_range(num_steps, budgets)):
+        i = t % n_k
+        a_i = a_cols[:, i, :]                               # (K, d)
+        z = x_parts[:, i] + dx[:, i]
+        g = torch.sum(a_i * (grads + sot * r), dim=-1)
+        live = (t < budgets) if budgets is not None else True
+        delta = _prox_delta(z, g, q[:, i], lin_parts[:, i], masks[:, i],
+                            live, l1, l2, box)
+        dx[:, i] += delta
+        r += a_i * delta[:, None]
+    return dx
+
+
+def cd_gram_plain(gram_parts, x_parts, atg_parts, lin_parts, masks, *,
+                  num_steps, sigma_over_tau, l1, l2, box, budgets=None):
+    """Plain version of ``cd_gram_kernel``: gram (K, n_k, n_k)."""
+    k, n_k, _ = gram_parts.shape
+    sot = float(sigma_over_tau)
+    q = sot * torch.diagonal(gram_parts, dim1=1, dim2=2)    # ||A_i||^2
+    dx = torch.zeros_like(x_parts)
+    h = torch.zeros_like(x_parts)
+    for t in range(_live_range(num_steps, budgets)):
+        i = t % n_k
+        z = x_parts[:, i] + dx[:, i]
+        g = atg_parts[:, i] + sot * h[:, i]
+        live = (t < budgets) if budgets is not None else True
+        delta = _prox_delta(z, g, q[:, i], lin_parts[:, i], masks[:, i],
+                            live, l1, l2, box)
+        dx[:, i] += delta
+        h += gram_parts[:, :, i] * delta[:, None]
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, tensors: dict, shapes: dict, device) -> None:
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, want {device}")
+        want = torch.int32 if key == "budgets" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}, want {want}")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"want {shapes[key]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+
+
+def cd_solve_blocks(a_cols, x_parts, grads, lin_parts, masks, *, num_steps: int,
+                    sigma_over_tau: float, l1: float, l2: float, box: float,
+                    budgets=None) -> torch.Tensor:
+    """Solve all K node subproblems, residual formulation.
+
+    Args:
+      a_cols: (K, n_k, d) rows A_i of every node's column block.
+      x_parts / lin_parts / masks: (K, n_k); grads: (K, d).
+      num_steps: coordinate updates per node (kappa * n_k).
+      budgets: optional (K,) int32 per-node step budgets.
+
+    Returns dx_parts: (K, n_k).
+    """
+    l1, l2, box = float(l1), float(l2), float(box)
+    kw = dict(num_steps=int(num_steps), sigma_over_tau=sigma_over_tau,
+              l1=l1, l2=l2, box=box, budgets=budgets)
+    dev = a_cols.device
+    if dev.type == "cpu":
+        return cd_residual_plain(a_cols, x_parts, grads, lin_parts, masks, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"cd_solve_blocks: unsupported device {dev}")
+    k, n_k, d = a_cols.shape
+    tensors = dict(a_cols=a_cols, x_parts=x_parts, grads=grads,
+                   lin_parts=lin_parts, masks=masks)
+    shapes = dict(a_cols=(k, n_k, d), x_parts=(k, n_k), grads=(k, d),
+                  lin_parts=(k, n_k), masks=(k, n_k), budgets=(k,))
+    if budgets is not None:
+        tensors["budgets"] = budgets
+    _check("cd_solve_blocks", tensors, shapes, dev)
+    r_smem = 2 * d * 4 <= SMEM_DYNAMIC_MAX
+    vec_smem = r_smem and (2 * d + 5 * n_k) * 4 <= SMEM_DYNAMIC_MAX
+    dx = torch.empty((k, n_k), dtype=torch.float32, device=dev)
+    scratch = torch.empty((k, d + n_k), dtype=torch.float32, device=dev)
+    from repro_torch.kernels import build
+    lib = build.load("cd_glm")
+    rc = lib.cd_residual_launch(
+        a_cols.data_ptr(), x_parts.data_ptr(), grads.data_ptr(),
+        lin_parts.data_ptr(), masks.data_ptr(),
+        budgets.data_ptr() if budgets is not None else None,
+        dx.data_ptr(), scratch.data_ptr(), k, d, n_k, int(num_steps),
+        float(sigma_over_tau), l1, l2, box, int(r_smem), int(vec_smem),
+        _RESIDUAL_THREADS, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cd_residual_kernel launch failed: CUDA error {rc}")
+    LAUNCHES["cd_residual"] += 1
+    return dx
+
+
+def cd_solve_blocks_gram(gram_parts, x_parts, atg_parts, lin_parts, masks, *,
+                         num_steps: int, sigma_over_tau: float, l1: float,
+                         l2: float, box: float, budgets=None) -> torch.Tensor:
+    """Gram-cached variant of ``cd_solve_blocks``.
+
+    Args:
+      gram_parts: (K, n_k, n_k) node-local Gram blocks A_[k]^T A_[k].
+      atg_parts: (K, n_k) per-node A_[k]^T grad_f(v_k).
+      x_parts / lin_parts / masks: (K, n_k); budgets: optional (K,) int32.
+
+    Returns dx_parts: (K, n_k).
+    """
+    l1, l2, box = float(l1), float(l2), float(box)
+    kw = dict(num_steps=int(num_steps), sigma_over_tau=sigma_over_tau,
+              l1=l1, l2=l2, box=box, budgets=budgets)
+    dev = gram_parts.device
+    if dev.type == "cpu":
+        return cd_gram_plain(gram_parts, x_parts, atg_parts, lin_parts, masks,
+                             **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"cd_solve_blocks_gram: unsupported device {dev}")
+    k, n_k, _ = gram_parts.shape
+    tensors = dict(gram_parts=gram_parts, x_parts=x_parts,
+                   atg_parts=atg_parts, lin_parts=lin_parts, masks=masks)
+    shapes = dict(gram_parts=(k, n_k, n_k), x_parts=(k, n_k),
+                  atg_parts=(k, n_k), lin_parts=(k, n_k), masks=(k, n_k),
+                  budgets=(k,))
+    if budgets is not None:
+        tensors["budgets"] = budgets
+    _check("cd_solve_blocks_gram", tensors, shapes, dev)
+    g_smem = gram_fits_smem(n_k)
+    vec_smem = 7 * n_k * 4 <= SMEM_DYNAMIC_MAX
+    threads = min(256, 32 * (-(-n_k // 32)))
+    dx = torch.empty((k, n_k), dtype=torch.float32, device=dev)
+    scratch = torch.empty((k, 2 * n_k), dtype=torch.float32, device=dev)
+    from repro_torch.kernels import build
+    lib = build.load("cd_glm")
+    rc = lib.cd_gram_launch(
+        gram_parts.data_ptr(), x_parts.data_ptr(), atg_parts.data_ptr(),
+        lin_parts.data_ptr(), masks.data_ptr(),
+        budgets.data_ptr() if budgets is not None else None,
+        dx.data_ptr(), scratch.data_ptr(), k, n_k, int(num_steps),
+        float(sigma_over_tau), l1, l2, box, int(g_smem), int(vec_smem),
+        threads, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cd_gram_kernel launch failed: CUDA error {rc}")
+    LAUNCHES["cd_gram"] += 1
+    return dx
