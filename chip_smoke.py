@@ -12,15 +12,25 @@ line:
 3. kernel  — each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Gram: K=16, n_k=125; residual: K=16, d=2,000,
    n_k=25,000), with and without a step budget, and timed.
-4. small   — reduced runs on the card against the same runs on the CPU
-   (the plain versions), for both kernels.
-5. run_a   — lasso at the LIBSVM epsilon dataset's shape (synthetic
+4. attn_kernel — the flash kernel against its plain version at the
+   serving runs' shapes (Qwen3-4B prefill and decode, a wrapped sliding
+   ring, chunked-local, cross), bf16 and fp32, timed beside SDPA.
+5. small   — reduced runs on the card against the same runs on the CPU
+   (the plain versions), for both CD kernels.
+6. run_a   — lasso at the LIBSVM epsilon dataset's shape (synthetic
    400,000 x 2,000, ring(16)) through the Gram kernel.
-6. run_b   — ridge through its dual mapping at the same shape through the
+7. run_b   — ridge through its dual mapping at the same shape through the
    residual kernel.
    Both print the history, the launches, ms per round of the round body
    and a profiler breakdown of it (device ms by kernel, idle share).
-7. kernels — one line listing every kernel with its launches on the main
+8. serve_a — Qwen3-4B at full width and depth in bf16 through
+   ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
+9. serve_b — H2O-Danube3-4B at full width, 4 layers: 2 prompts of 4,608
+   tokens (longer than the 4,096-slot ring), 16 tokens.
+   Both check the flash launches, finite logits and the last step against
+   a full forward, and profile the prefill and one decode step.
+10. serve_small — Qwen3-4B width, 2 layers, fp32: the card against the CPU.
+11. kernels — one line listing every kernel with its launches on the main
    path, error, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -29,6 +39,7 @@ full fp32.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -46,6 +57,14 @@ FP32_FLOPS = 67e12
 KERNEL_TOL = 1e-4
 # card vs CPU history, reduced runs: rtol, and atol relative to max|primal|
 SMALL_RTOL = 1e-4
+# serving, bf16: the last decode step's logits against a full forward over
+# the same tokens, max|diff| <= FWD_TOL * max|logits|. The two paths round
+# differently shaped matrix products (M = batch against M = batch x tokens)
+# to bf16 and the differences grow over the layers: measured 1.7 % of
+# max|logits| for Qwen3-4B (36 layers) and 0.8 % for Danube3 (4 layers) on
+# an H100; 5 % leaves room for that and fails a wrong cache or mask, which
+# moves logits by their own size.
+FWD_TOL = 0.05
 
 EPS_SAMPLES, EPS_FEATURES, NODES = 400_000, 2_000, 16
 
@@ -224,8 +243,6 @@ def round_profile(torch, prob, graph, cfg, rounds: int) -> dict:
     """The round body alone: host-clock ms per round (synchronised), then a
     ``torch.profiler`` window over the same rounds — device ms per round by
     kernel and the device's idle share of the round."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import cola, partition, topology
     part = partition.make_partition(prob.n, graph.num_nodes)
     env = cola.build_env(prob, part)
@@ -241,10 +258,32 @@ def round_profile(torch, prob, graph, cfg, rounds: int) -> dict:
         state = body(state, env, w, active)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / rounds
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
+        nonlocal state
         for _ in range(rounds):
             state = body(state, env, w, active)
+
+    prof = device_profile(torch, window, host_ms * rounds, top=6)
+    return {"ms_per_round": host_ms,
+            "device_ms_per_round": prof["device_ms"] / rounds,
+            "device_idle_share": prof["device_idle_share"],
+            "top_kernels": [{"name": r["name"],
+                             "ms_per_round": r["ms"] / rounds,
+                             "calls_per_round": r["calls"] / rounds}
+                            for r in prof["top_kernels"]]}
+
+
+def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
+    """``fn`` once under ``torch.profiler``: device ms by kernel (summed
+    over the window), and the device's idle share of ``host_ms`` (the
+    window's synchronised host-clock time, measured outside the
+    profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
@@ -253,15 +292,14 @@ def round_profile(torch, prob, graph, cfg, rounds: int) -> dict:
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = ev.cuda_time_total
-        kernels.append((ev.key[:60], dev_us / rounds / 1e3,
-                        ev.count / rounds))
+        kernels.append((ev.key[:60], dev_us / 1e3, ev.count))
     kernels.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels)
-    return {"ms_per_round": host_ms, "device_ms_per_round": device_ms,
+    return {"host_ms": host_ms, "device_ms": device_ms,
             "device_idle_share": (1.0 - device_ms / host_ms
                                   if device_ms else None),
-            "top_kernels": [{"name": n, "ms_per_round": m,
-                             "calls_per_round": c} for n, m, c in kernels[:6]]}
+            "top_kernels": [{"name": n, "ms": m, "calls": c}
+                            for n, m, c in kernels[:top]]}
 
 
 def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
@@ -309,6 +347,280 @@ def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# flash attention and the LM zoo's serving path
+# ---------------------------------------------------------------------------
+
+def attn_within_tolerance(torch, out, ref) -> tuple[bool, float]:
+    """fp32: |out - plain| <= 2e-5 + 2e-5 |plain| (the bar of
+    tests/test_kernels.py). bf16: <= 2 bf16 ulps of |plain| + 1e-6 — both
+    compute in fp32 and round once to bf16. Returns (ok, worst excess)."""
+    o, r = out.float(), ref.float()
+    if ref.dtype == torch.float32:
+        limit = 2e-5 + 2e-5 * r.abs()
+    else:
+        _, e = torch.frexp(r)
+        limit = 2 * torch.ldexp(torch.ones_like(r), e - 8) + 1e-6
+    excess = float(((o - r).abs() - limit).max())
+    return excess <= 0.0, excess
+
+
+def attn_cases(torch):
+    """The serving runs' attention shapes: (name, B, H, KV, hd, mode,
+    window, q_pos, kv_pos), positions as CPU int32 tensors."""
+    def rows(b, pos):
+        return torch.tensor(pos, dtype=torch.int32).repeat(b, 1)
+
+    cases = []
+    # Qwen3-4B prefill: empty cache of 1,056 slots ++ 1,024 fresh keys
+    cases.append(("prefill", 8, 32, 8, 128, "causal", 0,
+                  rows(8, range(1024)),
+                  rows(8, [-1] * 1056 + list(range(1024)))))
+    # Qwen3-4B, the last decode step: 1,054 cached keys, 2 empty slots,
+    # the fresh key at 1,054
+    cases.append(("decode", 8, 32, 8, 128, "causal", 0,
+                  rows(8, [1054]),
+                  rows(8, list(range(1054)) + [-1, -1, 1054])))
+    # H2O-Danube3-4B: a 256-token chunk at 4,600 against a wrapped ring of
+    # 4,096 slots (slot j holds the last position = j mod 4,096 before
+    # 4,600); in batch row 1 the first 512 slots are empty
+    ring = [4599 - ((4599 - j) % 4096) for j in range(4096)]
+    fresh = list(range(4600, 4856))
+    kv = rows(2, ring + fresh)
+    kv[1, :512] = -1
+    cases.append(("sliding", 2, 32, 8, 120, "sliding", 4096,
+                  rows(2, fresh), kv))
+    # Llama-4-style chunked-local (window 8,192, G = 5): queries 7,900 ..
+    # 8,411 straddle a chunk boundary
+    cases.append(("chunked_local", 2, 40, 8, 128, "chunked_local", 8192,
+                  rows(2, range(7900, 8412)),
+                  rows(2, list(range(6876, 7900)) + list(range(7900, 8412)))))
+    # SeamlessM4T-style cross attention (16 / 16 heads, hd 64) over 1,500
+    # encoder slots, the last 100 of batch row 1 padding
+    kv = rows(4, range(1500))
+    kv[1, 1400:] = -1
+    cases.append(("cross", 4, 16, 16, 64, "cross", 0,
+                  torch.zeros((4, 256), dtype=torch.int32), kv))
+    return cases
+
+
+def attn_kernel_phase(torch, fa, mask_fn) -> list:
+    """The flash kernel against its plain version on the card at the
+    serving runs' shapes, in bf16 and fp32; times of the kernel, the plain
+    version and SDPA (the library yardstick, never called by the port)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, b, h, kvh, hd, mode, window, q_pos, kv_pos in attn_cases(torch):
+        q_pos, kv_pos = q_pos.cuda(), kv_pos.cuda()
+        sq, skv = q_pos.shape[1], kv_pos.shape[1]
+        mask = mask_fn(mode, q_pos, kv_pos, window)          # (B, Sq, Skv)
+        if not bool(mask.any(dim=-1).all()):
+            fail(f"attn_kernel {name}: a query row has no admissible key")
+        pairs = int(mask.sum())                 # (b, query, key) admissible
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, sq, h, hd), generator=gen, device="cuda"
+                            ).to(dtype)
+            k = torch.randn((b, skv, kvh, hd), generator=gen, device="cuda"
+                            ).to(dtype)
+            v = torch.randn((b, skv, kvh, hd), generator=gen, device="cuda"
+                            ).to(dtype)
+            args = (q, k, v, q_pos, kv_pos)
+            kw = dict(mode=mode, window=window)
+            out = fa.flash_attention(*args, **kw)
+            ref = fa.flash_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            ok, excess = attn_within_tolerance(torch, out, ref)
+            err = float((out.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            if not ok or not math.isfinite(err):
+                fail(f"attn_kernel {name} {dtype}: kernel disagrees with its "
+                     f"plain version (max abs err {err}, worst excess over "
+                     f"the tolerance {excess})")
+            reps = 20 if sq == 1 else 5
+            ms = cuda_ms(torch, lambda: fa.flash_attention(*args, **kw), reps)
+            plain_ms = cuda_ms(torch,
+                               lambda: fa.flash_attention_plain(*args, **kw),
+                               reps)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            m4 = mask[:, None]
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=m4, enable_gqa=True)
+            lib_err = float((lib().transpose(1, 2).float()
+                             - ref.float()).abs().max())
+            library_ms = cuda_ms(torch, lib, reps)
+            item = q.element_size()
+            nbytes = (item * (q.numel() + k.numel() + v.numel() + q.numel())
+                      + 4 * (q_pos.numel() + kv_pos.numel()))
+            bound_ms, bound_by = bound(nbytes, 4 * hd * pairs * (h // kvh)
+                                       * kvh)
+            row = {"phase": "attn_kernel", "case": name,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "B": b, "Sq": sq, "Skv": skv, "H": h, "KV": kvh, "hd": hd,
+                   "mode": mode, "window": window,
+                   "admissible_pairs": pairs, "max_abs_err": err,
+                   "max_rel_err": err / max(scale, 1e-30),
+                   "tolerance": ("2e-5 + 2e-5|plain|"
+                                 if dtype == torch.float32
+                                 else "2 bf16 ulps of |plain| + 1e-6"),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library": "scaled_dot_product_attention(bool mask, "
+                              "enable_gqa)",
+                   "library_max_abs_err": lib_err,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(row)
+            rows.append(row)
+            del q, k, v, out, ref, qt, kt, vt
+        del mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cache_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
+                gen, fwd_tol, cut=None) -> dict:
+    """Serve ``cfg`` once through ``launch.serve.serve`` with the flash
+    count zeroed just before and read just after; check the launches, the
+    logits' finiteness, the last step against a full ``forward``, and
+    profile one decode step and the prefill."""
+    api = rt.build_model(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = api.init(g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=g, device="cuda")
+    serve_mod.serve(api, params, prompt, 2, device="cuda")   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    res = serve_mod.serve(api, params, prompt, gen, device="cuda")
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.num_layers * gen
+    if launches != want:
+        fail(f"{name}: flash_attention launched {launches} times, want "
+             f"{want} (one per layer for the prefill and each of the "
+             f"{gen - 1} decode steps)")
+    if not bool(torch.isfinite(res.logits).all()):
+        fail(f"{name}: non-finite logits")
+    # the last decode step against a full forward over the same tokens
+    tokens = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        full, _ = api.forward(params, {"tokens": tokens})
+    last_fwd = full[:, -1].float()
+    del full
+    last_dec = res.logits[:, -1]
+    diff = float((last_dec - last_fwd).abs().max())
+    scale = float(last_fwd.abs().max())
+    rel_l2 = float((last_dec - last_fwd).norm() / last_fwd.norm())
+    argmax_agree = float((last_dec.argmax(-1) == last_fwd.argmax(-1))
+                         .float().mean())
+    if not diff <= fwd_tol * scale:
+        fail(f"{name}: last decode step disagrees with forward: max abs "
+             f"diff {diff} > {fwd_tol} * max|logits| ({scale})")
+    if cfg.attention == "sliding" and prompt_len + gen > cfg.window:
+        pos = res.cache["pos"][0, 0]
+        total = prompt_len + gen - 1
+        if sorted(pos.tolist()) != list(range(total - cfg.window, total)):
+            fail(f"{name}: the ring does not hold the last {cfg.window} "
+                 "positions")
+    # profiler windows: the prefill, and one decode step on the final cache
+    # (one free slot is left: the cache holds prompt + gen slots)
+    with torch.no_grad():
+        cache = api.init_cache(params, batch, prompt_len + gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.prefill(params, {"tokens": prompt}, cache)
+        torch.cuda.synchronize()
+        prefill_host = (time.perf_counter() - t0) * 1e3
+        cache = api.init_cache(params, batch, prompt_len + gen)
+        prof_prefill = device_profile(
+            torch, lambda: api.prefill(params, {"tokens": prompt}, cache),
+            prefill_host)
+        tok = res.tokens[:, -1:]
+        t_pos = prompt_len + gen - 1
+        step = lambda: api.decode_step(params, tok, t_pos, res.cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_host = (time.perf_counter() - t0) * 1e3
+        prof_decode = device_profile(torch, step, step_host)
+    steps = len(res.decode_ms)
+    decode_ms = sum(res.decode_ms) / steps
+    out = {"phase": name, "model": cfg.name, "layers": cfg.num_layers,
+           "cut": cut, "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "batch": batch, "prompt": prompt_len, "gen": gen,
+           "cache_slots": int(res.cache["k"].shape[2]),
+           "params": api.param_count(params), "init_s": init_s,
+           "launches": {"flash_attention": launches},
+           "prefill_ms": res.prefill_ms,
+           "prefill_tok_s": batch * prompt_len / res.prefill_ms * 1e3,
+           "decode_ms_per_step": decode_ms,
+           "decode_ms_min": min(res.decode_ms),
+           "decode_ms_max": max(res.decode_ms),
+           "decode_tok_s": batch / decode_ms * 1e3,
+           "kv_cache_bytes": cache_bytes(res.cache),
+           "peak_memory_bytes": peak,
+           "logits_finite": True,
+           "forward_check": {"max_abs_diff": diff, "max_abs_logit": scale,
+                             "rel_l2": rel_l2, "argmax_agree": argmax_agree,
+                             "tolerance": f"{fwd_tol} * max|logits|"},
+           "profile_prefill": prof_prefill,
+           "profile_decode_step": prof_decode}
+    emit(out)
+    del params, res, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_small_phase(torch, rt, fa, serve_mod, transformer, cfg) -> dict:
+    """The card (kernel) against the CPU (plain version) in fp32, teacher
+    forced with the card's tokens: per-step logits at rtol 1e-4 and atol
+    1e-4 * max|logits|."""
+    api = rt.build_model(cfg, device="cuda")
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    api_cpu = rt.build_model(cfg, device="cpu")
+    params_cpu = transformer.init_params(cfg, None, torch.device("cpu"))
+    params_cpu.load_state_dict(params.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(0))
+    gen = 5
+    fa.reset_launches()
+    res = serve_mod.serve(api, params, prompt, gen, device="cuda")
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    res_cpu = serve_mod.serve(api_cpu, params_cpu, prompt, gen,
+                              device="cpu", feed=res.tokens.cpu())
+    if launches != cfg.num_layers * gen or \
+            fa.LAUNCHES["flash_attention"] != launches:
+        fail(f"serve_small: {launches} launches on the card (want "
+             f"{cfg.num_layers * gen}), and the CPU run must launch none")
+    a, b = res.logits.cpu(), res_cpu.logits
+    atol = 1e-4 * float(b.abs().max())
+    diff = float((a - b).abs().max())
+    if not torch.allclose(a, b, rtol=1e-4, atol=atol):
+        fail(f"serve_small: card and CPU logits disagree: max abs diff "
+             f"{diff} (rtol 1e-4, atol {atol})")
+    out = {"phase": "serve_small", "model": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": 2,
+           "prompt": 64, "decode_steps": gen - 1,
+           "launches": {"flash_attention": launches},
+           "max_abs_diff": diff, "max_abs_logit": float(b.abs().max()),
+           "rtol": 1e-4, "atol": atol}
+    emit(out)
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -329,6 +641,9 @@ def main() -> int:
     from repro_torch.core import topology
     from repro_torch.data import synthetic
     from repro_torch.kernels import build, cd_glm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention, transformer
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -344,6 +659,7 @@ def main() -> int:
           "nvcc_seconds": nvcc_s, "ptxas": ptxas})
 
     checks = kernel_phase(torch, cd_glm)
+    attn = attn_kernel_phase(torch, fa, attention._mode_mask)
     small_phase(torch, rt, topology, synthetic)
 
     ring = topology.ring(NODES)
@@ -364,6 +680,18 @@ def main() -> int:
     del ridge, x, y
     torch.cuda.empty_cache()
 
+    serve_a = serve_phase(torch, rt, fa, serve_mod, "serve_a",
+                          rt.get_config("qwen3_4b"), batch=8,
+                          prompt_len=1024, gen=32, fwd_tol=FWD_TOL)
+    danube = dataclasses.replace(rt.get_config("h2o_danube3_4b"),
+                                 num_layers=4)
+    serve_phase(torch, rt, fa, serve_mod, "serve_b", danube, batch=2,
+                prompt_len=4608, gen=16, fwd_tol=FWD_TOL,
+                cut="depth 24 -> 4 layers (full width)")
+    small_cfg = dataclasses.replace(rt.get_config("qwen3_4b"), num_layers=2,
+                                    dtype="float32")
+    serve_small_phase(torch, rt, fa, serve_mod, transformer, small_cfg)
+
     src = "src/repro_torch/kernels/csrc/cd_glm.cu"
     kernels = []
     for name, replaces, run in (
@@ -378,6 +706,19 @@ def main() -> int:
             "bound_ms": main_cfg["bound_ms"],
             "bound_by": main_cfg["bound_by"], "library_ms": None,
             "steps": main_cfg["steps"]})
+    by_case = {(r["case"], r["dtype"]): r for r in attn}
+    timing = lambda r: {key: r[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:48",
+        "launches": serve_a["launches"]["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in attn),
+        **timing(by_case[("prefill", "bfloat16")]),
+        "shape": "prefill, bf16 (B=8, Sq=1024, Skv=2080, 32/8 heads, hd 128)",
+        "at_decode": {**timing(by_case[("decode", "bfloat16")]),
+                      "shape": "decode, bf16 (B=8, Sq=1, Skv=1057)"}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

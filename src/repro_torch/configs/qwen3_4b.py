@@ -1,0 +1,10 @@
+"""Qwen3-4B [hf:Qwen/Qwen3-8B family]: dense GQA decoder with qk-norm."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b", family="dense",
+    num_layers=36, d_model=2560, num_heads=32, num_kv_heads=8, head_dim=128,
+    d_ff=9728, vocab_size=151936,
+    qk_norm=True, rope_theta=1e6,
+    source="hf:Qwen/Qwen3-8B (qk_norm, GQA kv=8)",
+)

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures of every exported launcher: (argtypes, restype)
 SIGNATURES = {
     "cd_glm": {
@@ -33,6 +34,10 @@ SIGNATURES = {
                                _I),
         "cd_gram_launch": ([_P] * 8 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P],
                            _I),
+    },
+    "flash_attention": {
+        "flash_attention_launch": ([_P] * 6 + [_LL] * 12 + [_I] * 9
+                                   + [_F, _P], _I),
     },
 }
 

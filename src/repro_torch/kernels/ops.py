@@ -1,4 +1,8 @@
-"""Wrappers connecting the CD kernels to the framework APIs.
+"""Wrappers connecting the kernels to the framework APIs.
+
+``flash_attention_ops`` is the counterpart of the reference's
+``repro.kernels.ops.flash_attention_ops``: the argument convention of
+``chunked_attention``, on the flash kernel.
 
 ``cd_solve_kernel`` is the counterpart of the reference's
 ``repro.kernels.ops.cd_solve_pallas``: the same signature and semantics as
@@ -10,6 +14,7 @@ from __future__ import annotations
 
 from repro_torch.core.subproblem import (SubproblemSpec, block_gram,
                                          cd_solve_all, gram_pays)
+from repro_torch.kernels import flash_attention as fa
 
 
 def cd_solve_kernel(problem, spec: SubproblemSpec, a_parts, x_parts, grads,
@@ -33,3 +38,12 @@ def cd_solve_kernel(problem, spec: SubproblemSpec, a_parts, x_parts, grads,
                         masks, num_steps, step_budgets=step_budgets,
                         gram_parts=gram_parts if use_gram else None,
                         a_cols=a_cols)
+
+
+def flash_attention_ops(q, k, v, q_pos, kv_pos, *, mode: str,
+                        window: int = 0):
+    """Drop-in for chunked_attention (same argument convention). The
+    reference's ``block_q``/``block_kv``/``interpret`` have no counterpart:
+    the kernel picks its tiles from the shapes."""
+    return fa.flash_attention(q, k, v, q_pos, kv_pos, mode=mode,
+                              window=window)

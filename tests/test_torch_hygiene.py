@@ -43,6 +43,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys, repro_torch; repro_torch.run_cola; "
             "from repro_torch.kernels import ops; import repro_torch.convert; "
+            "import repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -69,3 +70,18 @@ def test_entry_points_raise_without_a_card():
         run_cola(prob, topology.ring(2), ColaConfig(), 2)
     res = run_cola(prob, topology.ring(2), ColaConfig(), 2, device="cpu")
     assert res.state.x_parts.device.type == "cpu"
+
+    from repro_torch import build_model, get_config, smoke_variant
+    from repro_torch.launch import serve
+    cfg = smoke_variant(get_config("qwen3_4b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    api = build_model(cfg, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    prompt = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve(api, params, prompt, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3_4b", "--smoke"])
+    res = serve.serve(api, params, prompt, 2, device="cpu")
+    assert res.logits.device.type == "cpu"

@@ -1,13 +1,20 @@
-"""Hopper CD kernels against their plain PyTorch versions, on the card.
+"""Hopper kernels (CD solvers, flash attention) against their plain
+PyTorch versions, on the card.
 
 Every test here needs a CUDA device and ``nvcc`` and skips without them. On
 a machine with a card (the reference package need not be installed):
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_kernels.py
 
-Tolerance: max|kernel - plain| <= 1e-5 * max(1, max|plain|) — the two
+CD tolerance: max|kernel - plain| <= 1e-5 * max(1, max|plain|) — the two
 compute the same recurrence in fp32 and differ only in the order of the
 per-step dot product's sum (and FMA contraction).
+
+Flash attention: fp32 at 2e-5 (atol and rtol, the bar of
+``tests/test_kernels.py`` for the Pallas kernel); bf16 outputs within 2 bf16
+ulps of |plain| plus 1e-6 — both compute in fp32 and round once to bf16,
+so they differ by the rounding of an fp32 result that is itself a few fp32
+ulps apart.
 """
 import math
 
@@ -16,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import cd_glm
+from repro_torch.kernels import flash_attention as fa
 
 TOL = 1e-5
 
@@ -110,3 +118,119 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(TypeError, match="dtype"):
         cd_glm.cd_solve_blocks(*good, **dict(
             kw, budgets=torch.zeros(2, dtype=torch.int64, device=cuda)))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(b, sq, skv, h, kvh, hd, dtype, dev, seed, ring=False):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    q = t(rng.normal(size=(b, sq, h, hd)).astype(np.float32)).to(dtype)
+    k = t(rng.normal(size=(b, skv, kvh, hd)).astype(np.float32)).to(dtype)
+    v = t(rng.normal(size=(b, skv, kvh, hd)).astype(np.float32)).to(dtype)
+    q_pos = np.tile(np.arange(skv - sq, skv), (b, 1)).astype(np.int32)
+    kv_pos = np.tile(np.arange(skv), (b, 1)).astype(np.int32)
+    if ring:  # rotated slots, the last quarter empty
+        kv_pos = np.tile((np.arange(skv) + 7) % skv, (b, 1)).astype(np.int32)
+        kv_pos[:, -(skv // 4):] = -1
+        q_pos = np.tile(np.arange(skv, skv + sq), (b, 1)).astype(np.int32)
+    return q, k, v, t(q_pos), t(kv_pos)
+
+
+def _attn_close(out, ref):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    o, r = out.float(), ref.float()
+    if ref.dtype == torch.float32:
+        err = (o - r).abs()
+        assert bool((err <= 2e-5 + 2e-5 * r.abs()).all()), float(err.max())
+    else:
+        _, e = torch.frexp(r)            # |r| = m 2^e, m in [0.5, 1)
+        ulp = torch.ldexp(torch.ones_like(r), e - 8)   # bf16: 8 mantissa bits
+        bound = 2 * ulp + 1e-6
+        assert bool(((o - r).abs() <= bound).all()), \
+            float(((o - r).abs() - bound).max())
+
+
+ATTN_CASES = [
+    # (b, sq, skv, h, kvh, hd, mode, window, ring)
+    (2, 32, 32, 4, 2, 16, "causal", 0, False),
+    (2, 32, 32, 4, 2, 16, "sliding", 8, False),
+    (2, 32, 32, 4, 4, 16, "chunked_local", 8, False),
+    (2, 8, 24, 4, 2, 16, "cross", 0, False),
+    (1, 1, 40, 8, 2, 32, "causal", 0, False),
+    (2, 17, 23, 8, 2, 32, "causal", 0, False),
+    (3, 5, 37, 6, 3, 8, "chunked_local", 4, False),
+    (2, 1, 300, 32, 8, 128, "causal", 0, False),    # decode, G = 4
+    (2, 100, 260, 32, 8, 128, "causal", 0, False),  # chunked prefill
+    (2, 3, 200, 8, 8, 120, "sliding", 64, True),    # ring with -1 slots
+    (1, 70, 150, 4, 1, 24, "sliding", 33, True),
+    (2, 40, 90, 4, 2, 64, "cross", 0, True),
+    (1, 33, 80, 6, 3, 112, "causal", 0, False),
+    (1, 20, 70, 4, 2, 160, "chunked_local", 16, False),
+    (1, 20, 70, 4, 2, 192, "causal", 0, False),
+    (1, 65, 129, 4, 1, 256, "causal", 0, False),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    b, sq, skv, h, kvh, hd, mode, window, ring = case
+    q, k, v, qp, kp = _attn_inputs(b, sq, skv, h, kvh, hd, dtype, cuda,
+                                   seed=sum(case[:6]), ring=ring)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, qp, kp, mode=mode, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp, mode=mode,
+                                              window=window))
+
+
+def test_flash_kernel_fully_masked_rows_give_zero(cuda):
+    q, k, v, qp, kp = _attn_inputs(2, 4, 20, 4, 2, 16, torch.float32, cuda,
+                                   seed=0)
+    kp[0] = -1                       # batch row 0: every slot empty
+    qp[1, 0] = -5                    # a query before every key
+    out = fa.flash_attention(q, k, v, qp, kp, mode="causal")
+    torch.cuda.synchronize()
+    assert float(out[0].abs().max()) == 0.0
+    assert float(out[1, 0].abs().max()) == 0.0
+    _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp,
+                                              mode="causal"))
+
+
+def test_flash_kernel_reads_strided_inputs(cuda):
+    """q, k, v as views with the last dim contiguous (the wrapper passes
+    strides; nothing is copied)."""
+    q, k, v, qp, kp = _attn_inputs(2, 9, 30, 8, 2, 32, torch.float32, cuda,
+                                   seed=1)
+    qkv = torch.cat([q.reshape(2, 9, 2, 4 * 32)] * 3, dim=-1)
+    qs = qkv[..., :4 * 32].reshape(2, 9, 8, 32)
+    big_k = torch.stack([k, -k], dim=3)[:, :, :, 0]   # (B, Skv, KV, hd) view
+    assert not big_k.is_contiguous() and big_k.stride(3) == 1
+    assert torch.equal(qs, q) and torch.equal(big_k, k)
+    out = fa.flash_attention(qs, big_k, v, qp, kp, mode="causal")
+    _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp,
+                                              mode="causal"))
+
+
+def test_flash_wrapper_rejects_bad_inputs(cuda):
+    q, k, v, qp, kp = _attn_inputs(1, 4, 8, 4, 2, 16, torch.float32, cuda,
+                                   seed=0)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half(), qp, kp,
+                           mode="causal")
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q, k.bfloat16(), v, qp, kp, mode="causal")
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_attention(q, k, v, qp.cpu(), kp, mode="causal")
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, v, qp, kp, mode="causal")
+    big = torch.zeros((1, 4, 2, 272), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(torch.zeros((1, 4, 4, 272), device=cuda), big,
+                           big, qp, torch.zeros((1, 4), dtype=torch.int32,
+                                                device=cuda), mode="causal")
