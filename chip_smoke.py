@@ -12,9 +12,13 @@ line:
 3. kernel  — each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Gram: K=16, n_k=125; residual: K=16, d=2,000,
    n_k=25,000), with and without a step budget, and timed.
-4. attn_kernel — the flash kernel against its plain version at the
+4. attn_kernel — the flash kernels against their plain version at the
    serving runs' shapes (Qwen3-4B prefill and decode, a wrapped sliding
-   ring, chunked-local, cross), bf16 and fp32, timed beside SDPA.
+   ring, chunked-local, cross; the decode and sliding shapes also as a
+   cache and a fresh chunk in separate tensors), bf16 and fp32, timed
+   beside SDPA; each row names its route and, at decode, its splits.
+   split_combine — the split-KV kernel and the combine kernel each against
+   its plain version on the same inputs, and timed alone.
 5. small   — reduced runs on the card against the same runs on the CPU
    (the plain versions), for both CD kernels.
 6. run_a   — lasso at the LIBSVM epsilon dataset's shape (synthetic
@@ -27,11 +31,18 @@ line:
    ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
 9. serve_b — H2O-Danube3-4B at full width, 4 layers: 2 prompts of 4,608
    tokens (longer than the 4,096-slot ring), 16 tokens.
-   Both check the flash launches, finite logits and the last step against
-   a full forward, and profile the prefill and one decode step.
+   Both check the launches of every flash kernel (the tensor-core kernel
+   at prefill, split-KV + combine at decode), finite logits and the last
+   step against a full forward, and profile the prefill and one decode
+   step.
 10. serve_small — Qwen3-4B width, 2 layers, fp32: the card against the CPU.
 11. kernels — one line listing every kernel with its launches on the main
    path, error, times and bound.
+
+Every kernel time ``ms`` is CUDA events around back-to-back eager calls
+after a warm-up, so it includes the host's launch cost where that exceeds
+the device time; ``device_ms`` beside it is the summed device time of the
+same calls from ``torch.profiler``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero. TF32 is off: the JAX reference computes in
@@ -47,10 +58,13 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside
-# the tensor cores, at the 700 W power limit.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside the
+# tensor cores and dense bf16 tensor-core FLOP/s, at the 700 W power limit.
+# A kernel's bound takes the peak of its inputs' type: bf16 attention could
+# run on the tensor cores, fp32 attention and the CD kernels cannot.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 # kernel vs plain version: max|kernel - plain| <= KERNEL_TOL * max(1, max|plain|)
 # (fp32 reassociation of the per-step dot products, accumulated over the
 # recurrence)
@@ -99,8 +113,20 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def device_ms(torch, fn, reps: int) -> float:
+    """Device ms per call: the summed device time of every kernel that
+    ``reps`` calls of ``fn`` launch, from ``torch.profiler`` (after one
+    warm-up call). ``cuda_ms`` (the ``ms`` of every row) also counts the
+    host's launch cost where it exceeds the device time, as it does for
+    eager back-to-back calls of a short kernel; this leaves it out."""
+    fn()
+    prof = device_profile(torch, lambda: [fn() for _ in range(reps)], None)
+    return prof["device_ms"] / reps
+
+
+def bound(nbytes: float, flops: float,
+          peak: float = FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -189,12 +215,29 @@ def kernel_phase(torch, cd_glm) -> dict:
         return nbytes, k * (live * 4 * d + 2 * n_k * d)
 
     rows = []
+    args = (a_cols, x, grads, lin, mask)
     for budgets in (None, budget_vector(torch, k, n_k)):
         rows.append(check_kernel(
             torch, "cd_residual", cd_glm.cd_solve_blocks,
-            cd_glm.cd_residual_plain, (a_cols, x, grads, lin, mask), kw, n_k,
-            budgets, residual_cost))
+            cd_glm.cd_residual_plain, args, kw, n_k, budgets, residual_cost))
     results["cd_residual"] = rows
+    # the block size, chosen by measurement: each thread count against the
+    # default's output (itself held against the plain version above)
+    main_kw = dict(kw, num_steps=n_k, budgets=None)
+    base = cd_glm.cd_solve_blocks(*args, **main_kw)
+    sweep = []
+    for threads in (64, 128, 256):
+        run = lambda: cd_glm._residual_launch(*args, threads, **main_kw)
+        err = float((run() - base).abs().max())
+        if not err <= KERNEL_TOL * max(1.0, float(base.abs().max())):
+            fail(f"cd_residual at {threads} threads disagrees with the "
+                 f"default: max abs err {err}")
+        sweep.append({"threads": threads, "ms": cuda_ms(torch, run, reps=3),
+                      "layout": cd_glm.residual_layout(d, threads),
+                      "max_abs_err_vs_default": err})
+    emit({"phase": "kernel", "name": "cd_residual_threads",
+          "default_threads": cd_glm.RESIDUAL_THREADS, "steps": n_k,
+          "sweep": sweep})
     return results
 
 
@@ -295,9 +338,21 @@ def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
         kernels.append((ev.key[:60], dev_us / 1e3, ev.count))
     kernels.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels)
+    cat_calls = sum(c for n, _, c in kernels if "CatArray" in n)
+    cat_ms = sum(m for n, m, _ in kernels if "CatArray" in n)
+    flash = {}
+    for n, ms, c in kernels:
+        for kernel in ("flash_mma", "flash_split", "flash_combine",
+                       "flash_tiles"):
+            if kernel in n:
+                ms0, c0 = flash.get(kernel, (0.0, 0))
+                flash[kernel] = (ms0 + ms, c0 + c)
     return {"host_ms": host_ms, "device_ms": device_ms,
+            "cat_kernel_calls": cat_calls, "cat_kernel_ms": cat_ms,
+            "flash_device_ms": {k: {"ms": v[0], "calls": v[1]}
+                                for k, v in flash.items()},
             "device_idle_share": (1.0 - device_ms / host_ms
-                                  if device_ms else None),
+                                  if device_ms and host_ms else None),
             "top_kernels": [{"name": n, "ms": m, "calls": c}
                             for n, m, c in kernels[:top]]}
 
@@ -368,7 +423,9 @@ def attn_within_tolerance(torch, out, ref) -> tuple[bool, float]:
 
 def attn_cases(torch):
     """The serving runs' attention shapes: (name, B, H, KV, hd, mode,
-    window, q_pos, kv_pos), positions as CPU int32 tensors."""
+    window, q_pos, kv_pos, cut), positions as CPU int32 tensors. ``cut``:
+    the keys are two sources, slots [0, cut) a cache and [cut, Skv) the
+    fresh chunk, as ``attn_apply`` passes them (None: one source)."""
     def rows(b, pos):
         return torch.tensor(pos, dtype=torch.int32).repeat(b, 1)
 
@@ -376,12 +433,14 @@ def attn_cases(torch):
     # Qwen3-4B prefill: empty cache of 1,056 slots ++ 1,024 fresh keys
     cases.append(("prefill", 8, 32, 8, 128, "causal", 0,
                   rows(8, range(1024)),
-                  rows(8, [-1] * 1056 + list(range(1024)))))
+                  rows(8, [-1] * 1056 + list(range(1024))), None))
     # Qwen3-4B, the last decode step: 1,054 cached keys, 2 empty slots,
-    # the fresh key at 1,054
-    cases.append(("decode", 8, 32, 8, 128, "causal", 0,
-                  rows(8, [1054]),
-                  rows(8, list(range(1054)) + [-1, -1, 1054])))
+    # the fresh key at 1,054; once as one source, once as cache ++ fresh
+    decode_kv = rows(8, list(range(1054)) + [-1, -1, 1054])
+    cases.append(("decode", 8, 32, 8, 128, "causal", 0, rows(8, [1054]),
+                  decode_kv, None))
+    cases.append(("decode_2src", 8, 32, 8, 128, "causal", 0,
+                  rows(8, [1054]), decode_kv, 1056))
     # H2O-Danube3-4B: a 256-token chunk at 4,600 against a wrapped ring of
     # 4,096 slots (slot j holds the last position = j mod 4,096 before
     # 4,600); in batch row 1 the first 512 slots are empty
@@ -390,29 +449,48 @@ def attn_cases(torch):
     kv = rows(2, ring + fresh)
     kv[1, :512] = -1
     cases.append(("sliding", 2, 32, 8, 120, "sliding", 4096,
-                  rows(2, fresh), kv))
+                  rows(2, fresh), kv, None))
+    cases.append(("sliding_2src", 2, 32, 8, 120, "sliding", 4096,
+                  rows(2, fresh), kv, 4096))
+    # Danube3's decode: one token at 4,856 against the ring ++ itself
+    ring_d = [4855 - ((4855 - j) % 4096) for j in range(4096)]
+    cases.append(("decode_sliding_2src", 2, 32, 8, 120, "sliding", 4096,
+                  rows(2, [4856]), rows(2, ring_d + [4856]), 4096))
     # Llama-4-style chunked-local (window 8,192, G = 5): queries 7,900 ..
     # 8,411 straddle a chunk boundary
     cases.append(("chunked_local", 2, 40, 8, 128, "chunked_local", 8192,
                   rows(2, range(7900, 8412)),
-                  rows(2, list(range(6876, 7900)) + list(range(7900, 8412)))))
+                  rows(2, list(range(6876, 7900)) + list(range(7900, 8412))),
+                  None))
     # SeamlessM4T-style cross attention (16 / 16 heads, hd 64) over 1,500
     # encoder slots, the last 100 of batch row 1 padding
     kv = rows(4, range(1500))
     kv[1, 1400:] = -1
     cases.append(("cross", 4, 16, 16, 64, "cross", 0,
-                  torch.zeros((4, 256), dtype=torch.int32), kv))
+                  torch.zeros((4, 256), dtype=torch.int32), kv, None))
     return cases
 
 
+def attn_bound(torch, q, skv, kvh, pairs, n_pos) -> tuple[float, str]:
+    """Least time for one attention call: q, k, v read once, out written
+    once, positions read once; 4 hd FLOPs per admissible (query head, key)
+    pair at the peak of the inputs' type."""
+    b, sq, h, hd = q.shape
+    item = q.element_size()
+    nbytes = item * (2 * q.numel() + 2 * b * skv * kvh * hd) + 4 * n_pos
+    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    return bound(nbytes, 4 * hd * pairs * h, peak)
+
+
 def attn_kernel_phase(torch, fa, mask_fn) -> list:
-    """The flash kernel against its plain version on the card at the
-    serving runs' shapes, in bf16 and fp32; times of the kernel, the plain
+    """The flash kernels against their plain version on the card at the
+    serving runs' shapes, in bf16 and fp32; times of the kernels, the plain
     version and SDPA (the library yardstick, never called by the port)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for name, b, h, kvh, hd, mode, window, q_pos, kv_pos in attn_cases(torch):
+    for (name, b, h, kvh, hd, mode, window, q_pos, kv_pos,
+         cut) in attn_cases(torch):
         q_pos, kv_pos = q_pos.cuda(), kv_pos.cuda()
         sq, skv = q_pos.shape[1], kv_pos.shape[1]
         mask = mask_fn(mode, q_pos, kv_pos, window)          # (B, Sq, Skv)
@@ -426,10 +504,23 @@ def attn_kernel_phase(torch, fa, mask_fn) -> list:
                             ).to(dtype)
             v = torch.randn((b, skv, kvh, hd), generator=gen, device="cuda"
                             ).to(dtype)
-            args = (q, k, v, q_pos, kv_pos)
             kw = dict(mode=mode, window=window)
-            out = fa.flash_attention(*args, **kw)
-            ref = fa.flash_attention_plain(*args, **kw)
+            if cut is None:
+                args, src = (q, k, v, q_pos, kv_pos), {}
+            else:   # separate tensors, as the cache and the fresh chunk are
+                args = (q, k[:, :cut].contiguous(), v[:, :cut].contiguous(),
+                        q_pos, kv_pos[:, :cut].contiguous())
+                src = dict(k2=k[:, cut:].contiguous(),
+                           v2=v[:, cut:].contiguous(),
+                           kv_pos2=kv_pos[:, cut:].contiguous())
+            route = fa.select_route(dtype, sq, h // kvh)
+            splits = (fa.default_splits(b, kvh, skv) if route == "split"
+                      else None)
+            before = dict(fa.LAUNCHES)
+            out = fa.flash_attention(*args, **kw, **src)
+            launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES
+                        if fa.LAUNCHES[n] != before[n]}
+            ref = fa.flash_attention_plain(q, k, v, q_pos, kv_pos, **kw)
             torch.cuda.synchronize()
             ok, excess = attn_within_tolerance(torch, out, ref)
             err = float((out.float() - ref.float()).abs().max())
@@ -439,10 +530,12 @@ def attn_kernel_phase(torch, fa, mask_fn) -> list:
                      f"plain version (max abs err {err}, worst excess over "
                      f"the tolerance {excess})")
             reps = 20 if sq == 1 else 5
-            ms = cuda_ms(torch, lambda: fa.flash_attention(*args, **kw), reps)
+            call = lambda: fa.flash_attention(*args, **kw, **src)
+            ms = cuda_ms(torch, call, reps)
+            dev_ms = device_ms(torch, call, reps)
             plain_ms = cuda_ms(torch,
-                               lambda: fa.flash_attention_plain(*args, **kw),
-                               reps)
+                               lambda: fa.flash_attention_plain(
+                                   *args, **kw, **src), reps)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             m4 = mask[:, None]
             lib = lambda: F.scaled_dot_product_attention(
@@ -450,21 +543,23 @@ def attn_kernel_phase(torch, fa, mask_fn) -> list:
             lib_err = float((lib().transpose(1, 2).float()
                              - ref.float()).abs().max())
             library_ms = cuda_ms(torch, lib, reps)
-            item = q.element_size()
-            nbytes = (item * (q.numel() + k.numel() + v.numel() + q.numel())
-                      + 4 * (q_pos.numel() + kv_pos.numel()))
-            bound_ms, bound_by = bound(nbytes, 4 * hd * pairs * (h // kvh)
-                                       * kvh)
+            library_device_ms = device_ms(torch, lib, reps)
+            bound_ms, bound_by = attn_bound(torch, q, skv, kvh, pairs,
+                                            q_pos.numel() + kv_pos.numel())
             row = {"phase": "attn_kernel", "case": name,
                    "dtype": str(dtype).replace("torch.", ""),
                    "B": b, "Sq": sq, "Skv": skv, "H": h, "KV": kvh, "hd": hd,
                    "mode": mode, "window": window,
+                   "sources": 1 if cut is None else 2, "cache_slots": cut,
+                   "route": route, "splits": splits, "launched": launched,
                    "admissible_pairs": pairs, "max_abs_err": err,
                    "max_rel_err": err / max(scale, 1e-30),
                    "tolerance": ("2e-5 + 2e-5|plain|"
                                  if dtype == torch.float32
                                  else "2 bf16 ulps of |plain| + 1e-6"),
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "library_device_ms": library_device_ms,
                    "library": "scaled_dot_product_attention(bool mask, "
                               "enable_gqa)",
                    "library_max_abs_err": lib_err,
@@ -477,8 +572,94 @@ def attn_kernel_phase(torch, fa, mask_fn) -> list:
     return rows
 
 
+def split_combine_phase(torch, fa, mask_fn) -> dict:
+    """The split-KV kernel and the combine kernel each against its plain
+    version on the same inputs, at Qwen3-4B's decode shape in bf16: the
+    split kernel's partials against ``flash_split_plain``, the combine
+    kernel against ``flash_combine_plain`` on the kernel's partials."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    _, b, h, kvh, hd, mode, window, q_pos, kv_pos, _ = attn_cases(torch)[1]
+    q_pos, kv_pos = q_pos.cuda(), kv_pos.cuda()
+    sq, skv = q_pos.shape[1], kv_pos.shape[1]
+    pairs = int(mask_fn(mode, q_pos, kv_pos, window).sum())
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+               for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                             (b, skv, kvh, hd)))
+    splits = fa.default_splits(b, kvh, skv)
+    kw = dict(mode=mode, window=window, splits=splits)
+    args = (q, k, v, q_pos, kv_pos)
+    parts = fa.flash_split(*args, **kw)
+    ref_parts = fa.flash_split_plain(*args, **kw)
+    torch.cuda.synchronize()
+    # fp32 partials: reassociated sums over <= 128 keys per split
+    split_err = max(float(((a - r).abs() / (1 + r.abs())).max())
+                    for a, r in zip(parts, ref_parts))
+    if not split_err <= 1e-5:
+        fail(f"flash_split disagrees with its plain version: max err "
+             f"{split_err} relative to 1 + |plain| (tolerance 1e-5)")
+    out = fa.flash_combine(*parts, sq=sq, dtype=torch.bfloat16)
+    ref = fa.flash_combine_plain(*parts, sq=sq, dtype=torch.bfloat16)
+    out32 = fa.flash_combine(*parts, sq=sq, dtype=torch.float32)
+    ref32 = fa.flash_combine_plain(*parts, sq=sq, dtype=torch.float32)
+    torch.cuda.synchronize()
+    ok, excess = attn_within_tolerance(torch, out, ref)
+    comb_err = float((out32 - ref32).abs().max())
+    if not ok or not comb_err <= 1e-6 * (1 + float(ref32.abs().max())):
+        fail(f"flash_combine disagrees with its plain version: fp32 max abs "
+             f"err {comb_err}, bf16 worst excess {excess}")
+    reps = 20
+    rows_ = sq * (h // kvh)
+    part_bytes = 4 * b * kvh * splits * rows_ * (2 + hd)
+    split_bound = bound(2 * q.numel() + 2 * 2 * k.numel() + part_bytes
+                        + 4 * (q_pos.numel() + kv_pos.numel()),
+                        4 * hd * pairs * h, BF16_TC_FLOPS)
+    comb_bound = bound(part_bytes + 2 * q.numel(),
+                       3 * b * kvh * splits * rows_ * hd)
+    split_call = lambda: fa.flash_split(*args, **kw)
+    comb_call = lambda: fa.flash_combine(*parts, sq=sq, dtype=torch.bfloat16)
+    res = {
+        "flash_split": {
+            "ms": cuda_ms(torch, split_call, reps),
+            "device_ms": device_ms(torch, split_call, reps),
+            "plain_ms": cuda_ms(torch, lambda: fa.flash_split_plain(
+                *args, **kw), reps),
+            "bound_ms": split_bound[0], "bound_by": split_bound[1],
+            "max_abs_err": max(float((a - r).abs().max())
+                               for a, r in zip(parts, ref_parts)),
+            "library_ms": None},
+        "flash_combine": {
+            "ms": cuda_ms(torch, comb_call, reps),
+            "device_ms": device_ms(torch, comb_call, reps),
+            "plain_ms": cuda_ms(torch, lambda: fa.flash_combine_plain(
+                *parts, sq=sq, dtype=torch.bfloat16), reps),
+            "bound_ms": comb_bound[0], "bound_by": comb_bound[1],
+            "max_abs_err": max(comb_err, float(
+                (out.float() - ref.float()).abs().max())),
+            "library_ms": None}}
+    emit({"phase": "split_combine", "shape": "decode, bf16 (B=8, Sq=1, "
+          f"Skv={skv}, 32/8 heads, hd 128)", "splits": splits,
+          "split_max_rel_err": split_err, **res})
+    return res
+
+
 def cache_bytes(cache: dict) -> int:
     return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def want_flash_launches(torch, fa, cfg, prompt_len: int, gen: int) -> dict:
+    """Launches of each flash kernel in one ``serve``: the prefill's route
+    once per layer, the decode steps' route (split + combine) once per
+    layer and step."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    dtype = getattr(torch, cfg.dtype)
+    want = {name: 0 for name in fa.LAUNCHES}
+    for sq, calls in ((prompt_len, 1), (1, gen - 1)):
+        route = fa.select_route(dtype, sq, g)
+        for kernel in (("flash_split", "flash_combine") if route == "split"
+                       else (f"flash_{route}",)):
+            want[kernel] += cfg.num_layers * calls
+    return want
 
 
 def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
@@ -501,13 +682,13 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
     fa.reset_launches()
     res = serve_mod.serve(api, params, prompt, gen, device="cuda")
     torch.cuda.synchronize()
-    launches = fa.LAUNCHES["flash_attention"]
+    launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = cfg.num_layers * gen
+    want = want_flash_launches(torch, fa, cfg, prompt_len, gen)
     if launches != want:
-        fail(f"{name}: flash_attention launched {launches} times, want "
-             f"{want} (one per layer for the prefill and each of the "
-             f"{gen - 1} decode steps)")
+        fail(f"{name}: flash launches {launches}, want {want} (one per "
+             f"layer for the prefill, one split and one combine per layer "
+             f"for each of the {gen - 1} decode steps)")
     if not bool(torch.isfinite(res.logits).all()):
         fail(f"{name}: non-finite logits")
     # the last decode step against a full forward over the same tokens
@@ -560,7 +741,7 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
            "batch": batch, "prompt": prompt_len, "gen": gen,
            "cache_slots": int(res.cache["k"].shape[2]),
            "params": api.param_count(params), "init_s": init_s,
-           "launches": {"flash_attention": launches},
+           "launches": launches,
            "prefill_ms": res.prefill_ms,
            "prefill_tok_s": batch * prompt_len / res.prefill_ms * 1e3,
            "decode_ms_per_step": decode_ms,
@@ -596,13 +777,13 @@ def serve_small_phase(torch, rt, fa, serve_mod, transformer, cfg) -> dict:
     fa.reset_launches()
     res = serve_mod.serve(api, params, prompt, gen, device="cuda")
     torch.cuda.synchronize()
-    launches = fa.LAUNCHES["flash_attention"]
+    launches = dict(fa.LAUNCHES)
     res_cpu = serve_mod.serve(api_cpu, params_cpu, prompt, gen,
                               device="cpu", feed=res.tokens.cpu())
-    if launches != cfg.num_layers * gen or \
-            fa.LAUNCHES["flash_attention"] != launches:
-        fail(f"serve_small: {launches} launches on the card (want "
-             f"{cfg.num_layers * gen}), and the CPU run must launch none")
+    want = want_flash_launches(torch, fa, cfg, 64, gen)
+    if launches != want or fa.LAUNCHES != launches:
+        fail(f"serve_small: launches on the card {launches} (want {want}), "
+             f"and the CPU run must launch none ({fa.LAUNCHES})")
     a, b = res.logits.cpu(), res_cpu.logits
     atol = 1e-4 * float(b.abs().max())
     diff = float((a - b).abs().max())
@@ -612,7 +793,7 @@ def serve_small_phase(torch, rt, fa, serve_mod, transformer, cfg) -> dict:
     out = {"phase": "serve_small", "model": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": 2,
            "prompt": 64, "decode_steps": gen - 1,
-           "launches": {"flash_attention": launches},
+           "launches": launches,
            "max_abs_diff": diff, "max_abs_logit": float(b.abs().max()),
            "rtol": 1e-4, "atol": atol}
     emit(out)
@@ -660,6 +841,7 @@ def main() -> int:
 
     checks = kernel_phase(torch, cd_glm)
     attn = attn_kernel_phase(torch, fa, attention._mode_mask)
+    split_comb = split_combine_phase(torch, fa, attention._mode_mask)
     small_phase(torch, rt, topology, synthetic)
 
     ring = topology.ring(NODES)
@@ -690,7 +872,8 @@ def main() -> int:
                 cut="depth 24 -> 4 layers (full width)")
     small_cfg = dataclasses.replace(rt.get_config("qwen3_4b"), num_layers=2,
                                     dtype="float32")
-    serve_small_phase(torch, rt, fa, serve_mod, transformer, small_cfg)
+    small = serve_small_phase(torch, rt, fa, serve_mod, transformer,
+                              small_cfg)
 
     src = "src/repro_torch/kernels/csrc/cd_glm.cu"
     kernels = []
@@ -707,18 +890,56 @@ def main() -> int:
             "bound_by": main_cfg["bound_by"], "library_ms": None,
             "steps": main_cfg["steps"]})
     by_case = {(r["case"], r["dtype"]): r for r in attn}
-    timing = lambda r: {key: r[key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    timing = lambda r: {key: r.get(key) for key in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library_device_ms")}
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    flash_replaces = "src/repro/kernels/flash_attention.py:48"
+    err_of = lambda route, dtype: max(
+        [r["max_abs_err"] for r in attn
+         if r["route"] == route and r["dtype"] == dtype] or [0.0])
+    decode = by_case[("decode_2src", "bfloat16")]
     kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:48",
-        "launches": serve_a["launches"]["flash_attention"],
-        "max_abs_err": max(r["max_abs_err"] for r in attn),
+        "name": "flash_mma", "route": "cuda", "source": flash_src,
+        "replaces": flash_replaces,
+        "launches": serve_a["launches"]["flash_mma"],
+        "max_abs_err": err_of("mma", "bfloat16"),
         **timing(by_case[("prefill", "bfloat16")]),
-        "shape": "prefill, bf16 (B=8, Sq=1024, Skv=2080, 32/8 heads, hd 128)",
-        "at_decode": {**timing(by_case[("decode", "bfloat16")]),
-                      "shape": "decode, bf16 (B=8, Sq=1, Skv=1057)"}})
+        "shape": "prefill, bf16 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
+                 "hd 128)"})
+    kernels.append({
+        "name": "flash_split", "route": "cuda", "source": flash_src,
+        "replaces": flash_replaces,
+        "launches": serve_a["launches"]["flash_split"],
+        "max_abs_err": max(split_comb["flash_split"]["max_abs_err"],
+                           err_of("split", "bfloat16")),
+        **timing(split_comb["flash_split"]),
+        "with_combine": {**timing(decode), "splits": decode["splits"],
+                         "shape": "decode, bf16, cache ++ fresh key "
+                                  "(B=8, Sq=1, Skv=1056+1)"},
+        "shape": f"decode, bf16 (B=8, Sq=1, Skv=1057), "
+                 f"{decode['splits']} splits; with_combine is the whole "
+                 "decode call (one launcher call starts both kernels)"})
+    kernels.append({
+        "name": "flash_combine", "route": "cuda", "source": flash_src,
+        "replaces": flash_replaces,
+        "launches": serve_a["launches"]["flash_combine"],
+        "max_abs_err": split_comb["flash_combine"]["max_abs_err"],
+        **timing(split_comb["flash_combine"]),
+        "shape": f"decode partials, {decode['splits']} splits of "
+                 "(8, 8, 4 rows, 128)"})
+    kernels.append({
+        "name": "flash_tiles", "route": "cuda", "source": flash_src,
+        "replaces": flash_replaces,
+        "launches": small["launches"]["flash_tiles"],
+        "launches_in": "serve_small (fp32: its route at prefill)",
+        "max_abs_err": err_of("tiles", "float32"),
+        **timing(by_case[("prefill", "float32")]),
+        "shape": "prefill, fp32 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
+                 "hd 128)"})
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        fail(f"kernels not launched on their main path: {idle}")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

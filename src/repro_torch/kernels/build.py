@@ -30,14 +30,17 @@ _LL = ctypes.c_longlong
 # C signatures of every exported launcher: (argtypes, restype)
 SIGNATURES = {
     "cd_glm": {
-        "cd_residual_launch": ([_P] * 8 + [_I] * 4 + [_F] * 4 + [_I] * 3 + [_P],
+        "cd_residual_launch": ([_P] * 8 + [_I] * 4 + [_F] * 4 + [_I] + [_P],
                                _I),
+        "cd_residual_layout": ([_I, _I, ctypes.POINTER(_I)], _I),
         "cd_gram_launch": ([_P] * 8 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P],
                            _I),
     },
     "flash_attention": {
-        "flash_attention_launch": ([_P] * 6 + [_LL] * 12 + [_I] * 9
-                                   + [_F, _P], _I),
+        "flash_attention_launch": ([_I] + [_P] * 6 + [_I] + [_P] * 3 + [_I]
+                                   + [ctypes.POINTER(_LL)] + [_I] * 7 + [_F]
+                                   + [_I] * 4 + [_P] * 2, _I),
+        "flash_combine_launch": ([_P] * 4 + [_LL] * 3 + [_I] * 7 + [_P], _I),
     },
 }
 

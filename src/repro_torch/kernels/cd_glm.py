@@ -26,6 +26,8 @@ launches (never plain-version calls).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 LAUNCHES = {"cd_residual": 0, "cd_gram": 0}
@@ -34,12 +36,32 @@ LAUNCHES = {"cd_residual": 0, "cd_gram": 0}
 # Hopper less room for the kernels' static shared memory.
 SMEM_OPT_IN = 232_448
 SMEM_DYNAMIC_MAX = SMEM_OPT_IN - 1024
-_RESIDUAL_THREADS = 256
+# threads per node's block of the residual kernel (one block per node),
+# chosen by measurement: chip_smoke.py's ``cd_residual_threads`` row times
+# 64, 128 and 256
+RESIDUAL_THREADS = 128
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def residual_layout(d: int, threads: int = RESIDUAL_THREADS) -> dict:
+    """Where the residual kernel keeps its state at this d and thread
+    count, as its launcher in ``csrc/cd_glm.cu`` decides (so this asks the
+    built library; card machines only): r and grad in registers (``rpt``
+    per thread), in shared memory (``r_smem``) or r in global scratch
+    (``scratch``); rows through a ring of ``stages`` rows (4-8), or from
+    global memory (``stages`` = 0)."""
+    from repro_torch.kernels import build
+    out = (ctypes.c_int * 4)()
+    if build.load("cd_glm").cd_residual_layout(d, threads, out) != 0:
+        raise ValueError(f"residual kernel: threads must be a multiple of 32 "
+                         f"in [32, 1024] and d >= 1, got threads={threads}, "
+                         f"d={d}")
+    return {"threads": threads, "rpt": out[0], "r_smem": bool(out[1]),
+            "scratch": bool(out[3]), "stages": out[2]}
 
 
 def gram_smem_bytes(n_k: int, itemsize: int = 4) -> int:
@@ -161,19 +183,29 @@ def cd_solve_blocks(a_cols, x_parts, grads, lin_parts, masks, *, num_steps: int,
     if budgets is not None:
         tensors["budgets"] = budgets
     _check("cd_solve_blocks", tensors, shapes, dev)
-    r_smem = 2 * d * 4 <= SMEM_DYNAMIC_MAX
-    vec_smem = r_smem and (2 * d + 5 * n_k) * 4 <= SMEM_DYNAMIC_MAX
+    return _residual_launch(a_cols, x_parts, grads, lin_parts, masks,
+                            RESIDUAL_THREADS, **kw)
+
+
+def _residual_launch(a_cols, x_parts, grads, lin_parts, masks, threads, *,
+                     num_steps, sigma_over_tau, l1, l2, box, budgets):
+    """Launch ``cd_residual_kernel`` on checked CUDA inputs with ``threads``
+    threads per node's block. ``cd_solve_blocks`` passes
+    ``RESIDUAL_THREADS``; the other counts serve the block-size measurement
+    in ``chip_smoke.py`` and the card tests of those counts."""
+    k, n_k, d = a_cols.shape
+    dev = a_cols.device
     dx = torch.empty((k, n_k), dtype=torch.float32, device=dev)
-    scratch = torch.empty((k, d + n_k), dtype=torch.float32, device=dev)
+    # r spills to (K, d) scratch when the layout puts it in global memory
+    scratch = torch.empty((k, d), dtype=torch.float32, device=dev)
     from repro_torch.kernels import build
-    lib = build.load("cd_glm")
-    rc = lib.cd_residual_launch(
+    rc = build.load("cd_glm").cd_residual_launch(
         a_cols.data_ptr(), x_parts.data_ptr(), grads.data_ptr(),
         lin_parts.data_ptr(), masks.data_ptr(),
         budgets.data_ptr() if budgets is not None else None,
         dx.data_ptr(), scratch.data_ptr(), k, d, n_k, int(num_steps),
-        float(sigma_over_tau), l1, l2, box, int(r_smem), int(vec_smem),
-        _RESIDUAL_THREADS, torch.cuda.current_stream(dev).cuda_stream)
+        float(sigma_over_tau), float(l1), float(l2), float(box), threads,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cd_residual_kernel launch failed: CUDA error {rc}")
     LAUNCHES["cd_residual"] += 1

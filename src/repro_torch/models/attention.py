@@ -11,8 +11,8 @@ are expressed through explicit positions: a KV slot is attendable iff its
 position is valid (>= 0) and the mode's positional predicate admits it.
 
 The model path does not call these: ``repro_torch.models.blocks._attention``
-goes to ``repro_torch.kernels.flash_attention`` (the Hopper kernel on the
-card, its plain version on the CPU). They are kept as the twins of the
+goes to ``repro_torch.kernels.flash_attention`` (the Hopper kernels on the
+card, their plain version on the CPU). They are kept as the twins of the
 reference's ``chunked_attention`` and ``reference_attention``. On a query row
 with no admissible key both give the mean of V (every masked score is
 NEG_INF, so the softmax is uniform), where the kernel gives 0.

@@ -47,14 +47,16 @@ def _attn_mode(cfg: ModelConfig) -> str:
             "chunked_local": "chunked_local"}[cfg.attention]
 
 
-def _attention(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *, mode: str):
-    """Attention dispatch. A CUDA tensor goes to the Hopper flash kernel and
-    a CPU tensor to its plain version, whatever ``cfg.attn_backend`` says:
-    in the reference that field picks between two implementations of the
-    same function (the jnp scan and the Pallas kernel); the port has one."""
+def _attention(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *, mode: str,
+               **fresh):
+    """Attention dispatch. A CUDA tensor goes to the Hopper flash kernels
+    and a CPU tensor to their plain version, whatever ``cfg.attn_backend``
+    says: in the reference that field picks between two implementations of
+    the same function (the jnp scan and the Pallas kernel); the port has
+    one. ``fresh`` may pass a second K/V source (``k2, v2, kv_pos2``)."""
     return flash_attention(q, k, v, q_pos, kv_pos, mode=mode,
                            window=cfg.window,
-                           compute_dtype=cfg.attn_compute_dtype)
+                           compute_dtype=cfg.attn_compute_dtype, **fresh)
 
 
 def _param(generator, shape, dtype, device, *, zeros: bool = False):
@@ -115,8 +117,9 @@ def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                mode: str | None = None):
     """Self attention. x: (B, S, d); positions: (B, S) int32 absolute.
 
-    With a cache, attention runs over (old cache) ++ (fresh chunk), which is
-    exact for one-token decode, chunked prefill and prompts longer than a
+    With a cache, attention runs over (old cache) ++ (fresh chunk), both
+    read in place by the kernel (no concatenation), which is exact for
+    one-token decode, chunked prefill and prompts longer than a
     ring buffer. The new K/V are then written at slot ``position %
     cache_len`` (a ring buffer: the identity layout for a cache sized >=
     the sequence; O(window) memory for sliding-window caches), keeping the
@@ -141,10 +144,12 @@ def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         out = _attention(cfg, q, k, v, positions, positions, mode=mode)
     else:
         cache_len = cache["k"].shape[1]
-        k_att = torch.cat([cache["k"].to(q.dtype), k], dim=1)
-        v_att = torch.cat([cache["v"].to(q.dtype), v], dim=1)
-        pos_att = torch.cat([cache["pos"], positions], dim=1)
-        out = _attention(cfg, q, k_att, v_att, positions, pos_att, mode=mode)
+        k_c, v_c = cache["k"], cache["v"]
+        if k_c.dtype != q.dtype:
+            k_c, v_c = k_c.to(q.dtype), v_c.to(q.dtype)
+        # the cache and the fresh chunk are read in place, in that order
+        out = _attention(cfg, q, k_c, v_c, positions, cache["pos"],
+                         mode=mode, k2=k, v2=v, kv_pos2=positions)
         if s >= cache_len:
             k_w, v_w = k[:, -cache_len:], v[:, -cache_len:]
             pos_w = positions[:, -cache_len:]

@@ -24,6 +24,7 @@ from repro.models import attention as jatt
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.models import attention as tatt
+from repro_torch.models.attention import NEG_INF
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -254,3 +255,124 @@ def test_plain_version_never_counts_as_a_launch():
     tfa.flash_attention(*_torch(_inputs(1, 2, 5, 2, 1, 8, seed=0),
                                 "float32"), mode="causal")
     assert tfa.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# two K/V sources (cache ++ fresh chunk) and the split-KV combine
+# ---------------------------------------------------------------------------
+
+def _ring_two_sources(b, sq, cache_len, h, kvh, hd, seed):
+    """A wrapped ring cache of ``cache_len`` slots (batch row 1: the first
+    third empty) and ``sq`` fresh keys after it, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, cache_len + sq, kvh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, cache_len + sq, kvh, hd)).astype(np.float32)
+    start = cache_len + 5
+    ring = [start - 1 - ((start - 1 - j) % cache_len) for j in range(cache_len)]
+    kv_pos = np.tile(ring + list(range(start, start + sq)), (b, 1)
+                     ).astype(np.int32)
+    kv_pos[1 % b, : cache_len // 3] = -1
+    q_pos = np.tile(np.arange(start, start + sq), (b, 1)).astype(np.int32)
+    return q, k, v, q_pos, kv_pos
+
+
+def _split_sources(tin, cut):
+    q, k, v, qp, kp = tin
+    return (q, k[:, :cut], v[:, :cut], qp, kp[:, :cut]), dict(
+        k2=k[:, cut:], v2=v[:, cut:], kv_pos2=kp[:, cut:].contiguous())
+
+
+TWO_SOURCE_CASES = [
+    # (b, sq, cache_len, h, kvh, hd, mode, window)
+    (2, 1, 40, 8, 2, 16, "causal", 0),        # decode
+    (2, 1, 37, 8, 2, 16, "sliding", 20),      # decode on a wrapped ring
+    (2, 12, 37, 4, 2, 16, "sliding", 30),     # chunk: tile 32..47 straddles
+    (1, 20, 45, 6, 3, 8, "chunked_local", 16),
+    (2, 9, 23, 4, 4, 32, "causal", 0),
+]
+
+
+@pytest.mark.parametrize("case", TWO_SOURCE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_source_plain_equals_one_source(case, dtype):
+    """The kernels' plain version given (cache, fresh) equals it given their
+    concatenation: the same keys in the same order."""
+    b, sq, cache_len, h, kvh, hd, mode, window = case
+    tin = _torch(_ring_two_sources(b, sq, cache_len, h, kvh, hd, seed=1),
+                 dtype)
+    one = tfa.flash_attention(*tin, mode=mode, window=window)
+    args, kw = _split_sources(tin, cache_len)
+    two = tfa.flash_attention(*args, mode=mode, window=window, **kw)
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("case", TWO_SOURCE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_source_plain_matches_pallas_on_concatenation(case, dtype):
+    b, sq, cache_len, h, kvh, hd, mode, window = case
+    arrs = _ring_two_sources(b, sq, cache_len, h, kvh, hd, seed=2)
+    out_j = pallas_flash(*_jax(arrs, dtype), mode=mode, window=window,
+                         block_q=8, block_kv=16, interpret=True)
+    args, kw = _split_sources(_torch(arrs, dtype), cache_len)
+    out_t = tfa.flash_attention(*args, mode=mode, window=window, **kw)
+    _close(out_t, out_j, TOL[dtype])
+
+
+def test_two_source_arguments_are_checked():
+    tin = _torch(_ring_two_sources(2, 3, 10, 4, 2, 8, seed=0), "float32")
+    args, kw = _split_sources(tin, 10)
+    with pytest.raises(ValueError, match="together"):
+        tfa.flash_attention(*args, mode="causal", k2=kw["k2"])
+    with pytest.raises(ValueError, match="k2"):
+        tfa.flash_attention(*args, mode="causal", k2=kw["k2"][:, :, :1],
+                            v2=kw["v2"][:, :, :1], kv_pos2=kw["kv_pos2"])
+    with pytest.raises(ValueError, match="kv_pos2"):
+        tfa.flash_attention(*args, mode="causal", k2=kw["k2"], v2=kw["v2"],
+                            kv_pos2=kw["kv_pos2"][:, :1])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 9])
+@pytest.mark.parametrize("mode,window", [("causal", 0), ("sliding", 50)])
+def test_split_combine_plain_matches_unsplit(splits, mode, window):
+    """The combine of per-split partials equals the unsplit plain version
+    to 1e-6 in fp32, with one split whose slots are all empty (m = -1e30,
+    l = 0 there)."""
+    b, sq, skv, h, kvh, hd = 2, 1, 150, 8, 2, 16
+    q, k, v, _, _ = _inputs(b, sq, skv, h, kvh, hd, seed=splits)
+    kv_pos = np.tile(np.arange(skv), (b, 1)).astype(np.int32)
+    kv_pos[:, 32:64] = -1                    # SPLIT_TILE keys 32..63 empty
+    q_pos = np.full((b, sq), skv + 3, np.int32)
+    tin = _torch((q, k, v, q_pos, kv_pos), "float32")
+    kw = dict(mode=mode, window=window)
+    want = tfa.flash_attention_plain(*tin, **kw)
+    m, l, acc = tfa.flash_split_plain(*tin, splits=splits, **kw)
+    assert m.shape == (b, kvh, splits, sq * h // kvh)
+    assert acc.shape == (b, kvh, splits, sq * h // kvh, hd)
+    per = tfa.tiles_per_split(skv, splits) * tfa.SPLIT_TILE
+    empty = [s for s in range(splits)
+             if s * per >= 32 and min((s + 1) * per, skv) <= 64]
+    for s in empty + [s for s in range(splits) if s * per >= skv]:
+        assert bool((m[:, :, s] == NEG_INF).all()) and bool((l[:, :, s] == 0).all())
+    got = tfa.flash_combine(m, l, acc, sq=sq, dtype=torch.float32)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-6, rtol=1e-6)
+    if mode == "causal":
+        out_j = pallas_flash(*_jax((q, k, v, q_pos, kv_pos), "float32"),
+                             mode=mode, block_q=1, block_kv=16,
+                             interpret=True)
+        _close(got, out_j, TOL["float32"])
+
+
+
+def test_routes_and_splits_follow_dtype_and_shape():
+    assert tfa.select_route(torch.bfloat16, 1, 4) == "split"
+    assert tfa.select_route(torch.float32, 2, 4) == "split"
+    assert tfa.select_route(torch.bfloat16, 1024, 4) == "mma"
+    assert tfa.select_route(torch.float32, 1024, 4) == "tiles"
+    assert tfa.select_route(torch.bfloat16, 3, 4) == "mma"
+    # Qwen3-4B decode (B=8, KV=8, 1,057 keys) and Danube3 (B=2, 4,097)
+    assert tfa.default_splits(8, 8, 1057) == 9
+    assert tfa.default_splits(2, 8, 4097) == 33
+    assert tfa.default_splits(1, 1, 40) == 2          # one per tile at most
+    assert tfa.tiles_per_split(1057, 9) == 4
+    assert tfa.tiles_per_split(10, 4) == 1

@@ -62,9 +62,17 @@ PROX = [(0.0, 1e-2, math.inf), (0.05, 0.0, 10.0), (0.0, 1.0, math.inf),
         (5e-3, 5e-3, 1e3)]
 
 
+# layouts (``cd_glm.residual_layout``): r/grad in registers with the row
+# ring (64, 300, 2,001 with 4-byte row copies), in shared memory with the
+# ring (5,000) and without it (12,000), in global scratch without the ring
+# (30,000); n_k = 12,000 spans twelve scalar chunks, n_k = 1 is one slot
 @pytest.mark.parametrize("k,d,n_k,pad", [(3, 64, 20, 0), (4, 300, 37, 3),
                                          (2, 30_000, 5, 1),
-                                         (2, 8, 12_000, 0)])
+                                         (2, 8, 12_000, 0),
+                                         (2, 5_000, 40, 2),
+                                         (2, 12_000, 30, 0),
+                                         (3, 2_001, 50, 1),
+                                         (2, 64, 1, 0)])
 @pytest.mark.parametrize("prox", PROX)
 @pytest.mark.parametrize("budget", [False, True])
 def test_residual_kernel_matches_plain(cuda, k, d, n_k, pad, prox, budget):
@@ -81,6 +89,48 @@ def test_residual_kernel_matches_plain(cuda, k, d, n_k, pad, prox, budget):
     out = cd_glm.cd_solve_blocks(*args, **kw)
     torch.cuda.synchronize()
     assert cd_glm.LAUNCHES["cd_residual"] == before + 1
+    _close(out, cd_glm.cd_residual_plain(*args, **kw))
+
+
+def test_residual_layout_covers_every_placement(cuda):
+    """r/grad in registers, in shared memory, in scratch; rows through the
+    ring or from global memory (what the card tests above exercise), as the
+    launcher in csrc/cd_glm.cu decides them."""
+    lay = cd_glm.residual_layout
+    assert lay(2_000, 128) == {"threads": 128, "rpt": 16, "r_smem": False,
+                               "scratch": False, "stages": 8}
+    assert lay(2_000, 64)["rpt"] == 32 and lay(2_000, 256)["rpt"] == 8
+    assert lay(5_000, 128) == {"threads": 128, "rpt": 0, "r_smem": True,
+                               "scratch": False, "stages": 7}
+    assert lay(12_000, 128)["r_smem"] and lay(12_000, 128)["stages"] == 0
+    assert lay(30_000, 128) == {"threads": 128, "rpt": 0, "r_smem": False,
+                                "scratch": True, "stages": 0}
+    with pytest.raises(ValueError, match="threads"):
+        lay(2_000, 100)
+
+
+@pytest.mark.parametrize("d,n_k,steps,threads", [
+    (2_001, 2_500, 6_250, 128),   # three chunks, the last short; wraps twice
+    (2_000, 2_048, 5_000, 64),    # two chunks: write-back then read-back
+    (300, 1_030, 2_100, 256),     # a 6-coordinate last chunk (< ring depth)
+    (30_000, 1_500, 3_200, 128),  # chunks without the ring
+])
+@pytest.mark.parametrize("budget", [False, True])
+def test_residual_kernel_chunks_and_threads(cuda, d, n_k, steps, threads,
+                                            budget):
+    """The per-coordinate scalars move through shared-memory chunks of
+    1,024 coordinates (kChunk in csrc/cd_glm.cu): walks that leave, revisit
+    and wrap around chunks, with budgets that stop inside a chunk, at 64,
+    128 and 256 threads (the counts chip_smoke.py times)."""
+    k = 3
+    inp = _inputs(k, d, n_k, seed=d + steps, dev=cuda, pad=3)
+    budgets = (torch.tensor([steps, 1_500, 1_025][:k], dtype=torch.int32,
+                            device=cuda) if budget else None)
+    kw = dict(num_steps=steps, sigma_over_tau=float(k), l1=5e-3, l2=5e-3,
+              box=1e3, budgets=budgets)
+    args = (inp["a_cols"], inp["x"], inp["grads"], inp["lin"], inp["mask"])
+    out = cd_glm._residual_launch(*args, threads, **kw)
+    torch.cuda.synchronize()
     _close(out, cd_glm.cd_residual_plain(*args, **kw))
 
 
@@ -180,10 +230,14 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     b, sq, skv, h, kvh, hd, mode, window, ring = case
     q, k, v, qp, kp = _attn_inputs(b, sq, skv, h, kvh, hd, dtype, cuda,
                                    seed=sum(case[:6]), ring=ring)
-    before = fa.LAUNCHES["flash_attention"]
+    route = fa.select_route(dtype, sq, h // kvh)
+    before = dict(fa.LAUNCHES)
     out = fa.flash_attention(q, k, v, qp, kp, mode=mode, window=window)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = {"split": ("flash_split", "flash_combine")}.get(
+        route, (f"flash_{route}",))
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == \
+        {n: int(n in want) for n in fa.LAUNCHES}
     _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp, mode=mode,
                                               window=window))
 
@@ -234,3 +288,132 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
         fa.flash_attention(torch.zeros((1, 4, 4, 272), device=cuda), big,
                            big, qp, torch.zeros((1, 4), dtype=torch.int32,
                                                 device=cuda), mode="causal")
+
+
+# every route over hd in {64, 120, 128, 256}, G in {1, 4, 5} and the four
+# modes; Sq = 1 takes the split-KV route, Sq = 37 (ragged against the
+# 64-row tiles) the tensor-core route in bf16 and the fp32 route in fp32
+ROUTE_SWEEP = [(hd, g, mode, sq)
+               for hd in (64, 120, 128, 256) for g in (1, 4, 5)
+               for mode in ("causal", "sliding", "chunked_local", "cross")
+               for sq in (1, 37)]
+
+
+@pytest.mark.parametrize("hd,g,mode,sq", ROUTE_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_routes_sweep(cuda, hd, g, mode, sq, dtype):
+    b, kvh, skv = 2, 2, 157
+    q, k, v, qp, kp = _attn_inputs(b, sq, skv, kvh * g, kvh, hd, dtype,
+                                   cuda, seed=hd + g + sq, ring=True)
+    kw = dict(mode=mode, window=40)
+    out = fa.flash_attention(q, k, v, qp, kp, **kw)
+    _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp, **kw))
+
+
+def _two_sources(b, sq, cache_len, h, kvh, hd, dtype, dev, seed):
+    """A wrapped ring cache (some slots empty) and a fresh chunk after it."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    draw = lambda *shape: t(rng.normal(size=shape).astype(np.float32)
+                            ).to(dtype)
+    q = draw(b, sq, h, hd)
+    k, v = draw(b, cache_len, kvh, hd), draw(b, cache_len, kvh, hd)
+    k2, v2 = draw(b, sq, kvh, hd), draw(b, sq, kvh, hd)
+    start = cache_len + 5
+    kv_pos = np.tile([start - 1 - ((start - 1 - j) % cache_len)
+                      for j in range(cache_len)], (b, 1)).astype(np.int32)
+    kv_pos[-1, : cache_len // 3] = -1
+    q_pos = np.tile(np.arange(start, start + sq), (b, 1)).astype(np.int32)
+    return q, k, v, t(q_pos), t(kv_pos), k2, v2, t(q_pos.copy())
+
+
+@pytest.mark.parametrize("sq,cache_len,mode,window", [
+    (1, 1057, "causal", 0),          # decode: 1,057 slots, 33.03 tiles
+    (1, 300, "sliding", 100),
+    (70, 250, "sliding", 200),       # a chunk against a ring
+    (100, 1001, "causal", 0),        # a tile straddles cache and chunk
+    (33, 129, "chunked_local", 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_two_sources_match_concatenation(cuda, sq, cache_len, mode,
+                                               window, dtype):
+    q, k, v, qp, kp, k2, v2, kp2 = _two_sources(2, sq, cache_len, 32, 8,
+                                                128, dtype, cuda, seed=sq)
+    kw = dict(mode=mode, window=window)
+    out = fa.flash_attention(q, k, v, qp, kp, k2=k2, v2=v2, kv_pos2=kp2,
+                             **kw)
+    ref = fa.flash_attention_plain(q, torch.cat([k, k2], 1),
+                                   torch.cat([v, v2], 1), qp,
+                                   torch.cat([kp, kp2], 1), **kw)
+    _attn_close(out, ref)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_split_counts(cuda, splits, dtype):
+    """1 to 32 splits of 1,057 keys (34 tiles; some splits are empty when
+    the tiles run out), then the combine."""
+    q, k, v, qp, kp, k2, v2, kp2 = _two_sources(3, 1, 1056, 40, 8, 128,
+                                                dtype, cuda, seed=splits)
+    kw = dict(mode="causal", k2=k2, v2=v2, kv_pos2=kp2)
+    parts = fa.flash_split(q, k, v, qp, kp, splits=splits, **kw)
+    out = fa.flash_combine(*parts, sq=1, dtype=dtype)
+    _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp, **kw))
+
+
+def test_flash_split_and_combine_match_their_plain_versions(cuda):
+    """The split kernel's partials against ``flash_split_plain`` (fp32
+    reassociation), and the combine kernel against ``flash_combine_plain``
+    on the same partials, including a split whose slots are all masked."""
+    q, k, v, qp, kp = _attn_inputs(2, 1, 200, 8, 2, 64, torch.float32, cuda,
+                                   seed=3)
+    kp[:, 64:128] = -1                   # split 1 of 3 (64 keys each) empty
+    kw = dict(mode="causal", splits=4)
+    m, l, acc = fa.flash_split(q, k, v, qp, kp, **kw)
+    pm, pl, pacc = fa.flash_split_plain(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert bool((m[:, :, 1] == -1e30).all()) and bool((l[:, :, 1] == 0).all())
+    assert torch.allclose(m, pm, rtol=1e-6, atol=1e-6)
+    assert torch.allclose(l, pl, rtol=1e-5, atol=1e-6)
+    assert torch.allclose(acc, pacc, rtol=1e-5, atol=1e-5)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = fa.flash_combine(m, l, acc, sq=1, dtype=dtype)
+        ref = fa.flash_combine_plain(m, l, acc, sq=1, dtype=dtype)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            err = (out - ref).abs()
+            assert bool((err <= 1e-6 * (1 + ref.abs())).all())
+        else:
+            _attn_close(out, ref)
+
+
+@pytest.mark.parametrize("sq", [1, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_unaligned_strides_take_element_copies(cuda, sq, dtype):
+    """Views whose rows are not 16-byte aligned: the wrapper falls to
+    element copies (never pads or copies the tensors) and stays exact."""
+    b, skv, h, kvh, hd = 2, 90, 8, 2, 64
+    q, k, v, qp, kp = _attn_inputs(b, sq, skv, h, kvh, hd, dtype, cuda,
+                                   seed=sq)
+    big_k = torch.zeros((b, skv, kvh, hd + 1), dtype=dtype, device=cuda)
+    big_k[..., 1:] = k
+    ku = big_k[..., 1:]
+    assert ku.stride(3) == 1 and not fa.vec16_ok([q, ku, v], hd)
+    out = fa.flash_attention(q, ku, v, qp, kp, mode="causal")
+    _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp,
+                                              mode="causal"))
+
+
+@pytest.mark.parametrize("sq", [1, 40])
+def test_flash_bf16_reads_strided_inputs(cuda, sq):
+    """bf16 views with 16-byte aligned strides (a fused qkv projection):
+    the 16-byte copy path reads them in place."""
+    b, skv, h, kvh, hd = 2, 70, 8, 2, 64
+    q, k, v, qp, kp = _attn_inputs(b, sq, skv, h, kvh, hd, torch.bfloat16,
+                                   cuda, seed=9)
+    kv = torch.cat([k, v], dim=-1)                  # (B, Skv, KV, 2 hd)
+    ks, vs = kv[..., :hd], kv[..., hd:]
+    assert not ks.is_contiguous() and fa.vec16_ok([q, ks, vs], hd)
+    out = fa.flash_attention(q, ks, vs, qp, kp, mode="causal")
+    _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp,
+                                              mode="causal"))
