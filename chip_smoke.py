@@ -10,22 +10,31 @@ line:
 1. device  — the card's name and power limit (``nvidia-smi``).
 2. build   — builds the kernels from ``src/repro_torch/kernels/csrc/``.
 3. kernel  — each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (Gram: K=16, n_k=125; residual: K=16, d=2,000,
-   n_k=25,000), with and without a step budget, and timed.
+   the main path's shapes (Gram: K=16, n_k=125 with G resident in shared
+   memory, K=4, n_k=500 and K=2, n_k=1,000 with G streamed; residual:
+   K=16, d=2,000, n_k=25,000), with and without a step budget, and timed.
+   gram_vs_residual — at K=4, d=400,000, n_k=500 (run_c's shape), the
+   Gram path per round (the c = A^T grad product plus the Gram kernel)
+   against the residual kernel forced on a_cols: the measurement behind
+   ``subproblem.gram_pays``.
 4. attn_kernel — the flash kernels against their plain version at the
    serving runs' shapes (Qwen3-4B prefill and decode, a wrapped sliding
    ring, chunked-local, cross; the decode and sliding shapes also as a
    cache and a fresh chunk in separate tensors), bf16 and fp32, timed
-   beside SDPA; each row names its route and, at decode, its splits.
+   beside SDPA; each row names its route and, at decode, its splits. fp32
+   inputs with more than 8 rows take the 3xTF32 tensor-core route.
    split_combine — the split-KV kernel and the combine kernel each against
    its plain version on the same inputs, and timed alone.
 5. small   — reduced runs on the card against the same runs on the CPU
-   (the plain versions), for both CD kernels.
+   (the plain versions), for both CD kernels and for a lasso with
+   n_k=300 (Gram kernel, G streamed).
 6. run_a   — lasso at the LIBSVM epsilon dataset's shape (synthetic
    400,000 x 2,000, ring(16)) through the Gram kernel.
 7. run_b   — ridge through its dual mapping at the same shape through the
    residual kernel.
-   Both print the history, the launches, ms per round of the round body
+7b. run_c  — lasso at the same shape on ring(4) (n_k=500): cd_mode="auto"
+   picks the Gram kernel with G streamed.
+   Each prints the history, the launches, ms per round of the round body
    and a profiler breakdown of it (device ms by kernel, idle share).
 8. serve_a — Qwen3-4B at full width and depth in bf16 through
    ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
@@ -45,8 +54,10 @@ the device time; ``device_ms`` beside it is the summed device time of the
 same calls from ``torch.profiler``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
-and the script exits non-zero. TF32 is off: the JAX reference computes in
-full fp32.
+and the script exits non-zero. TF32 is off for PyTorch's own products
+(cuBLAS, cuDNN): the JAX reference computes in full fp32. The fp32 flash
+route issues TF32 products by hand, three per product, and is held to the
+fp32 bar.
 """
 from __future__ import annotations
 
@@ -59,15 +70,20 @@ import time
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside the
-# tensor cores and dense bf16 tensor-core FLOP/s, at the 700 W power limit.
-# A kernel's bound takes the peak of its inputs' type: bf16 attention could
-# run on the tensor cores, fp32 attention and the CD kernels cannot.
+# tensor cores, dense bf16 and TF32 tensor-core FLOP/s, at the 700 W power
+# limit. A kernel's bound takes the peak of the units that can do its work
+# at its accuracy: bf16 attention on the bf16 tensor cores; fp32 attention
+# as three TF32 products (3xTF32 meets the fp32 bar, one TF32 product does
+# not), so 3x its FLOPs at the TF32 peak; the CD kernels' scalar chains on
+# the fp32 CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 494.7e12
 # kernel vs plain version: max|kernel - plain| <= KERNEL_TOL * max(1, max|plain|)
-# (fp32 reassociation of the per-step dot products, accumulated over the
-# recurrence)
+# (fp32 reassociation of the per-step dot products and, in the Gram
+# kernel, the prox's multiplications by precomputed reciprocals where the
+# plain version divides, accumulated over the recurrence)
 KERNEL_TOL = 1e-4
 # card vs CPU history, reduced runs: rtol, and atol relative to max|primal|
 SMALL_RTOL = 1e-4
@@ -114,14 +130,38 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def device_ms(torch, fn, reps: int) -> float:
-    """Device ms per call: the summed device time of every kernel that
-    ``reps`` calls of ``fn`` launch, from ``torch.profiler`` (after one
-    warm-up call). ``cuda_ms`` (the ``ms`` of every row) also counts the
-    host's launch cost where it exceeds the device time, as it does for
-    eager back-to-back calls of a short kernel; this leaves it out."""
+    """Device ms per call: CUDA events around ``reps`` calls queued behind
+    a sleep kernel (``torch.cuda._sleep``) that outlasts the host's
+    enqueueing, so the card runs them back to back and the host's launch
+    cost is left out. ``cuda_ms`` (the ``ms`` of every row) counts it where
+    it exceeds the device time, as it does for eager calls of a short
+    kernel. ``fn`` must not synchronise with the host. Unlike
+    ``torch.profiler`` (``device_profile``), which has dropped kernels of
+    some calls inside this script, it cannot miss a kernel;
+    ``round_profile`` reports the two side by side."""
     fn()
-    prof = device_profile(torch, lambda: [fn() for _ in range(reps)], None)
-    return prof["device_ms"] / reps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sleep_ms = 2.0 + 4.0 * reps * host_ms
+    for _ in range(6):
+        # cycles for sleep_ms at 2 GHz: the H100's SM clock is at most
+        # 1.98 GHz, so the sleep lasts at least sleep_ms
+        torch.cuda._sleep(int(sleep_ms * 2e6))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()   # still sleeping once all are queued
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        sleep_ms *= 4
+    fail("device_ms: could not queue the calls behind the sleep kernel")
 
 
 def bound(nbytes: float, flops: float,
@@ -139,8 +179,9 @@ def budget_vector(torch, k: int, steps: int):
 
 
 def check_kernel(torch, name, kernel_fn, plain_fn, args, kw, steps,
-                 budgets, cost) -> dict:
-    """One kernel config against its plain version: error and times."""
+                 budgets, cost, extra=None) -> dict:
+    """One kernel config against its plain version: error, times (events
+    and device) and bound; ``extra`` keys go into the row."""
     kw = dict(kw, num_steps=steps, budgets=budgets)
     out = kernel_fn(*args, **kw)
     ref = plain_fn(*args, **kw)  # also the plain version's warm-up
@@ -155,14 +196,19 @@ def check_kernel(torch, name, kernel_fn, plain_fn, args, kw, steps,
         fail(f"{name} disagrees with its plain version: max abs err {err} "
              f"(max |dx| {scale}, tolerance {KERNEL_TOL} * max(1, max|dx|))")
     ms = cuda_ms(torch, lambda: kernel_fn(*args, **kw), reps=3)
+    # short kernels: 20 queued calls, so that the gaps between launches
+    # weigh little
+    dev_ms = device_ms(torch, lambda: kernel_fn(*args, **kw),
+                       reps=20 if ms < 1.0 else 3)
     live = (steps if budgets is None
             else int(budgets.clamp(0, steps).sum()) / budgets.numel())
     bound_ms, bound_by = bound(*cost(live))
-    row = {"phase": "kernel", "name": name, "steps": steps,
+    row = {"phase": "kernel", "name": name, **(extra or {}), "steps": steps,
            "budgets": None if budgets is None else budgets.tolist(),
            "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
            "tolerance": KERNEL_TOL * max(1.0, scale), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
     emit(row)
     return row
 
@@ -174,29 +220,39 @@ def kernel_phase(torch, cd_glm) -> dict:
     k = NODES
     results = {}
 
-    # Gram kernel, lasso prox: K=16, n_k=125 (epsilon features over 16 nodes)
-    n_k = EPS_FEATURES // NODES
-    a = torch.randn((k, 4_000, n_k), generator=gen, device=dev) / 4_000 ** 0.5
-    gram = torch.bmm(a.transpose(1, 2), a)
-    x = 0.1 * torch.randn((k, n_k), generator=gen, device=dev)
-    atg = 0.1 * torch.randn((k, n_k), generator=gen, device=dev)
-    lin = torch.zeros((k, n_k), device=dev)
-    mask = torch.ones((k, n_k), device=dev)
-    kw = dict(sigma_over_tau=float(k), l1=0.05, l2=0.0, box=10.0)
-
-    def gram_cost(live):
-        nbytes = 4 * (k * n_k * n_k + 4 * k * n_k + k) + 4 * k * n_k
-        return nbytes, k * live * (2 * n_k + 12)
-
+    # Gram kernel, lasso prox: K=16, n_k=125 (epsilon features over 16
+    # nodes; G resident), K=4, n_k=500 (over 4 nodes, run_c) and K=2,
+    # n_k=1,000 (G streamed through the ring)
+    kw = dict(l1=0.05, l2=0.0, box=10.0)
     rows = []
-    for steps in (n_k, 8 * n_k):
-        for budgets in (None, budget_vector(torch, k, steps)):
-            rows.append(check_kernel(
-                torch, "cd_gram", cd_glm.cd_solve_blocks_gram,
-                cd_glm.cd_gram_plain, (gram, x, atg, lin, mask), kw, steps,
-                budgets, gram_cost))
+    for kg, n_k, step_counts in ((k, EPS_FEATURES // k, (125, 1000)),
+                                 (4, 500, (500,)), (2, 1000, (1000,))):
+        a = torch.randn((kg, 4_000, n_k), generator=gen, device=dev) \
+            / 4_000 ** 0.5
+        gram = torch.bmm(a.transpose(1, 2), a)
+        x = 0.1 * torch.randn((kg, n_k), generator=gen, device=dev)
+        atg = 0.1 * torch.randn((kg, n_k), generator=gen, device=dev)
+        lin = torch.zeros((kg, n_k), device=dev)
+        mask = torch.ones((kg, n_k), device=dev)
+        layout = "resident" if cd_glm.gram_fits_smem(n_k) else "streamed"
+        # the main path's call: G's column layout built once (the env's)
+        gram_cols = cd_glm.gram_columns(gram)
+        kernel_fn = lambda *a, gram_cols=gram_cols, **kw_: \
+            cd_glm.cd_solve_blocks_gram(*a, gram_cols=gram_cols, **kw_)
+
+        def gram_cost(live, kg=kg, n_k=n_k):
+            nbytes = 4 * (kg * n_k * n_k + 4 * kg * n_k + kg) + 4 * kg * n_k
+            return nbytes, kg * live * (2 * n_k + 12)
+
+        for steps in step_counts:
+            for budgets in (None, budget_vector(torch, kg, steps)):
+                rows.append(check_kernel(
+                    torch, "cd_gram", kernel_fn,
+                    cd_glm.cd_gram_plain, (gram, x, atg, lin, mask),
+                    dict(kw, sigma_over_tau=float(kg)), steps, budgets,
+                    gram_cost, {"K": kg, "n_k": n_k, "layout": layout}))
+        del a, gram, gram_cols
     results["cd_gram"] = rows
-    del a, gram
 
     # residual kernel, ridge-dual prox: K=16, d=2,000, n_k=25,000 (epsilon
     # samples over 16 nodes; columns are samples scaled 1/sqrt(400,000))
@@ -241,18 +297,78 @@ def kernel_phase(torch, cd_glm) -> dict:
     return results
 
 
-def small_phase(torch, rt, topo, synthetic) -> None:
+def gram_vs_residual_phase(torch, cd_glm, subproblem) -> dict:
+    """run_c's local solve both ways at K=4, d=400,000, n_k=500: the Gram
+    path per round (c = A^T grad, then the Gram kernel on G's columns)
+    against the residual kernel forced on a_cols (a second copy of A).
+    Both give the same dx up to fp32 rounding; the row says which is
+    faster and what ``gram_pays`` picks there."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k, d, n_k = 4, EPS_SAMPLES, EPS_FEATURES // 4
+    a = torch.randn((k, d, n_k), generator=gen, device="cuda") / d ** 0.5
+    a_cols = subproblem.block_cols(a)
+    gram = subproblem.block_gram(a)
+    gram_cols = cd_glm.gram_columns(gram)
+    grads = torch.randn((k, d), generator=gen, device="cuda")
+    x = 0.1 * torch.randn((k, n_k), generator=gen, device="cuda")
+    lin = torch.zeros((k, n_k), device="cuda")
+    mask = torch.ones((k, n_k), device="cuda")
+    kw = dict(num_steps=n_k, sigma_over_tau=float(k), l1=0.05, l2=0.0,
+              box=10.0)
+    atg_fn = lambda: torch.bmm(grads.unsqueeze(1), a).squeeze(1)
+    atg = atg_fn()
+    gram_fn = lambda: cd_glm.cd_solve_blocks_gram(
+        gram, x, atg_fn(), lin, mask, gram_cols=gram_cols, **kw)
+    kernel_fn = lambda: cd_glm.cd_solve_blocks_gram(
+        gram, x, atg, lin, mask, gram_cols=gram_cols, **kw)
+    res_fn = lambda: cd_glm.cd_solve_blocks(a_cols, x, grads, lin, mask,
+                                            **kw)
+    dx_g, dx_r = gram_fn(), res_fn()
+    torch.cuda.synchronize()
+    diff = float((dx_g - dx_r).abs().max())
+    scale = float(dx_r.abs().max())
+    if not diff <= KERNEL_TOL * max(1.0, scale):
+        fail(f"gram_vs_residual: the two formulations disagree: max abs "
+             f"diff {diff} (max |dx| {scale})")
+    row = {"phase": "gram_vs_residual", "K": k, "d": d, "n_k": n_k,
+           "steps": n_k, "gram_pays": subproblem.gram_pays(d, n_k),
+           "gram_layout": ("resident" if cd_glm.gram_fits_smem(n_k)
+                           else "streamed"),
+           "residual_layout": cd_glm.residual_layout(d),
+           "max_abs_diff": diff, "max_abs_dx": scale}
+    for name, fn in (("gram_path", gram_fn), ("atg", atg_fn),
+                     ("gram_kernel", kernel_fn), ("residual_kernel", res_fn)):
+        row[f"{name}_ms"] = cuda_ms(torch, fn, reps=3)
+        row[f"{name}_device_ms"] = device_ms(
+            torch, fn, reps=20 if row[f"{name}_ms"] < 10.0 else 3)
+    row["faster"] = ("gram" if row["gram_path_ms"] < row["residual_kernel_ms"]
+                     else "residual")
+    emit(row)
+    del a, a_cols, gram, gram_cols, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def small_phase(torch, rt, topo, synthetic, cd_glm) -> None:
     """Reduced runs: the card (kernels) against the CPU (plain versions)."""
     import numpy as np
-    cases = (("ridge_primal", 200, 64, "cd_gram"),
-             ("ridge_dual", 200, 16, "cd_residual"))
-    for name, n_samples, n_features, kernel in cases:
+    # (problem, samples, features, kernel, nodes, lambda): ridge_primal has
+    # n_k = 8 (G resident), ridge_dual n_k = 25 > d (residual), lasso
+    # n_k = 300 (G streamed)
+    cases = (("ridge_primal", 200, 64, "cd_gram", 8, 1e-2),
+             ("ridge_dual", 200, 16, "cd_residual", 8, 1e-2),
+             ("lasso", 400, 600, "cd_gram", 2, 5e-2))
+    for name, n_samples, n_features, kernel, nodes, lam in cases:
         x, y, _ = synthetic.regression(n_samples, n_features, seed=0)
         hist = {}
         for dev in ("cuda", "cpu"):
-            prob = rt.PROBLEMS[name](x, y, 1e-2, device=dev)
-            res = rt.run_cola(prob, topo.ring(8), rt.ColaConfig(kappa=2.0),
+            prob = rt.PROBLEMS[name](x, y, lam, device=dev)
+            cd_glm.reset_launches()
+            res = rt.run_cola(prob, topo.ring(nodes), rt.ColaConfig(kappa=2.0),
                               20, record_every=5, device=dev, block_size=8)
+            if dev == "cuda" and not cd_glm.LAUNCHES[kernel] > 0:
+                fail(f"small {name}: {kernel} was not launched "
+                     f"({cd_glm.LAUNCHES})")
             hist[dev] = res.history
         atol = SMALL_RTOL * max(abs(v) for v in hist["cpu"]["primal"])
         worst = 0.0
@@ -263,6 +379,8 @@ def small_phase(torch, rt, topo, synthetic) -> None:
                      f"{a.tolist()} vs {b.tolist()}")
             worst = max(worst, float(np.max(np.abs(a - b))))
         emit({"phase": "small", "problem": name, "kernel": kernel,
+              "n_k": -(-n_features // nodes) if name != "ridge_dual"
+              else -(-n_samples // nodes),
               "max_abs_diff": worst, "rtol": SMALL_RTOL, "atol": atol})
 
 
@@ -283,9 +401,11 @@ def regression_on_device(torch, n_samples, n_features, *, seed, noise=0.1,
 
 
 def round_profile(torch, prob, graph, cfg, rounds: int) -> dict:
-    """The round body alone: host-clock ms per round (synchronised), then a
-    ``torch.profiler`` window over the same rounds — device ms per round by
-    kernel and the device's idle share of the round."""
+    """The round body alone: host-clock ms per round (synchronised), device
+    ms per round (``device_ms``: rounds queued behind a sleep kernel) and
+    the device's idle share of the round, then a ``torch.profiler`` window
+    over the same rounds for device ms by kernel; ``profiler_coverage`` is
+    the profiler's device total over the queued one."""
     from repro_torch.core import cola, partition, topology
     part = partition.make_partition(prob.n, graph.num_nodes)
     env = cola.build_env(prob, part)
@@ -302,15 +422,22 @@ def round_profile(torch, prob, graph, cfg, rounds: int) -> dict:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / rounds
 
-    def window():
+    def one():
         nonlocal state
+        state = body(state, env, w, active)
+
+    dev_ms = device_ms(torch, one, rounds)
+
+    def window():
         for _ in range(rounds):
-            state = body(state, env, w, active)
+            one()
 
     prof = device_profile(torch, window, host_ms * rounds, top=6)
     return {"ms_per_round": host_ms,
-            "device_ms_per_round": prof["device_ms"] / rounds,
-            "device_idle_share": prof["device_idle_share"],
+            "device_ms_per_round": dev_ms,
+            "device_idle_share": 1.0 - dev_ms / host_ms,
+            "profiler_device_ms_per_round": prof["device_ms"] / rounds,
+            "profiler_coverage": prof["device_ms"] / rounds / dev_ms,
             "top_kernels": [{"name": r["name"],
                              "ms_per_round": r["ms"] / rounds,
                              "calls_per_round": r["calls"] / rounds}
@@ -343,7 +470,7 @@ def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
     flash = {}
     for n, ms, c in kernels:
         for kernel in ("flash_mma", "flash_split", "flash_combine",
-                       "flash_tiles"):
+                       "flash_tf32"):
             if kernel in n:
                 ms0, c0 = flash.get(kernel, (0.0, 0))
                 flash[kernel] = (ms0 + ms, c0 + c)
@@ -474,12 +601,17 @@ def attn_cases(torch):
 def attn_bound(torch, q, skv, kvh, pairs, n_pos) -> tuple[float, str]:
     """Least time for one attention call: q, k, v read once, out written
     once, positions read once; 4 hd FLOPs per admissible (query head, key)
-    pair at the peak of the inputs' type."""
+    pair at the bf16 tensor-core peak for bf16, and three times as many at
+    the TF32 peak for fp32 (3xTF32 is the cheapest product that meets the
+    fp32 bar). Returns (ms, bound_by, ms on the fp32 CUDA-core peak)."""
     b, sq, h, hd = q.shape
     item = q.element_size()
     nbytes = item * (2 * q.numel() + 2 * b * skv * kvh * hd) + 4 * n_pos
-    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
-    return bound(nbytes, 4 * hd * pairs * h, peak)
+    flops = 4 * hd * pairs * h
+    fp32_ms = bound(nbytes, flops, FP32_FLOPS)[0]
+    if q.dtype == torch.bfloat16:
+        return (*bound(nbytes, flops, BF16_TC_FLOPS), fp32_ms)
+    return (*bound(nbytes, 3 * flops, TF32_TC_FLOPS), fp32_ms)
 
 
 def attn_kernel_phase(torch, fa, mask_fn) -> list:
@@ -544,8 +676,8 @@ def attn_kernel_phase(torch, fa, mask_fn) -> list:
                              - ref.float()).abs().max())
             library_ms = cuda_ms(torch, lib, reps)
             library_device_ms = device_ms(torch, lib, reps)
-            bound_ms, bound_by = attn_bound(torch, q, skv, kvh, pairs,
-                                            q_pos.numel() + kv_pos.numel())
+            bound_ms, bound_by, fp32_bound_ms = attn_bound(
+                torch, q, skv, kvh, pairs, q_pos.numel() + kv_pos.numel())
             row = {"phase": "attn_kernel", "case": name,
                    "dtype": str(dtype).replace("torch.", ""),
                    "B": b, "Sq": sq, "Skv": skv, "H": h, "KV": kvh, "hd": hd,
@@ -563,7 +695,8 @@ def attn_kernel_phase(torch, fa, mask_fn) -> list:
                    "library": "scaled_dot_product_attention(bool mask, "
                               "enable_gqa)",
                    "library_max_abs_err": lib_err,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_fp32_cuda_cores_ms": fp32_bound_ms}
             emit(row)
             rows.append(row)
             del q, k, v, out, ref, qt, kt, vt
@@ -819,7 +952,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
 
     import repro_torch as rt
-    from repro_torch.core import topology
+    from repro_torch.core import subproblem, topology
     from repro_torch.data import synthetic
     from repro_torch.kernels import build, cd_glm
     from repro_torch.kernels import flash_attention as fa
@@ -842,7 +975,8 @@ def main() -> int:
     checks = kernel_phase(torch, cd_glm)
     attn = attn_kernel_phase(torch, fa, attention._mode_mask)
     split_comb = split_combine_phase(torch, fa, attention._mode_mask)
-    small_phase(torch, rt, topology, synthetic)
+    gvr = gram_vs_residual_phase(torch, cd_glm, subproblem)
+    small_phase(torch, rt, topology, synthetic, cd_glm)
 
     ring = topology.ring(NODES)
     x, y = regression_on_device(torch, EPS_SAMPLES, EPS_FEATURES, seed=0)
@@ -852,6 +986,12 @@ def main() -> int:
                      other="cd_residual", recorder="gap+certificate",
                      eps=1e-3, record_every=1, executor="block",
                      block_size=8)
+    # the same lasso over 4 nodes: n_k = 500, G streamed
+    run_c = main_run(torch, rt, cd_glm, "run_c", lasso, topology.ring(4),
+                     rt.ColaConfig(kappa=1.0, cd_mode="auto"), 20,
+                     kernel="cd_gram", other="cd_residual",
+                     recorder="gap+certificate", eps=1e-3, record_every=1,
+                     executor="block", block_size=8)
     del lasso
     torch.cuda.empty_cache()
     ridge = rt.PROBLEMS["ridge_dual"](x, y, 1e-2, device="cuda")
@@ -885,10 +1025,23 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": run["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
-            "ms": main_cfg["ms"], "plain_ms": main_cfg["plain_ms"],
+            "ms": main_cfg["ms"], "device_ms": main_cfg["device_ms"],
+            "plain_ms": main_cfg["plain_ms"],
             "bound_ms": main_cfg["bound_ms"],
             "bound_by": main_cfg["bound_by"], "library_ms": None,
             "steps": main_cfg["steps"]})
+    gram_at = lambda n_k: {key: r[key] for r in checks["cd_gram"]
+                           if r["n_k"] == n_k and r["budgets"] is None
+                           and r["steps"] == n_k
+                           for key in ("K", "n_k", "layout", "steps", "ms",
+                                       "device_ms", "plain_ms", "bound_ms")}
+    kernels[0].update(
+        launches_run_c=run_c["launches"]["cd_gram"],
+        shape="K=16, n_k=125 (G resident), 125 steps",
+        n_k_500=gram_at(500), n_k_1000=gram_at(1000),
+        gram_vs_residual={key: gvr[key] for key in (
+            "gram_path_ms", "gram_kernel_device_ms", "residual_kernel_ms",
+            "faster")})
     by_case = {(r["case"], r["dtype"]): r for r in attn}
     timing = lambda r: {key: r.get(key) for key in (
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -928,13 +1081,16 @@ def main() -> int:
         **timing(split_comb["flash_combine"]),
         "shape": f"decode partials, {decode['splits']} splits of "
                  "(8, 8, 4 rows, 128)"})
+    prefill32 = by_case[("prefill", "float32")]
     kernels.append({
-        "name": "flash_tiles", "route": "cuda", "source": flash_src,
+        "name": "flash_tf32", "route": "cuda", "source": flash_src,
         "replaces": flash_replaces,
-        "launches": small["launches"]["flash_tiles"],
+        "launches": small["launches"]["flash_tf32"],
         "launches_in": "serve_small (fp32: its route at prefill)",
-        "max_abs_err": err_of("tiles", "float32"),
-        **timing(by_case[("prefill", "float32")]),
+        "max_abs_err": err_of("tf32", "float32"),
+        **timing(prefill32),
+        "bound_peak": "3 x FLOPs at the TF32 tensor-core peak",
+        "bound_fp32_cuda_cores_ms": prefill32["bound_fp32_cuda_cores_ms"],
         "shape": "prefill, fp32 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
                  "hd 128)"})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]

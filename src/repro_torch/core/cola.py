@@ -36,6 +36,7 @@ from repro_torch.core.problems import Problem
 from repro_torch.core.subproblem import (SubproblemSpec, block_cols,
                                          block_gram, cd_solve_all, gram_pays)
 from repro_torch.device import resolve
+from repro_torch.kernels.cd_glm import gram_columns
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,11 +86,15 @@ class ColaEnv(NamedTuple):
     a_parts: torch.Tensor   # (K, d, n_k)
     gp_parts: torch.Tensor  # (K, n_k)
     masks: torch.Tensor     # (K, n_k)
-    # (K, n_k, n_k) node-local Gram blocks for the Gram kernel, or None
+    # (K, n_k, n_k) node-local Gram blocks, or None
     gram_parts: torch.Tensor | None = None
     # (K, n_k, d) contiguous rows A_i for the residual kernel, or None. At
     # the epsilon shape this copy is as large as A itself (3.2 GB in fp32).
     a_cols: torch.Tensor | None = None
+    # (K, n_k, ld) columns G[:, i] as contiguous rows for the Gram kernel
+    # on the card (``cd_glm.gram_columns``), or None (no Gram blocks, or
+    # the CPU, where the plain version reads ``gram_parts``)
+    gram_cols: torch.Tensor | None = None
 
 
 def build_env(problem: Problem, part: Partition, *,
@@ -97,16 +102,20 @@ def build_env(problem: Problem, part: Partition, *,
     """Materialize the per-run tensors. ``with_gram=None`` builds the Gram
     blocks exactly when ``gram_pays`` picks the Gram kernel; the residual
     kernel's ``a_cols`` layout is built exactly when the Gram blocks are
-    not."""
+    not. On the card the Gram blocks also get their column layout
+    (``gram_cols``), built here once per run."""
     a_parts = part.split_matrix(problem.a)
     if with_gram is None:
         with_gram = gram_pays(problem.d, part.block, a_parts.element_size())
+    gram = block_gram(a_parts) if with_gram else None
+    on_card = a_parts.device.type == "cuda"
     return ColaEnv(
         a_parts=a_parts,
         gp_parts=part.split_vector(problem.g_params()).contiguous(),
         masks=part.mask(problem.a.dtype, device=problem.a.device),
-        gram_parts=block_gram(a_parts) if with_gram else None,
+        gram_parts=gram,
         a_cols=None if with_gram else block_cols(a_parts),
+        gram_cols=gram_columns(gram) if with_gram and on_card else None,
     )
 
 
@@ -151,7 +160,7 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
                           env.gp_parts, env.masks, steps,
                           step_budgets=budgets,
                           gram_parts=env.gram_parts if use_gram else None,
-                          a_cols=env.a_cols)
+                          a_cols=env.a_cols, gram_cols=env.gram_cols)
         dx = dx * active[:, None].to(dx.dtype)
         # Steps 6-8: local variable + local estimate updates.
         x_new = state.x_parts + cfg.gamma * dx

@@ -35,19 +35,24 @@ import torch
 from repro_torch.kernels import cd_glm
 
 
+# Bytes of one node's (n_k, n_k) Gram block below which the Gram-cached
+# path runs: the reference's budget (``GRAM_VMEM_BUDGET``, 8 MiB), kept so
+# that both packages pick the same kernel at every shape. On Hopper it
+# stands for "G small enough that streaming it beats re-reading rows of A";
+# whether G also fits one block's shared memory only picks between the
+# Gram kernel's two layouts (``cd_glm.gram_fits_smem``).
+GRAM_BUDGET = 8 * 2 ** 20
+
+
 def gram_pays(d: int, n_k: int, itemsize: int = 4) -> bool:
-    """Cost model for the Gram-cached CD path on Hopper.
+    """Cost model for the Gram-cached CD path, the reference's rule.
 
     A residual step moves ~2 * d * itemsize bytes, a Gram step
     ~n_k * itemsize. Caching pays iff the per-step saving is real
-    (n_k < d) and the (n_k, n_k) block fits one thread block's shared
-    memory (``cd_glm.gram_fits_smem``, about n_k <= 237 in fp32). This
-    replaces the reference's 8 MB TPU VMEM budget: both rules agree at every
-    shape the tests and the epsilon-shaped runs use, and diverge above
-    n_k ~ 235, where the reference still picks the Gram path. A rule
-    measured on the card is later work.
+    (n_k < d) and the (n_k, n_k) block stays within ``GRAM_BUDGET``
+    (n_k <= 1,448 in fp32).
     """
-    return n_k < d and cd_glm.gram_fits_smem(n_k, itemsize)
+    return n_k < d and n_k * n_k * itemsize <= GRAM_BUDGET
 
 
 def block_gram(a_parts: torch.Tensor) -> torch.Tensor:
@@ -90,7 +95,7 @@ def _kernel_args(problem, spec, num_steps, step_budgets):
 
 def cd_solve_all(problem, spec: SubproblemSpec, a_parts, x_parts, grads,
                  gp_parts, masks, num_steps: int, step_budgets=None,
-                 gram_parts=None, a_cols=None) -> torch.Tensor:
+                 gram_parts=None, a_cols=None, gram_cols=None) -> torch.Tensor:
     """Theta-approximate solve of every node's G_k by ``num_steps`` cyclic
     CD updates.
 
@@ -105,6 +110,9 @@ def cd_solve_all(problem, spec: SubproblemSpec, a_parts, x_parts, grads,
         Gram-cached formulation runs.
       a_cols: optional (K, n_k, d) residual-kernel layout of ``a_parts``
         (``ColaEnv.a_cols``); built on the fly when omitted.
+      gram_cols: optional Gram-kernel layout of ``gram_parts``
+        (``cd_glm.gram_columns``, ``ColaEnv.gram_cols``); on the card the
+        wrapper builds it when omitted.
 
     Returns dx_parts: (K, n_k).
     """
@@ -112,7 +120,7 @@ def cd_solve_all(problem, spec: SubproblemSpec, a_parts, x_parts, grads,
     if gram_parts is not None:
         atg = torch.bmm(grads.unsqueeze(1), a_parts).squeeze(1)   # (K, n_k)
         return cd_glm.cd_solve_blocks_gram(gram_parts, x_parts, atg, gp_parts,
-                                           masks, **kw)
+                                           masks, gram_cols=gram_cols, **kw)
     if a_cols is None:
         a_cols = block_cols(a_parts)
     return cd_glm.cd_solve_blocks(a_cols, x_parts, grads, gp_parts, masks, **kw)

@@ -33,8 +33,7 @@ SIGNATURES = {
         "cd_residual_launch": ([_P] * 8 + [_I] * 4 + [_F] * 4 + [_I] + [_P],
                                _I),
         "cd_residual_layout": ([_I, _I, ctypes.POINTER(_I)], _I),
-        "cd_gram_launch": ([_P] * 8 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P],
-                           _I),
+        "cd_gram_launch": ([_P] * 7 + [_I] * 4 + [_F] * 4 + [_I] + [_P], _I),
     },
     "flash_attention": {
         "flash_attention_launch": ([_I] + [_P] * 6 + [_I] + [_P] * 3 + [_I]

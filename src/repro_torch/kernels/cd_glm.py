@@ -14,7 +14,9 @@ for the math and the cost model):
 
 The residual wrapper takes A as contiguous rows A_i, layout ``(K, n_k, d)``
 (``ColaEnv.a_cols``), so every step reads one contiguous row instead of a
-stride-n_k gather out of the reference's ``(K, d, n_k)`` blocks.
+stride-n_k gather out of the reference's ``(K, d, n_k)`` blocks. The Gram
+wrapper likewise gives its kernel G's columns as contiguous rows
+(``gram_columns``, ``ColaEnv.gram_cols``), since each step reads column i.
 
 Both take an optional ``(K,)`` int32 step budget: a step t >= budget[k]
 makes no update (heterogeneous Theta_k). Without budgets the result is the
@@ -64,13 +66,38 @@ def residual_layout(d: int, threads: int = RESIDUAL_THREADS) -> dict:
             "scratch": bool(out[3]), "stages": out[2]}
 
 
+# The Gram kernel holds n_k / 32 coordinates per lane in registers, at most
+# 48 (``kGramMaxRpt`` in csrc/cd_glm.cu): n_k <= 1,536, above the 1,448
+# where ``subproblem.gram_pays`` stops picking it in fp32.
+GRAM_MAX_NK = 1536
+
+
+def gram_ld(n_k: int) -> int:
+    """Row stride of the Gram kernel's column layout: n_k rounded up to 4
+    floats, so that every row starts 16-byte aligned."""
+    return -(-n_k // 4) * 4
+
+
+def gram_columns(gram_parts: torch.Tensor) -> torch.Tensor:
+    """(K, n_k, n_k) Gram blocks -> (K, n_k, ld) contiguous, row i holding
+    column i of G (zero padded to ``gram_ld``): the Gram kernel's layout.
+    The kernel reads columns, as the Pallas kernel does; it does not rely
+    on G being symmetric."""
+    k, n_k, _ = gram_parts.shape
+    out = gram_parts.new_zeros((k, n_k, gram_ld(n_k)))
+    out[:, :, :n_k] = gram_parts.transpose(1, 2)
+    return out
+
+
 def gram_smem_bytes(n_k: int, itemsize: int = 4) -> int:
-    """Shared memory of the Gram kernel with G and its vectors resident:
-    G at an odd row stride plus seven (n_k,) vectors."""
-    return (n_k * (n_k | 1) + 7 * n_k) * itemsize
+    """Shared memory of the Gram kernel with G resident: 8 per-coordinate
+    constants and G at row stride ``gram_ld(n_k)``."""
+    return (8 * n_k + n_k * gram_ld(n_k)) * itemsize
 
 
 def gram_fits_smem(n_k: int, itemsize: int = 4) -> bool:
+    """Whether the Gram kernel keeps G resident in shared memory (n_k <=
+    236 in fp32) or streams its columns through a ring."""
     return gram_smem_bytes(n_k, itemsize) <= SMEM_DYNAMIC_MAX
 
 
@@ -214,13 +241,17 @@ def _residual_launch(a_cols, x_parts, grads, lin_parts, masks, threads, *,
 
 def cd_solve_blocks_gram(gram_parts, x_parts, atg_parts, lin_parts, masks, *,
                          num_steps: int, sigma_over_tau: float, l1: float,
-                         l2: float, box: float, budgets=None) -> torch.Tensor:
+                         l2: float, box: float, budgets=None,
+                         gram_cols=None) -> torch.Tensor:
     """Gram-cached variant of ``cd_solve_blocks``.
 
     Args:
       gram_parts: (K, n_k, n_k) node-local Gram blocks A_[k]^T A_[k].
       atg_parts: (K, n_k) per-node A_[k]^T grad_f(v_k).
       x_parts / lin_parts / masks: (K, n_k); budgets: optional (K,) int32.
+      gram_cols: optional ``gram_columns(gram_parts)``, the kernel's layout
+        (``ColaEnv.gram_cols``); built here when omitted. The plain version
+        reads ``gram_parts``.
 
     Returns dx_parts: (K, n_k).
     """
@@ -234,28 +265,29 @@ def cd_solve_blocks_gram(gram_parts, x_parts, atg_parts, lin_parts, masks, *,
     if dev.type != "cuda":
         raise ValueError(f"cd_solve_blocks_gram: unsupported device {dev}")
     k, n_k, _ = gram_parts.shape
-    tensors = dict(gram_parts=gram_parts, x_parts=x_parts,
-                   atg_parts=atg_parts, lin_parts=lin_parts, masks=masks)
-    shapes = dict(gram_parts=(k, n_k, n_k), x_parts=(k, n_k),
-                  atg_parts=(k, n_k), lin_parts=(k, n_k), masks=(k, n_k),
-                  budgets=(k,))
+    if n_k > GRAM_MAX_NK:
+        raise ValueError(f"cd_solve_blocks_gram: the Gram kernel takes n_k <= "
+                         f"{GRAM_MAX_NK}, got {n_k}")
+    if gram_cols is None:
+        gram_cols = gram_columns(gram_parts)
+    tensors = dict(gram_parts=gram_parts, gram_cols=gram_cols,
+                   x_parts=x_parts, atg_parts=atg_parts, lin_parts=lin_parts,
+                   masks=masks)
+    shapes = dict(gram_parts=(k, n_k, n_k), gram_cols=(k, n_k, gram_ld(n_k)),
+                  x_parts=(k, n_k), atg_parts=(k, n_k), lin_parts=(k, n_k),
+                  masks=(k, n_k), budgets=(k,))
     if budgets is not None:
         tensors["budgets"] = budgets
     _check("cd_solve_blocks_gram", tensors, shapes, dev)
-    g_smem = gram_fits_smem(n_k)
-    vec_smem = 7 * n_k * 4 <= SMEM_DYNAMIC_MAX
-    threads = min(256, 32 * (-(-n_k // 32)))
     dx = torch.empty((k, n_k), dtype=torch.float32, device=dev)
-    scratch = torch.empty((k, 2 * n_k), dtype=torch.float32, device=dev)
     from repro_torch.kernels import build
-    lib = build.load("cd_glm")
-    rc = lib.cd_gram_launch(
-        gram_parts.data_ptr(), x_parts.data_ptr(), atg_parts.data_ptr(),
+    rc = build.load("cd_glm").cd_gram_launch(
+        gram_cols.data_ptr(), x_parts.data_ptr(), atg_parts.data_ptr(),
         lin_parts.data_ptr(), masks.data_ptr(),
         budgets.data_ptr() if budgets is not None else None,
-        dx.data_ptr(), scratch.data_ptr(), k, n_k, int(num_steps),
-        float(sigma_over_tau), l1, l2, box, int(g_smem), int(vec_smem),
-        threads, torch.cuda.current_stream(dev).cuda_stream)
+        dx.data_ptr(), k, n_k, gram_ld(n_k), int(num_steps),
+        float(sigma_over_tau), l1, l2, box, int(gram_fits_smem(n_k)),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cd_gram_kernel launch failed: CUDA error {rc}")
     LAUNCHES["cd_gram"] += 1

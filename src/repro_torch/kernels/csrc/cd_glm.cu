@@ -15,20 +15,22 @@
 //
 // cd_gram_kernel replaces src/repro/kernels/cd_glm.py::_cd_kernel_gram
 // (launched by cd_solve_blocks_gram): grad_i = c_i + sigma'/tau h_i,
-// h += G[:, i] delta, with ||A_i||^2 = diag(G).
+// h += G[:, i] delta, with ||A_i||^2 = diag(G), G given as its columns
+// stored as contiguous rows (layout (K, n_k, ld)).
 //
 // The Pallas kernels' sequential fori_loop with VMEM carries becomes a loop
 // inside one thread block per node. Unlike the TPU kernels these take a (K,)
 // int32 step budget (NULL = no budget): the main path passes one.
 //
 // What bounds them on this card: each step is a dependent chain — a
-// block-wide reduction (residual kernel) or a broadcast (Gram kernel) — and
+// block-wide reduction (residual kernel) or a shuffle (Gram kernel) — and
 // only K of the 132 SMs are busy; the bytes/peak bound (one read of A or G)
 // is far below. The residual kernel keeps memory off that chain: rows are
 // prefetched through a cp.async ring, the per-coordinate scalars are staged
 // in shared memory ahead of use, r and grad sit in registers, and a step
 // has one barrier (every thread computes the prox step itself). The Gram
-// kernel keeps thread 0's prox broadcast and two barriers per step.
+// kernel runs each node's recurrence in one warp with no barrier in the
+// step loop and no division on it (see its section below).
 // Clusters that split d over several SMs per node are the next step.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
@@ -318,99 +320,244 @@ __global__ void cd_residual_kernel(const float* __restrict__ a_cols,
 }
 
 // ---------------------------------------------------------------------------
-// Gram kernel. Dynamic shared memory holds, in order:
-//   G with an odd row stride ld (n_k * ld floats)   when g_smem
-//   x, c, lin, mask, q, dx, h (7 n_k floats)        when vec_smem
-// otherwise G is read in global memory (ld = n_k) and the vectors live in
-// scratch[k, 0:2 n_k] (q, h) and the global inputs / output.
+// Gram kernel: one warp per node runs the recurrence, with no block barrier
+// inside the step loop.
+//
+// * G comes as its columns stored as contiguous rows (gram_cols: row i is
+//   G[:, i], row stride ld = n_k rounded up to 4, zero padded), so each
+//   step reads one contiguous row of ld floats.
+// * Lane l owns the coordinates j = 4 l + 128 v + c (v < RPT / 4, c < 4)
+//   and holds h[j] and dx[j] in registers; it reads G[j, i] for its j as
+//   RPT / 4 float4 loads (conflict-free: 32 lanes, 512 consecutive bytes).
+// * Each step the lane that owns i hands h_i and z_i = x_i + dx_i over with
+//   __shfl_sync, and every lane computes the same prox step itself, so no
+//   delta goes through shared memory. The step loop is unrolled over the
+//   register index of i (v, c), so that h[4 v + c] stays a register.
+// * No division on the chain, and one FMA from h_i to u: a prologue,
+//   parallel over the block's 128 threads, stores per coordinate
+//   a_i = sigma'/tau / q_i, b_i = (c_i + lin_i) / q_i, l1 / q_i,
+//   1 / (1 + l2 / q_i), the live flag (q_i > 0 and mask_i > 0) and x_i
+//   (CoordConst, 32 bytes) in shared memory, so that
+//   u = z - (c_i + sigma'/tau h_i + lin_i) / q_i = fma(-a_i, h_i, z - b_i)
+//   with z - b_i off the chain. Each step reads its coordinate's constants
+//   and its G row before the shuffle, since neither depends on delta.
+// * G moves by TMA bulk copies (cp.async.bulk, completion on an
+//   mbarrier), in groups of 4 rows (the steps that the unrolled loop walks
+//   together), so that a step pays a wait and a copy only once per 4:
+//   RESIDENT (G fits shared memory, n_k <= 236): one copy of all of G,
+//   issued before the prologue and waited for once before the loop (eight
+//   row chunks waited for as the first pass reaches them measured slower
+//   at n_k = 125 and no faster at 236). Streamed (n_k up to
+//   1,536): a ring of kGramStages groups (4 kGramStages rows ahead); the
+//   step that loads a group's last row into registers refills its slot
+//   (after a __syncwarp) before its prox chain, so the copy overlaps the
+//   chain's latency, and the recurrence warp waits only on mbarriers.
+// After the prologue's one __syncthreads the other three warps exit.
 // ---------------------------------------------------------------------------
-__global__ void cd_gram_kernel(const float* __restrict__ gram,
-                               const float* __restrict__ x,
-                               const float* __restrict__ atg,
-                               const float* __restrict__ lin,
-                               const float* __restrict__ mask,
-                               const int* __restrict__ budgets,
-                               float* __restrict__ dx_out,
-                               float* __restrict__ scratch,
-                               int n_k, int num_steps, float sot, float l1,
-                               float l2, float box, int g_smem, int vec_smem) {
-  extern __shared__ float smem[];
-  __shared__ float delta_sh;
+constexpr int kGramThreads = 128;
+constexpr int kGramStages = 4;  // streamed: ring slots of 4 rows each
+constexpr int kGramMaxRpt = 48;  // n_k <= 32 * 48 = 1,536
 
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const float* g_in = gram + (size_t)k * n_k * n_k;
-  float* scr = scratch + (size_t)k * 2 * n_k;
+struct __align__(16) CoordConst {
+  float a, b, sl1, inv;    // sigma'/tau / q, (c + lin) / q, l1 / q, 1/(1 + l2/q)
+  float ok, x, pad0, pad1;  // live flag, x_i
+};
 
-  float* sp = smem;
-  const float* G;
-  int ld;
-  if (g_smem) {
-    ld = n_k | 1;  // odd stride: the column reads G[j*ld + i] hit distinct banks
-    float* gs = sp;
-    for (int e = tid; e < n_k * n_k; e += nth) {
-      const int row = e / n_k, col = e - row * n_k;
-      gs[row * ld + col] = g_in[e];
-    }
-    G = gs;
-    sp += (size_t)n_k * ld;
-  } else {
-    ld = n_k;
-    G = g_in;
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
 
-  const float *xs, *cs, *ls, *ms;
-  float *qs, *dxs, *hs;
-  if (vec_smem) {
-    float* xv = sp;
-    float* cv = sp + n_k;
-    float* lv = sp + 2 * n_k;
-    float* mv = sp + 3 * n_k;
-    qs = sp + 4 * n_k;
-    dxs = sp + 5 * n_k;
-    hs = sp + 6 * n_k;
-    for (int i = tid; i < n_k; i += nth) {
-      xv[i] = x[(size_t)k * n_k + i];
-      cv[i] = atg[(size_t)k * n_k + i];
-      lv[i] = lin[(size_t)k * n_k + i];
-      mv[i] = mask[(size_t)k * n_k + i];
-    }
-    xs = xv; cs = cv; ls = lv; ms = mv;
-  } else {
-    xs = x + (size_t)k * n_k;
-    cs = atg + (size_t)k * n_k;
-    ls = lin + (size_t)k * n_k;
-    ms = mask + (size_t)k * n_k;
-    qs = scr;
-    hs = scr + n_k;
-    dxs = dx_out + (size_t)k * n_k;
-  }
-  for (int i = tid; i < n_k; i += nth) {
-    dxs[i] = 0.f;
-    hs[i] = 0.f;
-    qs[i] = sot * g_in[(size_t)i * n_k + i];  // diag(G) = ||A_i||^2
-  }
-  __syncthreads();
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
+// arrive once on `bar` and expect `bytes` of TMA transactions on it
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one TMA bulk copy global -> shared of `bytes` (multiple of 16, both
+// addresses 16-byte aligned), completing on `bar`
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Dynamic shared memory: n_k CoordConst, then G (n_k x ld floats) when
+// RESIDENT, else the ring (kGramStages x 4 x ld floats).
+template <int RPT, bool RESIDENT>
+__global__ void __launch_bounds__(kGramThreads)
+    cd_gram_kernel(const float* __restrict__ gram_cols,
+                   const float* __restrict__ x,
+                   const float* __restrict__ atg,
+                   const float* __restrict__ lin,
+                   const float* __restrict__ mask,
+                   const int* __restrict__ budgets,
+                   float* __restrict__ dx_out, int n_k, int ld,
+                   int num_steps, float sot, float l1, float l2, float box) {
+  extern __shared__ __align__(16) float gram_smem[];
+  __shared__ __align__(8) uint64_t bars[kGramStages];
+  constexpr int NV = RPT / 4;  // float4 groups per lane
+  constexpr int stages = kGramStages;
+  const int k = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const float* gk = gram_cols + (size_t)k * n_k * ld;
+  const size_t node = (size_t)k * n_k;
+  CoordConst* cc = reinterpret_cast<CoordConst*>(gram_smem);
+  float* gbuf = gram_smem + 8 * (size_t)n_k;
   const int steps = live_steps(budgets, k, num_steps);
-  for (int t = 0; t < steps; ++t) {
-    const int i = t % n_k;
-    if (tid == 0) {
-      const float z = xs[i] + dxs[i];
-      const float gi = cs[i] + sot * hs[i];
-      const float delta =
-          prox_delta(z, gi, qs[i], ls[i], ms[i], true, l1, l2, box);
-      dxs[i] += delta;
-      delta_sh = delta;
+  const uint32_t row_bytes = (uint32_t)ld * sizeof(float);
+  // group g holds rows [4 g, min(4 g + 4, n_k)); ng groups per pass
+  const int ng = (n_k + 3) >> 2;
+  auto group_bytes = [&](int g) {
+    return row_bytes * (uint32_t)min(4, n_k - 4 * g);
+  };
+  // streamed: the next group to copy and the step at which it starts
+  int issue_g = 0, issue_t = 0;
+  auto next_group = [&]() {
+    issue_t += issue_g == ng - 1 ? n_k - 4 * issue_g : 4;
+    issue_g = issue_g == ng - 1 ? 0 : issue_g + 1;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+    mbar_fence_init();
+    if (RESIDENT) {
+      if (steps > 0) {
+        mbar_expect_tx(&bars[0], row_bytes * n_k);
+        bulk_g2s(gbuf, gk, row_bytes * n_k, &bars[0]);
+      }
+    } else {
+      for (int s = 0; s < stages && issue_t < steps; ++s) {
+        mbar_expect_tx(&bars[s], group_bytes(issue_g));
+        bulk_g2s(gbuf + (size_t)4 * s * ld, gk + (size_t)4 * issue_g * ld,
+                 group_bytes(issue_g), &bars[s]);
+        next_group();
+      }
+      issue_g = issue_t = 0;  // every lane advances past these below
     }
-    __syncthreads();
-    const float delta = delta_sh;
-    for (int j = tid; j < n_k; j += nth) hs[j] += G[(size_t)j * ld + i] * delta;
-    __syncthreads();  // thread 0 reads h[i] of another thread next step
+  }
+  for (int i = tid; i < n_k; i += kGramThreads) {
+    const float q = sot * gk[(size_t)i * ld + i];  // diag(G) = ||A_i||^2
+    const float qs = q > 0.f ? q : 1.f;
+    CoordConst v;
+    v.a = sot / qs;
+    v.b = (atg[node + i] + lin[node + i]) / qs;
+    v.sl1 = l1 / qs;
+    v.inv = 1.f / (1.f + l2 / qs);
+    v.ok = (q > 0.f && mask[node + i] > 0.f) ? 1.f : 0.f;
+    v.x = x[node + i];
+    v.pad0 = v.pad1 = 0.f;
+    cc[i] = v;
+  }
+  __syncthreads();  // the kernel's only block barrier
+  if (tid >= 32) return;
+
+  float h[RPT], dxr[RPT];
+#pragma unroll
+  for (int e = 0; e < RPT; ++e) h[e] = dxr[e] = 0.f;
+  if (!RESIDENT)  // the groups the prologue has issued
+    for (int s = 0; s < stages && issue_t < steps; ++s) next_group();
+  if (RESIDENT && steps > 0) mbar_wait(&bars[0], 0);  // G has landed
+
+  // streamed: the ring slot of the current group and its phase
+  int slot = 0;
+  uint32_t phase = 0;
+  int t = 0;
+  while (t < steps) {
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      const int owners = min(32, (n_k - 128 * e + 3) >> 2);
+      for (int q = 0; q < owners && t < steps; ++q) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 128 * e + 4 * q + c;
+          if (i < n_k && t < steps) {
+            if (!RESIDENT && c == 0)  // entering group i / 4: it landed
+              mbar_wait(&bars[slot], phase);
+            const float* grow =
+                gbuf + (size_t)(RESIDENT ? i : 4 * slot + c) * ld;
+            float4 gv[NV];
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+              const int j = 4 * lane + 128 * v;
+              gv[v] = j < ld ? *reinterpret_cast<const float4*>(grow + j)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+            const float4 ca = *reinterpret_cast<const float4*>(&cc[i].a);
+            const float4 cb = *reinterpret_cast<const float4*>(&cc[i].ok);
+            if (!RESIDENT && (c == 3 || i == n_k - 1)) {
+              // every lane has read the group: refill its slot
+              __syncwarp();
+              if (issue_t < steps) {
+                if (lane == 0) {
+                  mbar_expect_tx(&bars[slot], group_bytes(issue_g));
+                  bulk_g2s(gbuf + (size_t)4 * slot * ld,
+                           gk + (size_t)4 * issue_g * ld,
+                           group_bytes(issue_g), &bars[slot]);
+                }
+                next_group();
+              }
+              if (++slot == stages) {
+                slot = 0;
+                phase ^= 1u;
+              }
+            }
+            const float z =
+                __shfl_sync(0xffffffffu, cb.y + dxr[4 * e + c], q);
+            const float w = z - ca.y;
+            const float hi = __shfl_sync(0xffffffffu, h[4 * e + c], q);
+            const float u = fmaf(-ca.x, hi, w);
+            const float mag = fmaxf(fabsf(u) - ca.z, 0.f);
+            const float zn = fminf(fmaxf(copysignf(mag, u) * ca.w, -box), box);
+            const float delta = cb.x != 0.f ? zn - z : 0.f;
+            if (lane == q) dxr[4 * e + c] += delta;
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+              h[4 * v] = fmaf(gv[v].x, delta, h[4 * v]);
+              h[4 * v + 1] = fmaf(gv[v].y, delta, h[4 * v + 1]);
+              h[4 * v + 2] = fmaf(gv[v].z, delta, h[4 * v + 2]);
+              h[4 * v + 3] = fmaf(gv[v].w, delta, h[4 * v + 3]);
+            }
+            ++t;
+          }
+        }
+      }
+    }
   }
 
-  if (vec_smem)
-    for (int i = tid; i < n_k; i += nth) dx_out[(size_t)k * n_k + i] = dxs[i];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 4 * lane + 128 * v + c;
+      if (j < n_k) dx_out[node + j] = dxr[4 * v + c];
+    }
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -517,19 +664,51 @@ int cd_residual_launch(const float* a_cols, const float* x,
   return (int)cudaGetLastError();
 }
 
-int cd_gram_launch(const float* gram, const float* x, const float* atg,
+// One block of kGramThreads per node; gram_cols (K, n_k, ld): row i of
+// node k is G_k[:, i], ld = n_k rounded up to 4 (zero padded), 16-byte
+// aligned. resident: G in shared memory (the caller checks that it fits:
+// (8 n_k + n_k ld) floats), else streamed through a ring of kGramStages
+// groups of 4 rows. Returns cudaErrorInvalidValue for n_k > 1,536 or a
+// bad ld.
+int cd_gram_launch(const float* gram_cols, const float* x, const float* atg,
                    const float* lin, const float* mask, const int* budgets,
-                   float* dx, float* scratch, int K, int n_k, int num_steps,
-                   float sot, float l1, float l2, float box, int g_smem,
-                   int vec_smem, int threads, void* stream) {
-  const size_t ld = (size_t)(n_k | 1);
-  size_t bytes = ((g_smem ? (size_t)n_k * ld : 0) +
-                  (vec_smem ? 7 * (size_t)n_k : 0)) * sizeof(float);
-  int rc = set_smem((const void*)cd_gram_kernel, bytes);
+                   float* dx, int K, int n_k, int ld, int num_steps,
+                   float sot, float l1, float l2, float box, int resident,
+                   void* stream) {
+  if (n_k < 1 || n_k > 32 * kGramMaxRpt || ld < n_k || (ld & 3) ||
+      (reinterpret_cast<uintptr_t>(gram_cols) & 15))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      (8 * (size_t)n_k + (size_t)(resident ? n_k : 4 * kGramStages) * ld) *
+      sizeof(float);
+  if (bytes > kSmemDynamicMax) return (int)cudaErrorInvalidValue;
+  const int need = (n_k + 31) / 32;
+  const void* fn = nullptr;
+  if (resident) {
+    if (need <= 4) fn = (const void*)cd_gram_kernel<4, true>;
+    else if (need <= 8) fn = (const void*)cd_gram_kernel<8, true>;
+    else return (int)cudaErrorInvalidValue;
+  } else if (need <= 4) {
+    fn = (const void*)cd_gram_kernel<4, false>;
+  } else if (need <= 8) {
+    fn = (const void*)cd_gram_kernel<8, false>;
+  } else if (need <= 16) {
+    fn = (const void*)cd_gram_kernel<16, false>;
+  } else if (need <= 32) {
+    fn = (const void*)cd_gram_kernel<32, false>;
+  } else {
+    fn = (const void*)cd_gram_kernel<48, false>;
+  }
+  int rc = set_smem(fn, bytes);
   if (rc) return rc;
-  cd_gram_kernel<<<K, threads, bytes, (cudaStream_t)stream>>>(
-      gram, x, atg, lin, mask, budgets, dx, scratch, n_k, num_steps, sot, l1,
-      l2, box, g_smem, vec_smem);
+  void* args[] = {(void*)&gram_cols, (void*)&x,   (void*)&atg,
+                  (void*)&lin,       (void*)&mask, (void*)&budgets,
+                  (void*)&dx,        (void*)&n_k, (void*)&ld,
+                  (void*)&num_steps, (void*)&sot, (void*)&l1,
+                  (void*)&l2,        (void*)&box};
+  rc = (int)cudaLaunchKernel(fn, dim3(K), dim3(kGramThreads), args, bytes,
+                             (cudaStream_t)stream);
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }
 

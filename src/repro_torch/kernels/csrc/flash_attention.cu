@@ -58,10 +58,12 @@
 //   floor on outputs near 0). hd is padded to 32/64/128/256 with
 //   zeros in shared memory and the store masks the extra columns. Bound:
 //   bf16 tensor-core operations.
-// * flash_tiles_kernel (fp32 inputs, rows > 8): fp32 FMAs on the CUDA cores
-//   out of shared memory (one block of 256 threads per 16 or 64 rows).
-//   fp32 attention serves only the fp32 configurations, and this route
-//   meets the 2e-5 bar.
+// * flash_tf32_kernel (fp32 inputs, rows > 8): flash_mma_kernel's skeleton
+//   (warps of 16 rows, eight per block up to hd 128, tile list, two-stage
+//   cp.async ring, 64-key tiles, 32 at hd > 128) with both products as 3xTF32 on the tensor
+//   cores (mma.sync m16n8k8: small*big + big*small + big*big of the split
+//   fp32 operands), held to the fp32 bar. Bound: TF32 tensor-core
+//   operations, three per product.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC, loaded with ctypes (plain C interface below).
@@ -295,228 +297,350 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// Route 0: fp32 FMAs on the CUDA cores (the first port's kernel, now
-// reading two sources). RM query rows and CN keys per thread per tile (BM = 16 RM,
-// BN = 16 CN), ND head-dim columns of the accumulator per thread.
+// Route 0: fp32 inputs on the tensor cores as 3xTF32 (mma.sync m16n8k8).
+//
+// The skeleton is flash_mma_kernel's: warps of 16 query rows each (eight
+// per block up to hd 128, four above), the tile list, a two-stage
+// cp.async ring of K/V tiles read in place from one or two sources, the
+// online softmax in fp32 registers in the accumulator layout. Both products run on the tensor cores: every fp32
+// operand a is split into big = rna_tf32(a) and small = rna_tf32(a - big)
+// (~22 bits of a), and each product is small*big + big*small + big*big,
+// accumulated in fp32 (one TF32 product keeps ~11 bits and misses the fp32
+// bar by an order of magnitude; the dropped small*small term is ~2^-22
+// relative).
+//
+// P needs no layout change: the m16n8 accumulator gives lane (g, t) the
+// keys 2t, 2t + 1 of rows g, g + 8, and the A operand of m16n8k8 wants
+// k-indices t, t + 4. P V sums over the keys of a chunk in any order, so
+// k-index t stands for key 2t and t + 4 for key 2t + 1, and the V fragment
+// reads the same keys: P stays in the registers that hold it.
+//
+// Shared memory rows are padded to hd + 4 floats: the fragment loads (row
+// lane / 4, column lane % 4; for V row 2 (lane % 4), column lane / 4) fall
+// in 32 distinct banks. Tiles of 64 keys up to hd 128, 32 above
+// (hd 128, 128 rows: ~203 KB of the 227 KB a block may have; hd 256, 64
+// rows: ~200 KB).
+// Bound: the TF32 tensor-core operations (three products per product).
 // ---------------------------------------------------------------------------
-constexpr int kTileThreads = 256;  // a 16 x 16 grid of threads
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
 
-template <typename T, int RM, int CN, int ND>
-__global__ void __launch_bounds__(kTileThreads)
-    flash_tiles_kernel(const __grid_constant__ Params p) {
-  constexpr int BM = 16 * RM;
-  constexpr int BN = 16 * CN;
-  constexpr int LDP = BN + 16;  // half-warps of rows ty, ty+1 hit other banks
-  extern __shared__ float smem[];
+// x = big + small to ~2^-22 |x|, each part a TF32 value
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b for one m16n8k8 tile (TF32 operands, fp32 accumulators)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32 from fp32 operands: the small cross terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], float b0,
+                                           float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+// HDP: hd padded (32, 64, 128, 256); BN keys per tile; BM query rows per
+// block (16 per warp); VEC: 16-byte copies.
+template <int HDP, int BN, int BM, bool VEC>
+__global__ void __launch_bounds__(BM * 2)
+    flash_tf32_kernel(const __grid_constant__ Params p) {
+  constexpr int kThreads = BM * 2;  // BM / 16 warps
+  constexpr int LDS = HDP + 4;  // fragment loads hit 32 distinct banks
+  extern __shared__ __align__(16) float tf32_smem[];
+  float* q_s = tf32_smem;                 // BM x LDS
+  float* k_s = q_s + BM * LDS;            // 2 x BN x LDS
+  float* v_s = k_s + 2 * BN * LDS;        // 2 x BN x LDS
+  int* kpos_s = reinterpret_cast<int*>(v_s + 2 * BN * LDS);  // 2 x BN
+  int* list = kpos_s + 2 * BN;            // tiles
+  __shared__ int sh[3];                   // qmin, qmax, count
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.z, kh = blockIdx.y;
   const int hd = p.hd;
-  const int ld = hd | 1;  // odd row stride: the key reads k_s[c*ld+d] of
-                          // 16 lanes fall in 16 distinct banks
-  float* q_s = smem;              // BM x ld
-  float* k_s = q_s + BM * ld;     // BN x ld
-  float* v_s = k_s + BN * ld;     // BN x ld
-  float* p_s = v_s + BN * ld;     // BM x LDP
-  int* qpos_s = reinterpret_cast<int*>(p_s + BM * LDP);  // BM
-  int* kpos_s = qpos_s + BM;                             // BN
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y;
   const int nrows = p.sq * p.g;
   const int r0 = blockIdx.x * BM;
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb;
 
-  // stage the query tile, scaled by hd^-0.5 in fp32, and its positions
-  for (int idx = tid; idx < BM * hd; idx += kTileThreads) {
-    const int r = idx / hd;
-    const int d = idx - r * hd;
-    const int row = r0 + r;
-    float val = 0.f;
-    if (row < nrows) {
-      const int qi = row / p.g;
-      const int gi = row - qi * p.g;
-      val = to_float(qg[qi * p.q_ss + (kh * p.g + gi) * p.q_sh + d]) * p.scale;
-    }
-    q_s[r * ld + d] = val;
+  {  // zero Q, K, V: pad columns (and rows past the ends) stay zero
+    float4* z = reinterpret_cast<float4*>(tf32_smem);
+    constexpr int n16 = (BM + 4 * BN) * LDS / 4;
+    for (int i = tid; i < n16; i += kThreads)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int r = tid; r < BM; r += kTileThreads) {
-    const int row = r0 + r;
-    qpos_s[r] = row < nrows
-                    ? p.q_pos[static_cast<long long>(b) * p.sq + row / p.g]
-                    : 0;
-  }
-
-  float m[RM], l[RM], acc[RM][ND];
-  bool row_ok[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    row_ok[i] = r0 + ty + 16 * i < nrows;
-#pragma unroll
-    for (int c = 0; c < ND; ++c) acc[i][c] = 0.f;
+  if (tid == 0) {
+    sh[0] = INT_MAX;
+    sh[1] = INT_MIN;
   }
   __syncthreads();
-  int qp[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) qp[i] = qpos_s[ty + 16 * i];
 
-  for (int n0 = 0; n0 < p.skv; n0 += BN) {
-    for (int c = tid; c < BN; c += kTileThreads)
-      kpos_s[c] = kv_pos_at(p, b, n0 + c);
-    __syncthreads();
-    bool any_pair = false;
-    for (int idx = tid; idx < BM * BN; idx += kTileThreads) {
-      const int r = idx / BN;
-      const int c = idx - r * BN;
-      any_pair |= (r0 + r < nrows) &&
-                  admissible(p.mode, qpos_s[r], kpos_s[c], p.window);
+  // the query tile, as it is (the scale is applied to S in fp32)
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb;
+  if (VEC) {
+    const int chunks = hd / 4;
+    for (int idx = tid; idx < BM * chunks; idx += kThreads) {
+      const int r = idx / chunks, c = idx - r * chunks, row = r0 + r;
+      if (row >= nrows) continue;
+      const int qi = row / p.g, gi = row - qi * p.g;
+      cp_async16(q_s + r * LDS + c * 4,
+                 qg + qi * p.q_ss + (kh * p.g + gi) * p.q_sh + c * 4, 16);
     }
-    if (!__syncthreads_or(any_pair)) continue;  // exact: nothing admissible
-
-    // stage the K and V tiles as fp32 (zeros past the end of Skv)
-    for (int idx = tid; idx < BN * hd; idx += kTileThreads) {
-      const int c = idx / hd;
-      const int d = idx - c * hd;
-      float kv = 0.f, vv = 0.f;
-      const T *kr, *vr;
-      const int* pr;
-      if (kv_row(p, b, kh, n0 + c, kr, vr, pr)) {
-        kv = to_float(kr[d]);
-        vv = to_float(vr[d]);
-      }
-      k_s[c * ld + d] = kv;
-      v_s[c * ld + d] = vv;
+  } else {
+    for (int idx = tid; idx < BM * hd; idx += kThreads) {
+      const int r = idx / hd, d = idx - r * hd, row = r0 + r;
+      if (row >= nrows) continue;
+      const int qi = row / p.g, gi = row - qi * p.g;
+      cp_async4(q_s + r * LDS + d,
+                qg + qi * p.q_ss + (kh * p.g + gi) * p.q_sh + d);
     }
-    __syncthreads();
-
-    // scores of this thread's rows and keys
-    float s[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < hd; ++d) {
-      float qv[RM], kv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = q_s[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = k_s[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // online softmax; a row's BN keys are spread over the 16 lanes tx of
-    // one half-warp, so the row reductions are 4 xor-shuffles
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      bool ok[CN];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        ok[j] = row_ok[i] &&
-                admissible(p.mode, qp[i], kpos_s[tx + 16 * j], p.window);
-        s[i][j] = ok[j] ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float pv = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        p_s[(ty + 16 * i) * LDP + tx + 16 * j] = pv;
-        sum += pv;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < ND; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V over this tile's keys
-    const int kv_rows = min(BN, p.skv - n0);
-    for (int j = 0; j < kv_rows; ++j) {
-      float pv[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = p_s[(ty + 16 * i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < ND; ++c) {
-        const int d = tx + 16 * c;
-        const float vv = d < hd ? v_s[j * ld + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RM; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
-    // the next tile's first __syncthreads orders these reads before the
-    // next writes of k_s, v_s and p_s
   }
+  cp_async_commit();
+  for (int r = tid; r < BM; r += kThreads) {
+    const int row = r0 + r;
+    if (row < nrows) {
+      const int qp = p.q_pos[static_cast<long long>(b) * p.sq + row / p.g];
+      atomicMin(&sh[0], qp);
+      atomicMax(&sh[1], qp);
+    }
+  }
+  __syncthreads();
+  const int ntiles = (p.skv + BN - 1) / BN;
+  const int nl = build_tile_list(p, b, 0, ntiles, BN, sh[0], sh[1], list,
+                                 &sh[2]);
 
-  T* og = static_cast<T*>(p.out) + b * p.o_sb;
+  // this thread's rows: ra (accumulator elements 0, 1) and ra + 8 (2, 3)
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int ra = warp * 16 + g8, rb = ra + 8;
+  const bool ok_a = r0 + ra < nrows, ok_b = r0 + rb < nrows;
+  const int qp_a =
+      ok_a ? p.q_pos[static_cast<long long>(b) * p.sq + (r0 + ra) / p.g] : 0;
+  const int qp_b =
+      ok_b ? p.q_pos[static_cast<long long>(b) * p.sq + (r0 + rb) / p.g] : 0;
+
+  auto issue = [&](int tile, int st) {
+    const int n0 = tile * BN;
+    float* ks = k_s + st * BN * LDS;
+    float* vs = v_s + st * BN * LDS;
+    int* kp = kpos_s + st * BN;
+    if (VEC) {
+      const int chunks = hd / 4;
+      for (int idx = tid; idx < BN * chunks; idx += kThreads) {
+        const int c = idx / chunks, ch = idx - c * chunks;
+        const float *kr = qg, *vr = qg;
+        const int* pr;
+        const bool ok = kv_row(p, b, kh, n0 + c, kr, vr, pr);
+        cp_async16(ks + c * LDS + ch * 4, ok ? kr + ch * 4 : qg, ok ? 16 : 0);
+        cp_async16(vs + c * LDS + ch * 4, ok ? vr + ch * 4 : qg, ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < BN * hd; idx += kThreads) {
+        const int c = idx / hd, d = idx - c * hd;
+        const float *kr, *vr;
+        const int* pr;
+        if (kv_row(p, b, kh, n0 + c, kr, vr, pr)) {
+          cp_async4(ks + c * LDS + d, kr + d);
+          cp_async4(vs + c * LDS + d, vr + d);
+        } else {
+          ks[c * LDS + d] = 0.f;
+          vs[c * LDS + d] = 0.f;
+        }
+      }
+    }
+    for (int c = tid; c < BN; c += kThreads) {
+      const float *kr, *vr;
+      const int* pr;
+      if (kv_row(p, b, kh, n0 + c, kr, vr, pr))
+        cp_async4(kp + c, pr);
+      else
+        kp[c] = -1;
+    }
+  };
+
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  float acc[HDP / 8][4];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    if (!row_ok[i]) continue;
-    const int row = r0 + ty + 16 * i;
-    const int qi = row / p.g;
-    const int gi = row - qi * p.g;
-    T* orow = og + qi * p.o_ss + (kh * p.g + gi) * p.o_sh;
-    const float denom = fmaxf(l[i], 1e-30f);
+  for (int j = 0; j < HDP / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  if (nl > 0) issue(list[0] & ~kFullTile, 0);
+  cp_async_commit();
+  const float* qw = q_s + (warp * 16 + g8) * LDS + t4;
+  for (int it = 0; it < nl; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < nl) issue(list[it + 1] & ~kFullTile, (it + 1) & 1);
+    cp_async_commit();
+    const int st = it & 1;
+    const bool full = (list[it] & kFullTile) != 0;
+    const float* ks = k_s + st * BN * LDS;
+    const float* vs = v_s + st * BN * LDS;
+    const int* kp = kpos_s + st * BN;
+
+    // S = Q K^T
+    float s[BN / 8][4];
 #pragma unroll
-    for (int c = 0; c < ND; ++c) {
-      const int d = tx + 16 * c;
-      if (d < hd) orow[d] = from_float<T>(acc[i][c] / denom);
+    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < HDP / 8; ++kk) {
+      uint32_t ab[4], as[4];
+      split_tf32(qw[kk * 8], ab[0], as[0]);
+      split_tf32(qw[8 * LDS + kk * 8], ab[1], as[1]);
+      split_tf32(qw[kk * 8 + 4], ab[2], as[2]);
+      split_tf32(qw[8 * LDS + kk * 8 + 4], ab[3], as[3]);
+      const float* kr = ks + g8 * LDS + kk * 8 + t4;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+        mma_3xtf32(s[nt], ab, as, kr[nt * 8 * LDS], kr[nt * 8 * LDS + 4]);
+    }
+
+    // scale, mask and the online softmax of rows ra and rb; a row's keys
+    // are spread over the four lanes of a quad (xor 1, 2)
+    float mx_a = kNegInf, mx_b = kNegInf;
+    if (full) {  // every pair admissible (rows past the end are not stored)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
+        mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpv = kp[j * 8 + 2 * t4 + e];
+          const bool ka = ok_a && admissible(p.mode, qp_a, kpv, p.window);
+          const bool kb = ok_b && admissible(p.mode, qp_b, kpv, p.window);
+          s[j][e] = ka ? s[j][e] * p.scale : kNegInf;
+          s[j][2 + e] = kb ? s[j][2 + e] * p.scale : kNegInf;
+          mx_a = fmaxf(mx_a, s[j][e]);
+          mx_b = fmaxf(mx_b, s[j][2 + e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pa = s[j][e] == kNegInf ? 0.f : expf(s[j][e] - mn_a);
+        const float pb =
+            s[j][2 + e] == kNegInf ? 0.f : expf(s[j][2 + e] - mn_b);
+        s[j][e] = pa;
+        s[j][2 + e] = pb;
+        sum_a += pa;
+        sum_b += pb;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o);
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j) {
+      acc[j][0] *= al_a;
+      acc[j][1] *= al_a;
+      acc[j][2] *= al_b;
+      acc[j][3] *= al_b;
+    }
+
+    // acc += P V, chunk kk of 8 keys: k-index t4 is key 2 t4, t4 + 4 is
+    // key 2 t4 + 1 (see above), for A (P, from s) and B (V) alike
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      uint32_t ab[4], as[4];
+      split_tf32(s[kk][0], ab[0], as[0]);
+      split_tf32(s[kk][2], ab[1], as[1]);
+      split_tf32(s[kk][1], ab[2], as[2]);
+      split_tf32(s[kk][3], ab[3], as[3]);
+      const float* vr = vs + (kk * 8 + 2 * t4) * LDS + g8;
+#pragma unroll
+      for (int nt = 0; nt < HDP / 8; ++nt)
+        mma_3xtf32(acc[nt], ab, as, vr[nt * 8], vr[LDS + nt * 8]);
+    }
+  }
+  cp_async_wait_all();
+
+  float* og = static_cast<float*>(p.out) + b * p.o_sb;
+  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const bool ok = half ? ok_b : ok_a;
+    if (!ok) continue;
+    const int row = r0 + (half ? rb : ra);
+    const int qi = row / p.g, gi = row - qi * p.g;
+    float* orow = og + qi * p.o_ss + (kh * p.g + gi) * p.o_sh;
+    const float den = half ? den_b : den_a;
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + 2 * t4 + e;
+        if (col < hd) orow[col] = acc[j][2 * half + e] / den;
+      }
     }
   }
 }
 
-template <typename T, int RM, int CN, int ND>
-int launch_tiles(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int BM = 16 * RM;
-  constexpr int BN = 16 * CN;
-  const int ld = p.hd | 1;
+template <int HDP, int BN, int BM, bool VEC>
+int launch_tf32(const Params& p, int batch, cudaStream_t stream) {
+  constexpr int LDS = HDP + 4;
+  const int ntiles = (p.skv + BN - 1) / BN;
   const size_t smem =
-      static_cast<size_t>(BM * ld + 2 * BN * ld + BM * (BN + 16)) *
-          sizeof(float) +
-      static_cast<size_t>(BM + BN) * sizeof(int);
-  auto kernel = flash_tiles_kernel<T, RM, CN, ND>;
+      static_cast<size_t>(BM + 4 * BN) * LDS * sizeof(float) +
+      static_cast<size_t>(2 * BN + ntiles) * sizeof(int);
+  auto kernel = flash_tf32_kernel<HDP, BN, BM, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.sq * p.g + BM - 1) / BM, p.kvh, batch);
-  kernel<<<grid, kTileThreads, smem, stream>>>(p);
+  kernel<<<grid, BM * 2, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Tiles: BM = 16 rows when all Sq * G rows fit, else 64; BN = 64 keys up to
-// hd = 128 and 32 above, so that the staged tiles stay within the 227 KB of
-// shared memory a block may have (hd = 256: ~140 KB).
-template <typename T>
-int dispatch_tiles(const Params& p, int batch, cudaStream_t stream) {
-  const bool few_rows = p.sq * p.g <= 16;
-  const int nd = (p.hd + 15) / 16;
-  if (nd <= 2)
-    return few_rows ? launch_tiles<T, 1, 4, 2>(p, batch, stream)
-                    : launch_tiles<T, 4, 4, 2>(p, batch, stream);
-  if (nd <= 4)
-    return few_rows ? launch_tiles<T, 1, 4, 4>(p, batch, stream)
-                    : launch_tiles<T, 4, 4, 4>(p, batch, stream);
-  if (nd <= 8)
-    return few_rows ? launch_tiles<T, 1, 4, 8>(p, batch, stream)
-                    : launch_tiles<T, 4, 4, 8>(p, batch, stream);
-  return few_rows ? launch_tiles<T, 1, 2, 16>(p, batch, stream)
-                  : launch_tiles<T, 4, 2, 16>(p, batch, stream);
+// 128 rows (eight warps) per block where the tiles fit shared memory
+// (hd <= 128: ~203 KB at hd 128), else 64 rows (hd 256: ~200 KB). Eight
+// warps measured 2.78 ms against four warps' 4.58 at the fp32 prefill
+// shape on the H100: at one block per SM, four warps left each scheduler
+// one warp to issue from.
+template <bool VEC>
+int dispatch_tf32_vec(const Params& p, int batch, cudaStream_t stream) {
+  if (p.hd <= 32) return launch_tf32<32, 64, 128, VEC>(p, batch, stream);
+  if (p.hd <= 64) return launch_tf32<64, 64, 128, VEC>(p, batch, stream);
+  if (p.hd <= 128) return launch_tf32<128, 64, 128, VEC>(p, batch, stream);
+  return launch_tf32<256, 32, 64, VEC>(p, batch, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1226,7 +1350,7 @@ int launch_combine(const float* part_m, const float* part_l,
 
 extern "C" {
 
-// Returns 0 or the CUDA error of the launch. route: 0 fp32 CUDA-core tiles
+// Returns 0 or the CUDA error of the launch. route: 0 3xTF32 tensor cores
 // (fp32 only), 1 bf16 tensor cores (bf16 only), 2 split-KV: the partials
 // go to `part` (fp32: m, l, then acc, in the layout of launch_combine),
 // and when out is not null flash_combine_kernel follows on the same stream
@@ -1266,7 +1390,8 @@ int flash_attention_launch(int route, const void* q, const int* q_pos,
   switch (route) {
     case 0:
       if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
-      return dispatch_tiles<float>(p, batch, s);
+      return vec ? dispatch_tf32_vec<true>(p, batch, s)
+                 : dispatch_tf32_vec<false>(p, batch, s);
     case 1:
       if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
       return vec ? dispatch_mma_vec<true>(p, batch, s)

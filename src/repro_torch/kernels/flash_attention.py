@@ -25,7 +25,9 @@ that share one KV head):
   ``flash_combine_kernel`` merges them (any dtype); one launcher call
   starts both;
 * otherwise bf16: ``flash_mma_kernel`` (tensor cores, mma.sync);
-* otherwise fp32: ``flash_tiles_kernel`` (fp32 CUDA cores).
+* otherwise fp32: ``flash_tf32_kernel`` (tensor cores, both products as
+  3xTF32: each fp32 operand split into two TF32 parts, three mma.sync per
+  product, held to the fp32 bar).
 
 K/V tiles are copied 16 bytes at a time where every base pointer and
 stride is 16-byte aligned and hd is a multiple of 16 bytes, and element by
@@ -44,10 +46,10 @@ import torch
 
 from repro_torch.models.attention import NEG_INF, _mode_mask
 
-LAUNCHES = {"flash_tiles": 0, "flash_mma": 0, "flash_split": 0,
+LAUNCHES = {"flash_tf32": 0, "flash_mma": 0, "flash_split": 0,
             "flash_combine": 0}
 MODES = {"causal": 0, "sliding": 1, "chunked_local": 2, "cross": 3}
-ROUTES = {"tiles": 0, "mma": 1, "split": 2}
+ROUTES = {"tf32": 0, "mma": 1, "split": 2}
 MAX_HEAD_DIM = 256
 SPLIT_MAX_ROWS = 8        # rows = Sq * G at or below which decode splits KV
 SPLIT_TILE = 32           # keys per tile of flash_split_kernel
@@ -63,10 +65,10 @@ def reset_launches() -> None:
 
 def select_route(dtype: torch.dtype, sq: int, g: int) -> str:
     """The kernel a CUDA call goes to: "split" (then the combine), "mma"
-    or "tiles"."""
+    (bf16) or "tf32" (fp32)."""
     if sq * g <= SPLIT_MAX_ROWS:
         return "split"
-    return "mma" if dtype == torch.bfloat16 else "tiles"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
 
 
 def default_splits(b: int, kvh: int, skv: int) -> int:

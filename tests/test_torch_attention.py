@@ -368,7 +368,7 @@ def test_routes_and_splits_follow_dtype_and_shape():
     assert tfa.select_route(torch.bfloat16, 1, 4) == "split"
     assert tfa.select_route(torch.float32, 2, 4) == "split"
     assert tfa.select_route(torch.bfloat16, 1024, 4) == "mma"
-    assert tfa.select_route(torch.float32, 1024, 4) == "tiles"
+    assert tfa.select_route(torch.float32, 1024, 4) == "tf32"
     assert tfa.select_route(torch.bfloat16, 3, 4) == "mma"
     # Qwen3-4B decode (B=8, KV=8, 1,057 keys) and Danube3 (B=2, 4,097)
     assert tfa.default_splits(8, 8, 1057) == 9

@@ -118,6 +118,35 @@ def test_certified_lasso_stops_at_reference_round(executor):
     assert got.history["violated_round"] == want.history["violated_round"]
 
 
+def _lasso_wide():
+    """400 samples x 600 features on ring(2): n_k = 300, above the 236
+    where G leaves shared memory, below the 1,448 where the Gram rule
+    stops."""
+    x, y, _ = synthetic.regression(400, 600, seed=4, sparsity_solution=0.1)
+    return (jprob.lasso(jnp.asarray(x), jnp.asarray(y), lam=5e-2, box=5.0),
+            convert.problem_from_numpy("lasso", x, y, 5e-2, box=5.0,
+                                       device="cpu"))
+
+
+@pytest.mark.parametrize("executor", ["block", "loop"])
+def test_wide_lasso_takes_gram_path_and_matches_reference(executor):
+    from repro.core import subproblem as jsub
+    from repro_torch.kernels import cd_glm
+    ref, port = _lasso_wide()
+    part = t_make_partition(port.n, 2)
+    assert part.block == 300 and not cd_glm.gram_fits_smem(part.block)
+    assert jsub.gram_pays(ref.d, part.block)
+    assert tcola.build_env(port, part).gram_parts is not None
+    want = j_run(ref, jtopo.ring(2), JConfig(kappa=1.0), 40, record_every=2,
+                 recorder="gap", eps=2.0)
+    got = tcola.run_cola(port, ttopo.ring(2), tcola.ColaConfig(kappa=1.0),
+                         40, record_every=2, recorder="gap", eps=2.0,
+                         executor=executor, block_size=8, device="cpu")
+    assert want.history["stop_round"] is not None
+    _assert_history(got.history, want.history,
+                    keys=("primal", "dual", "gap", "consensus_violation"))
+
+
 def test_make_recorder_gap_certificate_runs_and_stops():
     """The string form builds its own sigma_k (power iteration) and stops
     on certification within the same budget as the reference."""

@@ -1,14 +1,17 @@
 """Hopper kernels (CD solvers, flash attention) against their plain
 PyTorch versions, on the card.
 
-Every test here needs a CUDA device and ``nvcc`` and skips without them. On
-a machine with a card (the reference package need not be installed):
+Every test here but the 3xTF32 emulation (which runs on the CPU) needs a
+CUDA device and ``nvcc`` and skips without them. On a machine with a card
+(the reference package need not be installed):
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_kernels.py
 
 CD tolerance: max|kernel - plain| <= 1e-5 * max(1, max|plain|) — the two
 compute the same recurrence in fp32 and differ only in the order of the
-per-step dot product's sum (and FMA contraction).
+per-step dot product's sum, FMA contraction, and (Gram kernel) the prox
+multiplying by reciprocals that a prologue computed where the plain version
+divides.
 
 Flash attention: fp32 at 2e-5 (atol and rtol, the bar of
 ``tests/test_kernels.py`` for the Pallas kernel); bf16 outputs within 2 bf16
@@ -153,6 +156,62 @@ def test_gram_kernel_matches_plain(cuda, k, n_k, prox, budget):
     torch.cuda.synchronize()
     assert cd_glm.LAUNCHES["cd_gram"] == before + 1
     _close(out, cd_glm.cd_gram_plain(*args, **kw))
+
+
+def _nonsymmetric_gram(a, seed):
+    """A^T A plus a non-symmetric perturbation with a zero diagonal: a
+    kernel that read row i of G instead of column i would disagree."""
+    gram = torch.bmm(a.transpose(1, 2), a)
+    rng = np.random.default_rng(seed)
+    noise = torch.as_tensor(rng.normal(size=tuple(gram.shape))
+                            .astype(np.float32), device=a.device)
+    noise -= torch.diag_embed(torch.diagonal(noise, dim1=1, dim2=2))
+    scale = 0.2 * float(gram.abs().mean())
+    return (gram + scale * noise).contiguous()
+
+
+# G streamed through the ring (n_k > 236) up to the rule's 1,448, and
+# resident below; budgets stop some nodes mid-pass
+@pytest.mark.parametrize("k,n_k", [(2, 125), (2, 236), (2, 300), (3, 500),
+                                   (2, 1_000), (2, 1_448)])
+@pytest.mark.parametrize("budget", [False, True])
+def test_gram_kernel_reads_columns(cuda, k, n_k, budget):
+    inp = _inputs(k, 2 * n_k, n_k, seed=n_k + 1, dev=cuda, pad=3)
+    gram = _nonsymmetric_gram(inp["a"], seed=n_k)
+    assert not torch.equal(gram, gram.transpose(1, 2))
+    atg = torch.bmm(inp["grads"].unsqueeze(1), inp["a"]).squeeze(1)
+    steps = 2 * n_k + 7
+    budgets = (torch.tensor([n_k + 5] + [steps] * (k - 1), dtype=torch.int32,
+                            device=cuda) if budget else None)
+    kw = dict(num_steps=steps, sigma_over_tau=float(k), l1=5e-3, l2=5e-3,
+              box=1e3, budgets=budgets)
+    args = (gram, inp["x"], atg, inp["lin"], inp["mask"])
+    before = cd_glm.LAUNCHES["cd_gram"]
+    out = cd_glm.cd_solve_blocks_gram(*args, **kw)
+    torch.cuda.synchronize()
+    assert cd_glm.LAUNCHES["cd_gram"] == before + 1
+    ref = cd_glm.cd_gram_plain(*args, **kw)
+    _close(out, ref)
+    # the env's prebuilt layout gives the same result
+    out2 = cd_glm.cd_solve_blocks_gram(
+        *args, gram_cols=cd_glm.gram_columns(gram), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+def test_gram_kernel_rejects_what_it_does_not_take(cuda):
+    inp = _inputs(1, 8, cd_glm.GRAM_MAX_NK + 1, seed=0, dev=cuda)
+    n_k = cd_glm.GRAM_MAX_NK + 1
+    gram = torch.zeros((1, n_k, n_k), device=cuda)
+    kw = dict(num_steps=4, sigma_over_tau=1.0, l1=0.0, l2=1.0, box=1.0)
+    with pytest.raises(ValueError, match="n_k <="):
+        cd_glm.cd_solve_blocks_gram(gram, inp["x"], inp["x"], inp["lin"],
+                                    inp["mask"], **kw)
+    inp = _inputs(1, 8, 6, seed=0, dev=cuda)
+    gram = torch.eye(6, device=cuda)[None]
+    with pytest.raises(ValueError, match="gram_cols has shape"):
+        cd_glm.cd_solve_blocks_gram(gram, inp["x"], inp["x"], inp["lin"],
+                                    inp["mask"], gram_cols=gram, **kw)
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -417,3 +476,102 @@ def test_flash_bf16_reads_strided_inputs(cuda, sq):
     out = fa.flash_attention(q, ks, vs, qp, kp, mode="causal")
     _attn_close(out, fa.flash_attention_plain(q, k, v, qp, kp,
                                               mode="causal"))
+
+
+# the fp32 route (3xTF32 on the tensor cores) in every mode at every padded
+# head dim, with the keys as one source and as a cache and a fresh chunk
+TF32_SWEEP = [(hd, mode, two) for hd in (64, 120, 128, 256)
+              for mode in ("causal", "sliding", "chunked_local", "cross")
+              for two in (False, True)]
+
+
+@pytest.mark.parametrize("hd,mode,two", TF32_SWEEP)
+def test_flash_tf32_route_matches_plain(cuda, hd, mode, two):
+    sq, cache_len = 40, 150
+    q, k, v, qp, kp, k2, v2, kp2 = _two_sources(2, sq, cache_len, 8, 2, hd,
+                                                torch.float32, cuda,
+                                                seed=hd + sq)
+    assert fa.select_route(torch.float32, sq, 4) == "tf32"
+    kw = dict(mode=mode, window=64)
+    ref = fa.flash_attention_plain(q, torch.cat([k, k2], 1),
+                                   torch.cat([v, v2], 1), qp,
+                                   torch.cat([kp, kp2], 1), **kw)
+    before = fa.LAUNCHES["flash_tf32"]
+    if two:
+        out = fa.flash_attention(q, k, v, qp, kp, k2=k2, v2=v2, kv_pos2=kp2,
+                                 **kw)
+    else:
+        out = fa.flash_attention(q, torch.cat([k, k2], 1),
+                                 torch.cat([v, v2], 1), qp,
+                                 torch.cat([kp, kp2], 1), **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_tf32"] == before + 1
+    _attn_close(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# why the fp32 route issues three TF32 products (CPU)
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` in torch: keep 10 explicit mantissa bits,
+    rounding to nearest with ties away from zero (the sign is a separate
+    bit, so adding half of the dropped range to the magnitude does it)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
+def _mm_tf32(a, b, parts: int):
+    """a @ b on TF32 operands, accumulated in fp32: one product of the
+    rounded operands, or the three of the split ones (small*big +
+    big*small + big*big)."""
+    ab, as_ = _split(a)
+    bb, bs = _split(b)
+    if parts == 1:
+        return ab @ bb
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _attention_tf32(q, k, v, q_pos, kv_pos, mode, window, parts):
+    """The fp32 route's math: S = Q K^T and P V as TF32 products, the
+    scale, masks and softmax in fp32 (one KV tile: the online softmax's
+    rescaling is exact arithmetic in fp32 either way)."""
+    from repro_torch.models.attention import _mode_mask
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4)   # b kh g q d
+    kt = k.permute(0, 2, 3, 1)[:, :, None]                      # b kh 1 d s
+    s = _mm_tf32(qg, kt, parts) * hd ** -0.5
+    mask = _mode_mask(mode, q_pos, kv_pos, window)[:, None, None]
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    out = _mm_tf32(p, v.permute(0, 2, 1, 3)[:, :, None], parts)
+    out = out / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("mode", ["causal", "sliding", "cross"])
+def test_three_tf32_products_meet_the_fp32_bar_and_one_does_not(hd, mode):
+    """At N(0, 1) inputs the split products stay within the fp32 bar
+    (2e-5 + 2e-5 |plain|) of ``flash_attention_plain``; a single TF32
+    product per matrix product does not."""
+    q, k, v, qp, kp = _attn_inputs(2, 24, 80, 8, 2, hd, torch.float32,
+                                   torch.device("cpu"), seed=hd)
+    kw = dict(mode=mode, window=30)
+    ref = fa.flash_attention_plain(q, k, v, qp, kp, **kw)
+    limit = 2e-5 + 2e-5 * ref.abs()
+    three = _attention_tf32(q, k, v, qp, kp, mode, 30, parts=3)
+    one = _attention_tf32(q, k, v, qp, kp, mode, 30, parts=1)
+    assert bool(((three - ref).abs() <= limit).all()), \
+        float((three - ref).abs().max())
+    assert bool(((one - ref).abs() > limit).any())
+    assert float((one - ref).abs().max()) > 5 * float(
+        (three - ref).abs().max())

@@ -172,7 +172,36 @@ def test_gram_pays_agrees_with_reference_at_used_shapes(d, n_k):
     assert tsub.gram_pays(d, n_k) == jsub.gram_pays(d, n_k)
 
 
-def test_gram_pays_is_bounded_by_shared_memory():
-    assert cd_glm.gram_fits_smem(237) and not cd_glm.gram_fits_smem(238)
-    assert not tsub.gram_pays(10_000, 300)   # the reference still says yes
-    assert jsub.gram_pays(10_000, 300)
+# the reference's rule at every shape: n_k < d and n_k^2 * 4 B <= 8 MiB
+# (n_k <= 1,448), across the old shared-memory limit (n_k ~ 237), the
+# budget's edge and the n_k < d edge
+@pytest.mark.parametrize("d,n_k", [(10_000, 300), (400_000, 500),
+                                   (400_000, 1_448), (400_000, 1_449),
+                                   (2_000, 1_999), (2_000, 2_000),
+                                   (2_000, 25_000)])
+def test_gram_pays_matches_reference_rule(d, n_k):
+    assert tsub.gram_pays(d, n_k) == jsub.gram_pays(d, n_k)
+
+
+def test_gram_layout_limits():
+    """G stays resident in shared memory up to n_k = 236 and streams above;
+    the kernel takes every n_k the rule sends to it."""
+    assert cd_glm.gram_fits_smem(236) and not cd_glm.gram_fits_smem(237)
+    assert cd_glm.GRAM_MAX_NK >= 1_448 and tsub.gram_pays(400_000, 1_448)
+    assert [cd_glm.gram_ld(n) for n in (1, 4, 125, 300, 1_447)] == \
+        [4, 4, 128, 300, 1_448]
+
+
+@pytest.mark.parametrize("n_k", [1, 5, 8, 125])
+def test_gram_columns_hold_columns_not_rows(n_k):
+    """The Gram kernel's layout: row i is column i of G, zero padded to
+    ``gram_ld`` — on a non-symmetric G, where rows and columns differ."""
+    rng = np.random.default_rng(n_k)
+    g = torch.as_tensor(rng.normal(size=(2, n_k, n_k)).astype(np.float32))
+    cols = cd_glm.gram_columns(g)
+    assert cols.is_contiguous()
+    assert tuple(cols.shape) == (2, n_k, cd_glm.gram_ld(n_k))
+    for i in range(n_k):
+        np.testing.assert_array_equal(cols[:, i, :n_k].numpy(),
+                                      g[:, :, i].numpy())
+    assert not cols[:, :, n_k:].any()
