@@ -27,7 +27,9 @@ line:
    its plain version on the same inputs, and timed alone.
 5. small   — reduced runs on the card against the same runs on the CPU
    (the plain versions), for both CD kernels and for a lasso with
-   n_k=300 (Gram kernel, G streamed).
+   n_k=300 (Gram kernel, G streamed); churned lasso runs (nodes leave and
+   reset, straggler budgets, the dynamic certificate with eps) through the
+   Gram kernel and through the residual kernel; DGD, DIGing and D-ADMM.
 6. run_a   — lasso at the LIBSVM epsilon dataset's shape (synthetic
    400,000 x 2,000, ring(16)) through the Gram kernel.
 7. run_b   — ridge through its dual mapping at the same shape through the
@@ -36,6 +38,17 @@ line:
    picks the Gram kernel with G streamed.
    Each prints the history, the launches, ms per round of the round body
    and a profiler breakdown of it (device ms by kernel, idle share).
+7c. run_d  — run_a's lasso on Fig. 4's graph (connected_cycle(16, 2)) under
+   churn: each node stays with p = 0.8 per round, straggler budgets,
+   leavers freeze, the dynamic certificate with eps = 1e-3.
+7d. run_e  — run_d with leave_mode="reset"; checks the Lemma-1 invariant
+   (consensus_residual) in every row.
+   Both print ms per round of the churned rounds (resets included), device
+   ms and idle share, and the ms of a round with leavers beside one
+   without.
+7e. baselines — DGD, DIGing and D-ADMM at the same 400,000 x 2,000 data
+   split by rows over ring(16): ms per round, device idle share, bytes
+   bound per round.
 8. serve_a — Qwen3-4B at full width and depth in bf16 through
    ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
 9. serve_b — H2O-Danube3-4B at full width, 4 layers: 2 prompts of 4,608
@@ -45,13 +58,15 @@ line:
    step against a full forward, and profile the prefill and one decode
    step.
 10. serve_small — Qwen3-4B width, 2 layers, fp32: the card against the CPU.
-11. kernels — one line listing every kernel with its launches on the main
+11. total   — the script's seconds so far.
+12. kernels — one line listing every kernel with its launches on the main
    path, error, times and bound.
 
 Every kernel time ``ms`` is CUDA events around back-to-back eager calls
 after a warm-up, so it includes the host's launch cost where that exceeds
-the device time; ``device_ms`` beside it is the summed device time of the
-same calls from ``torch.profiler``.
+the device time; ``device_ms`` beside it is CUDA events around the same
+calls queued behind a sleep kernel, so the host's launch cost is left out
+(``device_ms``, the function).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero. TF32 is off for PyTorch's own products
@@ -485,9 +500,11 @@ def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
 
 
 def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
-             other, **kw) -> dict:
+             other, profile=None, check_gap=True, **kw) -> dict:
     """Drive run_cola once with the launch counts zeroed just before and
-    read just after; check launches and the history."""
+    read just after; check launches and the history (the gap must fall
+    unless ``check_gap`` is off). ``profile()`` gives the timing keys
+    (default: ``round_profile`` of the static round body)."""
     cd_glm.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -510,13 +527,14 @@ def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
              and key != "round"] for i in range(len(h["round"]))]
     if not all(math.isfinite(v) for row in rows for v in row):
         fail(f"{name}: non-finite history row")
-    if not h["gap"][-1] < h["gap"][0]:
+    if check_gap and not h["gap"][-1] < h["gap"][0]:
         fail(f"{name}: gap did not decrease ({h['gap'][0]} -> {h['gap'][-1]})")
     x_fin = bool(torch.isfinite(res.state.x_parts).all()
                  and torch.isfinite(res.state.v_stack).all())
     if not x_fin:
         fail(f"{name}: non-finite final state")
-    timing = round_profile(torch, prob, graph, cfg, rounds=3)
+    timing = (profile() if profile is not None
+              else round_profile(torch, prob, graph, cfg, rounds=3))
     out = {"phase": name, "problem": prob.name, "d": prob.d, "n": prob.n,
            "nodes": graph.num_nodes, "rounds": rounds,
            "stop_round": h["stop_round"], "executed_rounds": executed,
@@ -526,6 +544,341 @@ def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
                        and key != "round"],
            "history": {"round": h["round"], "rows": rows}}
     emit(out)
+    out["raw_history"] = h
+    return out
+
+
+# ---------------------------------------------------------------------------
+# elasticity (node churn, resets, straggler budgets) and the baselines
+# ---------------------------------------------------------------------------
+
+def stay_masks(rounds: int, k: int, p_stay: float, seed: int = 0):
+    """(T, K) bool: node k takes part in round t with probability p_stay,
+    one ``rng.random(k)`` draw per round (the recipe of
+    ``benchmarks/fig4_fault.py``'s ``_stay_masks``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.random(k) < p_stay for _ in range(rounds)])
+
+
+def straggler_budgets(rounds: int, k: int, full: int, seed: int = 1):
+    """(T, K) int32: each round each node straggles at a quarter of the CD
+    budget with probability 1/2 (the recipe of ``fig4_fault``'s
+    ``_straggler_budgets``). Seed 1: with the stay masks' seed 0 the same
+    draws would make every straggler an active node."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = np.full((rounds, k), full, np.int32)
+    for t in range(rounds):
+        out[t, rng.random(k) < 0.5] = max(full // 4, 1)
+    return out
+
+
+def churn_schedule(graph, active, budgets, leave_mode: str) -> dict:
+    """The port's own materialized schedule for these (T, K) arrays, as
+    ``run_cola`` builds it."""
+    import numpy as np
+    from repro_torch.core import cola, topology
+    rounds, k = active.shape
+    return cola._materialize_schedule(
+        graph, rounds, cola._as_schedule_fn(active, rounds, k, "active"),
+        cola._as_schedule_fn(budgets, rounds, k, "budgets"), leave_mode, 0,
+        topology.metropolis_weights(graph), np.float32)
+
+
+def compare_histories(name, hist, keys, scale_key=None) -> dict:
+    """Card against CPU: the same recorded rounds and stop round, each
+    column within rtol ``SMALL_RTOL`` and atol ``SMALL_RTOL`` * max |value|
+    of the CPU's ``scale_key`` column (default: of the column itself)."""
+    import numpy as np
+    if (hist["cuda"]["round"] != hist["cpu"]["round"]
+            or hist["cuda"]["stop_round"] != hist["cpu"]["stop_round"]):
+        fail(f"{name}: card and CPU record other rounds or stop elsewhere: "
+             f"{hist['cuda']['round']} / {hist['cuda']['stop_round']} vs "
+             f"{hist['cpu']['round']} / {hist['cpu']['stop_round']}")
+    worst = {}
+    for key in keys:
+        a, b = np.asarray(hist["cuda"][key]), np.asarray(hist["cpu"][key])
+        ref = np.asarray(hist["cpu"][scale_key or key])
+        atol = SMALL_RTOL * max(float(np.max(np.abs(ref))), 1e-30)
+        if not np.allclose(a, b, rtol=SMALL_RTOL, atol=atol):
+            fail(f"{name}: card and CPU disagree on {key}: {a.tolist()} vs "
+                 f"{b.tolist()}")
+        worst[key] = float(np.max(np.abs(a - b)))
+    return worst
+
+
+def small_churn_phase(torch, rt, topo, synthetic, cd_glm) -> None:
+    """Churned lasso runs, the card against the CPU: nodes stay with
+    p = 0.8, leavers reset, straggler budgets, gap+certificate with eps
+    (the dynamic certificate); once through each CD kernel."""
+    rounds = 20
+    # (kernel, samples, features, nodes): n_k = 8 < d (Gram kernel),
+    # n_k = 50 > d = 40 (residual kernel)
+    for kernel, n_samples, n_features, nodes in (
+            ("cd_gram", 200, 64, 8), ("cd_residual", 40, 200, 4)):
+        x, y, _ = synthetic.regression(n_samples, n_features, seed=0,
+                                       sparsity_solution=0.2)
+        n_k = -(-n_features // nodes)
+        active = stay_masks(rounds, nodes, 0.8)
+        budgets = straggler_budgets(rounds, nodes, 2 * n_k)
+        hist, launches = {}, {}
+        for dev in ("cuda", "cpu"):
+            prob = rt.PROBLEMS["lasso"](x, y, 5e-2, box=5.0, device=dev)
+            cd_glm.reset_launches()
+            res = rt.run_cola(prob, topo.ring(nodes), rt.ColaConfig(kappa=2.0),
+                              rounds, record_every=5,
+                              recorder="gap+certificate", eps=0.2,
+                              active_schedule=active, budget_schedule=budgets,
+                              leave_mode="reset", device=dev, block_size=8)
+            launches[dev] = dict(cd_glm.LAUNCHES)
+            hist[dev] = res.history
+        if launches["cuda"][kernel] != rounds or launches["cpu"][kernel]:
+            fail(f"small churn {kernel}: launches {launches}, want {rounds} "
+                 "on the card and none on the CPU")
+        sched = churn_schedule(topo.ring(nodes), active, budgets, "reset")
+        # as the runs above: atol relative to max |primal|
+        worst = compare_histories(
+            f"small churn {kernel}", hist,
+            ("primal", "dual", "gap", "consensus_violation"),
+            scale_key="primal")
+        resid = max(hist["cuda"]["consensus_residual"])
+        if not resid <= 1e-2:   # CertificateRecorder.cons_tol
+            fail(f"small churn {kernel}: the reset broke the Lemma-1 "
+                 f"invariant on the card (consensus_residual {resid})")
+        emit({"phase": "small", "problem": "lasso", "churn": True,
+              "kernel": kernel, "n_k": n_k, "nodes": nodes, "p_stay": 0.8,
+              "leave_mode": "reset", "recorder": "gap+certificate",
+              "eps": 0.2, "reset_rounds": int(sched["reset_any"].sum()),
+              "stop_round": hist["cuda"]["stop_round"],
+              "launches": launches["cuda"], "max_abs_diff": worst,
+              "max_consensus_residual": resid, "rtol": SMALL_RTOL,
+              "atol": "rtol * max|primal|"})
+
+
+def smooth_lipschitz(torch, x, lam: float, iters: int = 30) -> float:
+    """L = ||X||_2^2 + lam, the Lipschitz constant of the gradient of the
+    ridge objective's smooth part sum_k F_k (power iteration on X^T X)."""
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    v = torch.randn((x.shape[1],), generator=gen, device=x.device)
+    for _ in range(iters):
+        v = x.T @ (x @ v)
+        v = v / torch.linalg.vector_norm(v)
+    return float(torch.linalg.vector_norm(x @ v) ** 2) + lam
+
+
+def small_baselines_phase(torch, bl, topo, synthetic) -> None:
+    """DGD, DIGing and D-ADMM at a reduced size, the card against the CPU
+    (the same numpy data; step 1/L)."""
+    x, y, _ = synthetic.regression(800, 64, seed=5)
+    lam = 1e-2
+    step = 1.0 / smooth_lipschitz(torch, torch.as_tensor(x), lam)
+    graph = topo.ring(8)
+    runs = (("dgd", bl.run_dgd, dict(step=step)),
+            ("diging", bl.run_diging, dict(step=step)),
+            ("dadmm", bl.run_dadmm, dict(rho=1.0, inner_steps=10)))
+    for name, run, kw in runs:
+        hist, w_stack = {}, {}
+        for dev in ("cuda", "cpu"):
+            prob = bl.make_consensus_problem(x, y, 8, loss="square",
+                                             reg="l2", lam=lam, device=dev)
+            res = run(prob, graph, rounds=30, record_every=5, device=dev,
+                      block_size=8, **kw)
+            hist[dev], w_stack[dev] = res.history, res.w_stack.cpu()
+        worst = compare_histories(f"small {name}", hist,
+                                  ("objective", "consensus"))
+        w_err = float((w_stack["cuda"] - w_stack["cpu"]).abs().max())
+        w_scale = float(w_stack["cpu"].abs().max())
+        if not w_err <= SMALL_RTOL * max(w_scale, 1e-30):
+            fail(f"small {name}: card and CPU iterates disagree: max abs "
+                 f"diff {w_err} (max |w| {w_scale})")
+        emit({"phase": "small", "baseline": name, "nodes": 8,
+              "rows_per_node": 100, "d": 64, **kw,
+              "max_abs_diff": {**worst, "w_stack": w_err},
+              "rtol": SMALL_RTOL, "atol": "rtol * max|column|"})
+
+
+def timed_rounds(torch, one, rounds: int) -> dict:
+    """``rounds`` calls of ``one`` (one round each): host-clock ms per
+    round around synchronised rounds, device ms per round (``device_ms``)
+    and the device's idle share of the round."""
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        one()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    dev_ms = device_ms(torch, one, rounds)
+    return {"ms_per_round": host_ms, "device_ms_per_round": dev_ms,
+            "device_idle_share": 1.0 - dev_ms / host_ms}
+
+
+def churn_profile(torch, prob, graph, cfg, sched) -> dict:
+    """The churned rounds as the drivers run them (the leaver reset, then
+    the round body with the round's W_t, active mask and budgets), cycling
+    through ``sched``: ``timed_rounds`` over all of them, each round alone
+    (synchronised) split by whether it reset leavers, and the device ms of
+    the reset and of the body alone."""
+    from repro_torch.core import cola, partition
+    part = partition.make_partition(prob.n, graph.num_nodes)
+    env = cola.build_env(prob, part)
+    body = cola.make_round(prob, part, cfg)
+    rounds = sched["w"].shape[0]
+    on_card = lambda key: [torch.as_tensor(a, device="cuda")
+                           for a in sched[key]]
+    w, active = on_card("w"), on_card("active")
+    budgets = on_card("budgets") if "budgets" in sched else [None] * rounds
+    reset_any = sched.get("reset_any", [False] * rounds)
+    leavers = on_card("leavers") if "leavers" in sched else None
+    state = cola.init_state(prob, part)
+    t_next = 0
+
+    def one():
+        nonlocal state, t_next
+        t = t_next % rounds
+        if reset_any[t]:
+            state = cola._reset_leavers(state, env, leavers[t])
+        state = body(state, env, w[t], active[t], budgets[t])
+        t_next += 1
+
+    out = timed_rounds(torch, one, rounds)
+    by_kind = {True: [], False: []}
+    for _ in range(rounds):
+        reset = bool(reset_any[t_next % rounds])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        by_kind[reset].append((time.perf_counter() - t0) * 1e3)
+    # a round without leavers runs the body alone: time it on its own too,
+    # since few rounds of a p = 0.8 schedule over 16 nodes lack a leaver
+    body_alone = lambda: body(state, env, w[0], active[0], budgets[0])
+    body_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        body_alone()
+        torch.cuda.synchronize()
+        body_ms.append((time.perf_counter() - t0) * 1e3)
+    mean = lambda v: sum(v) / len(v) if v else None
+    out.update(
+        ms_round_with_reset=mean(by_kind[True]),
+        ms_round_without_reset=mean(by_kind[False]),
+        rounds_with_reset=len(by_kind[True]),
+        rounds_without_reset=len(by_kind[False]),
+        ms_body_alone=mean(body_ms),
+        body_device_ms=device_ms(torch, body_alone, 5))
+    if leavers is not None:
+        t_reset = next(t for t in range(rounds) if reset_any[t])
+        out["reset_device_ms"] = device_ms(
+            torch, lambda: cola._reset_leavers(state, env, leavers[t_reset]),
+            5)
+    del env
+    return out
+
+
+def churn_run(torch, rt, cd_glm, name, prob, *, leave_mode: str,
+              rounds: int = 20) -> dict:
+    """run_a's lasso on connected_cycle(16, 2) under churn (p_stay 0.8,
+    straggler budgets), the dynamic certificate with eps = 1e-3, block 8:
+    the Gram kernel once per executed round, no residual launch, finite
+    rows and at least one round with a node dropped (and, under reset, at
+    least one reset)."""
+    from repro_torch.core import topology
+    graph = topology.connected_cycle(NODES, 2)
+    cfg = rt.ColaConfig(kappa=1.0)
+    active = stay_masks(rounds, NODES, 0.8, seed=0)
+    budgets = straggler_budgets(rounds, NODES, EPS_FEATURES // NODES)
+    sched = churn_schedule(graph, active, budgets, leave_mode)
+    dropped = int((sched["active"] < 1).any(axis=1).sum())
+    resets = int(sched["reset_any"].sum()) if "reset_any" in sched else 0
+    if not dropped > 0:
+        fail(f"{name}: no round dropped a node")
+    if leave_mode == "reset" and not resets > 0:
+        fail(f"{name}: no round reset a leaver")
+    run = main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds,
+                   kernel="cd_gram", other="cd_residual",
+                   profile=lambda: churn_profile(torch, prob, graph, cfg,
+                                                 sched),
+                   check_gap=leave_mode == "freeze",
+                   recorder="gap+certificate", eps=1e-3, record_every=1,
+                   executor="block", block_size=8, active_schedule=active,
+                   budget_schedule=budgets, leave_mode=leave_mode)
+    h = run["raw_history"]
+    cons_tol = 1e-2   # CertificateRecorder.cons_tol
+    if leave_mode == "reset" and not max(h["consensus_residual"]) <= cons_tol:
+        fail(f"{name}: the reset broke the Lemma-1 invariant: "
+             f"consensus_residual up to {max(h['consensus_residual'])} "
+             f"> {cons_tol}")
+    row = {"phase": name + "_churn", "graph": graph.name, "p_stay": 0.8,
+           "leave_mode": leave_mode, "rounds_with_a_dropped_node": dropped,
+           "reset_rounds": resets, "straggler_budget": max(
+               EPS_FEATURES // NODES // 4, 1),
+           "max_consensus_residual": max(h["consensus_residual"])}
+    emit(row)
+    return run
+
+
+def baselines_phase(torch, bl, topology, x, y) -> dict:
+    """DGD, DIGing and D-ADMM (inner_steps 10) on the 400,000 x 2,000 data
+    split by rows over ring(16), ridge (square loss, l2, lam = 1e-4), 20
+    rounds each: the objective must fall and every row be finite. Step
+    1/L with L = ||X||_2^2 + lam (``smooth_lipschitz``); D-ADMM rho = 1
+    and the reference's inner step rule. The bytes bound counts the reads
+    of X a round needs: two per gradient (X_k w, then X_k^T r), one
+    gradient for DGD and DIGing, ``inner_steps`` for D-ADMM."""
+    lam, rounds, inner = 1e-4, 20, 10
+    prob = bl.make_consensus_problem(x, y, NODES, loss="square", reg="l2",
+                                     lam=lam, device="cuda")
+    if prob.x_parts.data_ptr() != x.data_ptr():
+        fail("baselines: the row blocks are not a view of the data")
+    step = 1.0 / smooth_lipschitz(torch, x, lam)
+    graph = topology.ring(NODES)
+    x_bytes = x.numel() * x.element_size()
+    out = {}
+    for name, run, make, kw, reads in (
+            ("dgd", bl.run_dgd, bl.dgd_round, dict(step=step), 2),
+            ("diging", bl.run_diging, bl.diging_round, dict(step=step), 2),
+            ("dadmm", bl.run_dadmm, bl.dadmm_round,
+             dict(rho=1.0, inner_steps=inner), 2 * inner)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(prob, graph, rounds=rounds, record_every=1, device="cuda",
+                  block_size=8, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h = res.history
+        rows = list(zip(h["objective"], h["consensus"]))
+        if not all(math.isfinite(v) for r in rows for v in r) or not bool(
+                torch.isfinite(res.w_stack).all()):
+            fail(f"baselines {name}: non-finite rows or iterates")
+        if not h["objective"][-1] < h["objective"][0]:
+            fail(f"baselines {name}: objective did not decrease "
+                 f"({h['objective'][0]} -> {h['objective'][-1]})")
+        round_fn, carry = make(prob, graph, **kw)
+
+        def one():
+            nonlocal carry
+            carry = round_fn(carry)
+
+        timing = timed_rounds(torch, one, 5)
+        bound_ms = reads * x_bytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"phase": "baselines", "method": name, "nodes": NODES,
+                     "rows_per_node": x.shape[0] // NODES, "d": x.shape[1],
+                     "loss": "square", "reg": "l2", "lam": lam,
+                     **{k: v for k, v in kw.items()}, "rounds": rounds,
+                     "wall_s_incl_setup": wall, **timing,
+                     "reads_of_x_per_round": reads,
+                     "bytes_bound_ms_per_round": bound_ms,
+                     "bound_share": bound_ms / timing["device_ms_per_round"],
+                     "objective_first_last": [h["objective"][0],
+                                              h["objective"][-1]],
+                     "consensus_last": h["consensus"][-1]}
+        emit(out[name])
+        del carry
+    del prob
+    torch.cuda.empty_cache()
     return out
 
 
@@ -936,6 +1289,7 @@ def serve_small_phase(torch, rt, fa, serve_mod, transformer, cfg) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the card "
@@ -952,7 +1306,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
 
     import repro_torch as rt
-    from repro_torch.core import subproblem, topology
+    from repro_torch.core import baselines as bl, subproblem, topology
     from repro_torch.data import synthetic
     from repro_torch.kernels import build, cd_glm
     from repro_torch.kernels import flash_attention as fa
@@ -977,6 +1331,8 @@ def main() -> int:
     split_comb = split_combine_phase(torch, fa, attention._mode_mask)
     gvr = gram_vs_residual_phase(torch, cd_glm, subproblem)
     small_phase(torch, rt, topology, synthetic, cd_glm)
+    small_churn_phase(torch, rt, topology, synthetic, cd_glm)
+    small_baselines_phase(torch, bl, topology, synthetic)
 
     ring = topology.ring(NODES)
     x, y = regression_on_device(torch, EPS_SAMPLES, EPS_FEATURES, seed=0)
@@ -992,6 +1348,9 @@ def main() -> int:
                      kernel="cd_gram", other="cd_residual",
                      recorder="gap+certificate", eps=1e-3, record_every=1,
                      executor="block", block_size=8)
+    # the same lasso under churn on Fig. 4's graph: leavers freeze, reset
+    run_d = churn_run(torch, rt, cd_glm, "run_d", lasso, leave_mode="freeze")
+    run_e = churn_run(torch, rt, cd_glm, "run_e", lasso, leave_mode="reset")
     del lasso
     torch.cuda.empty_cache()
     ridge = rt.PROBLEMS["ridge_dual"](x, y, 1e-2, device="cuda")
@@ -999,7 +1358,10 @@ def main() -> int:
                      rt.ColaConfig(kappa=1.0), 5, kernel="cd_residual",
                      other="cd_gram", recorder="gap", record_every=1,
                      executor="block", block_size=8)
-    del ridge, x, y
+    del ridge
+    torch.cuda.empty_cache()
+    baselines_phase(torch, bl, topology, x, y)
+    del x, y
     torch.cuda.empty_cache()
 
     serve_a = serve_phase(torch, rt, fa, serve_mod, "serve_a",
@@ -1037,6 +1399,8 @@ def main() -> int:
                                        "device_ms", "plain_ms", "bound_ms")}
     kernels[0].update(
         launches_run_c=run_c["launches"]["cd_gram"],
+        launches_run_d=run_d["launches"]["cd_gram"],
+        launches_run_e=run_e["launches"]["cd_gram"],
         shape="K=16, n_k=125 (G resident), 125 steps",
         n_k_500=gram_at(500), n_k_1000=gram_at(1000),
         gram_vs_residual={key: gvr[key] for key in (
@@ -1096,6 +1460,7 @@ def main() -> int:
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     if idle:
         fail(f"kernels not launched on their main path: {idle}")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

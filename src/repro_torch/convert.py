@@ -4,6 +4,9 @@ results back. Precomputed certificate constants need no conversion:
 ``metrics.certificate_recorder(sigma_k=)`` takes the (K,) sigma_k as any
 array.
 
+``consensus_problem_from_numpy`` carries the reference's row-partitioned
+``ConsensusProblem`` (its arrays as numpy) across for the baselines.
+
 For the model zoo: ``model_params_from_numpy`` takes the reference's
 parameter pytree as numpy arrays (layer-stacked, as ``_stack_init`` builds
 it), ``load_checkpoint`` reads an npz written by the reference's
@@ -17,6 +20,7 @@ import re
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import ConsensusProblem
 from repro_torch.core.cola import ColaState
 from repro_torch.core.problems import PROBLEMS, Problem
 from repro_torch.device import resolve
@@ -42,6 +46,18 @@ def state_to_numpy(state: ColaState) -> tuple[np.ndarray, np.ndarray]:
     """(x_parts, v_stack) as numpy arrays."""
     return state.x_parts.cpu().numpy(), state.v_stack.cpu().numpy()
 
+
+def consensus_problem_from_numpy(x_parts, y_parts, row_mask, *, loss: str,
+                                 reg: str, lam: float,
+                                 device) -> ConsensusProblem:
+    """A baselines ``ConsensusProblem`` from the (K, m_k, d) / (K, m_k) /
+    (K, m_k) row blocks of another implementation's, e.g. the reference's
+    ``ConsensusProblem`` fields as numpy."""
+    dev = resolve(device)
+    return ConsensusProblem(
+        *(torch.tensor(np.asarray(a), device=dev)
+          for a in (x_parts, y_parts, row_mask)), loss=loss, reg=reg,
+        lam=float(lam))
 
 
 def _tree_leaves(tree, prefix=()):

@@ -16,10 +16,17 @@ Two interchangeable drivers execute the rounds:
 Recording and stopping go through the Recorder layer
 (``repro_torch.core.metrics``); ``eps=`` arms early termination.
 
-This port covers the fp32 wire with an optional per-node CD budget
-schedule. Churn, resets, quantized wires, pipelining, robust aggregation,
-client sampling, attacks and telemetry raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+Elasticity (Fig. 4 / Fig. 6): an ``active_schedule`` drops nodes from
+rounds, W_t is re-normalized over the active subgraph, and leavers either
+freeze their block or reset it (``leave_mode="reset"``, which keeps the
+Lemma-1 mean invariant); per-node CD budgets model heterogeneous Theta_k;
+under churn the certificates judge each round's reweighted exchange
+(``metrics.dynamize``). Both drivers draw the schedules from one
+``numpy.random.default_rng(seed)`` in the reference's order.
+
+This port covers the fp32 wire. Quantized wires, pipelining, robust
+aggregation, client sampling, attacks and telemetry raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -188,8 +195,7 @@ class RunResult(NamedTuple):
     history: dict  # lists keyed by metric name
 
 
-def _check_supported(cfg: ColaConfig, *, attacks, active_schedule,
-                     leave_mode) -> None:
+def _check_supported(cfg: ColaConfig, *, attacks, leave_mode) -> None:
     """Reject the reference features this port does not run yet, each with
     the ROADMAP queue-1 item that brings it."""
     for bad, what, item in (
@@ -200,34 +206,99 @@ def _check_supported(cfg: ColaConfig, *, attacks, active_schedule,
             (cfg.participation is not None, "cfg.participation",
              "10 (client sampling)"),
             (cfg.telemetry, "cfg.telemetry", "15 (observability)"),
-            (attacks is not None, "attacks=", "11 (attacks and robust mixing)"),
-            (active_schedule is not None, "active_schedule=",
-             "7 (elasticity)"),
-            (leave_mode == "reset", "leave_mode='reset'", "7 (elasticity)")):
+            (attacks is not None, "attacks=", "11 (attacks and robust mixing)")):
         if bad:
             raise NotImplementedError(
                 f"repro_torch.run_cola: {what} is not ported yet "
                 f"(ROADMAP queue 1 item {item})")
-    if leave_mode != "freeze":
-        raise ValueError(f"unknown leave_mode {leave_mode!r}")
+    if leave_mode not in ("freeze", "reset"):
+        raise ValueError(f"unknown leave_mode {leave_mode!r} (want 'freeze' "
+                         "or 'reset')")
 
 
-def _as_budgets(budget_schedule, rounds: int, k: int, seed: int):
-    """Materialize a budget schedule into a (T, K) int32 array. A callable
-    ``(round, rng) -> (K,)`` draws from ``numpy.random.default_rng(seed)``
-    in round order, exactly as the reference does without churn; a
-    pre-materialized (T, K) array is taken as it is."""
-    if budget_schedule is None:
-        return None
-    if callable(budget_schedule):
-        rng = np.random.default_rng(seed)
-        return np.stack([np.asarray(budget_schedule(t, rng), dtype=np.int32)
-                         for t in range(rounds)]).reshape(rounds, k)
-    arr = np.asarray(budget_schedule)
+def _as_schedule_fn(s, rounds: int, k: int, name: str):
+    """Normalize a schedule argument: callables (and None) pass through, a
+    pre-materialized (T, K) array becomes a per-round lookup that takes no
+    draw from the shared schedule rng."""
+    if s is None or callable(s):
+        return s
+    arr = np.asarray(s)
     if arr.shape != (rounds, k):
-        raise ValueError(f"pre-materialized budget_schedule must be "
-                         f"({rounds}, {k}), got {arr.shape}")
-    return arr.astype(np.int32)
+        raise ValueError(f"pre-materialized {name} must be ({rounds}, {k}),"
+                         f" got {arr.shape}")
+    return lambda t, rng: arr[t]
+
+
+def _materialize_schedule(graph, rounds, active_schedule, budget_schedule,
+                          leave_mode, seed, base_w, dtype) -> dict:
+    """Evaluate the host-side schedule callables for all T rounds up front
+    into (T, ...) numpy arrays, which both drivers read.
+
+    One ``numpy.random.default_rng(seed)`` is drawn from in the reference's
+    order: in each round the active draw first, then the budget draw. A
+    round with no active node runs with every node active. Entries: ``w``
+    (T, K, K) mixing matrices (Metropolis weights over the active subgraph
+    under churn, else ``base_w`` broadcast), ``active`` (T, K) 0/1,
+    ``budgets`` (T, K) int32 when budgeted, and under ``leave_mode="reset"``
+    ``leavers`` (T, K) bool (active last round, inactive now) and
+    ``reset_any`` (T,) bool.
+    """
+    k = graph.num_nodes
+    has_churn = active_schedule is not None
+    has_budget = budget_schedule is not None
+    has_reset = has_churn and leave_mode == "reset"
+    rng = np.random.default_rng(seed)
+    if has_churn:
+        w_stack = np.empty((rounds, k, k), dtype=dtype)
+        actives = np.empty((rounds, k), dtype=dtype)
+    else:
+        # every round shares base_w: broadcast views, O(K^2) on the host
+        w_stack = np.broadcast_to(np.asarray(base_w, dtype=dtype),
+                                  (rounds, k, k))
+        actives = np.broadcast_to(np.ones((k,), dtype=dtype), (rounds, k))
+    budgets = np.empty((rounds, k), np.int32) if has_budget else None
+    leavers = np.zeros((rounds, k), bool) if has_reset else None
+    reset_any = np.zeros((rounds,), bool) if has_reset else None
+
+    prev_active = np.ones((k,), dtype=bool)
+    if has_churn or has_budget:
+        for t in range(rounds):
+            if has_churn:
+                active = np.asarray(active_schedule(t, rng), dtype=bool)
+                if not active.any():
+                    active = np.ones((k,), dtype=bool)
+                w_stack[t] = topo.reweight_for_active(graph, active)
+                actives[t] = active.astype(dtype)
+                if has_reset:
+                    left = prev_active & ~active
+                    leavers[t] = left
+                    reset_any[t] = left.any()
+                prev_active = active
+            if has_budget:
+                budgets[t] = np.asarray(budget_schedule(t, rng),
+                                        dtype=np.int32)
+    sched = {"w": w_stack, "active": actives}
+    if has_budget:
+        sched["budgets"] = budgets
+    if has_reset:
+        sched["leavers"] = leavers
+        sched["reset_any"] = reset_any
+    return sched
+
+
+def _reset_leavers(state: ColaState, env: ColaEnv,
+                   leavers: torch.Tensor) -> ColaState:
+    """Fig.-6 model: zero x_[k] of the leaving nodes (``leavers``, (K,)
+    bool on the state's device); every node subtracts
+    sum_leavers A_[k] x_[k] from its estimate, so (1/K) sum_k v_k = A x
+    still holds (Lemma 1). One bmm over all K blocks: a read of A."""
+    leave = leavers.to(state.x_parts.dtype)
+    contrib = torch.bmm(env.a_parts,
+                        (state.x_parts * leave[:, None]).unsqueeze(-1))
+    total = contrib.squeeze(-1).sum(dim=0)                      # (d,)
+    x_new = torch.where(leavers[:, None], torch.zeros_like(state.x_parts),
+                        state.x_parts)
+    return ColaState(x_parts=x_new, v_stack=state.v_stack - total[None, :])
 
 
 def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
@@ -247,9 +318,19 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
         recorder). ``record_every`` is the certification cadence.
       record_every: fixed integer cadence, or ``"adaptive"`` / a
         ``metrics.AdaptiveCadence``.
+      active_schedule: optional (round, rng) -> (K,) bool mask of the nodes
+        taking part (node churn, Fig. 4/6), or a (T, K) bool array (which
+        takes no draw from the shared rng). W is re-normalized over the
+        active subgraph each round, and certificates judge that exchange.
       budget_schedule: optional (round, rng) -> (K,) int CD-step budgets
         (heterogeneous Theta_k, Definition 5), or a (T, K) int array.
-      w_override: this mixing matrix instead of Metropolis weights.
+      leave_mode: "freeze" (a leaver keeps x_[k]) or "reset" (App. D,
+        Fig. 6: x_[k] zeroed and every v_j adjusted to keep the Lemma-1
+        mean invariant).
+      seed: seed of the ``numpy.random.default_rng`` the schedule callables
+        draw from (active draw, then budget draw, in each round).
+      w_override: this mixing matrix instead of Metropolis weights (rounds
+        without churn).
       executor: "block" (default) or "loop".
       device: where the run happens (default "cuda"); the problem must
         live there. Without a card, pass ``device="cpu"`` explicitly.
@@ -258,8 +339,7 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
     if problem.a.device != dev:
         raise ValueError(f"problem data is on {problem.a.device}, run_cola "
                          f"was asked to run on {dev}")
-    _check_supported(cfg, attacks=attacks, active_schedule=active_schedule,
-                     leave_mode=leave_mode)
+    _check_supported(cfg, attacks=attacks, leave_mode=leave_mode)
     k = graph.num_nodes
     part = make_partition(problem.n, k)
     env = build_env(problem, part,
@@ -270,37 +350,61 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
         else topo.metropolis_weights(graph)
     rec = metrics_lib.make_recorder(recorder, problem, part, env, graph,
                                     base_w, eps)
-    budgets = _as_budgets(budget_schedule, rounds, k, seed)
-    w = torch.as_tensor(np.asarray(base_w), dtype=problem.a.dtype, device=dev)
-    active = torch.ones((k,), dtype=problem.a.dtype, device=dev)
+    active_schedule = _as_schedule_fn(active_schedule, rounds, k,
+                                      "active_schedule")
+    budget_schedule = _as_schedule_fn(budget_schedule, rounds, k,
+                                      "budget_schedule")
+    if active_schedule is not None:
+        # certificates judge each churn round's reweighted exchange, not
+        # the static graph
+        rec = metrics_lib.dynamize(rec)
+    np_dtype = torch.empty((), dtype=problem.a.dtype).numpy().dtype
+    sched = _materialize_schedule(graph, rounds, active_schedule,
+                                  budget_schedule, leave_mode, seed, base_w,
+                                  np_dtype)
     body = _round_body(problem, part, cfg)
     if executor == "block":
         return _run_cola_block(body, env, state, rounds, record_every, rec,
-                               budgets, w, active, block_size)
+                               sched, block_size)
     if executor == "loop":
         return _run_cola_loop(body, env, state, rounds, record_every, rec,
-                              budgets, w, active)
+                              sched)
     raise ValueError(f"unknown executor {executor!r} (want 'block' or 'loop')")
 
 
-def _run_cola_loop(body, env, state, rounds, record_every, recorder, budgets,
-                   w, active) -> RunResult:
-    """Reference driver: one round at a time, a blocking metric fetch every
-    record round and a host-side stop check."""
+def _run_cola_loop(body, env, state, rounds, record_every, recorder,
+                   sched) -> RunResult:
+    """Reference driver: one round at a time (the leaver reset before the
+    round), a blocking metric fetch every record round and a host-side stop
+    check. A schedule-aware recorder gets the round's certificate inputs."""
     history: dict = {"round": []}
     history.update({name: [] for name in recorder.labels})
     history["stop_round"] = None
     stop_fn = recorder.stop_fn
+    uses_sched = bool(getattr(recorder, "uses_schedule", False))
+    cert = metrics_lib.first_certificate(recorder) if uses_sched else None
     cad = metrics_lib.as_cadence(record_every)
     next_rec, every = 0, (cad.base if cad else None)
-    dev = w.device
+    dev = state.x_parts.device
+    dtype = state.x_parts.dtype
+    on_dev = lambda a, **kw: torch.tensor(np.asarray(a), device=dev, **kw)
     for t in range(rounds):
-        b_t = None if budgets is None else torch.as_tensor(budgets[t],
-                                                           device=dev)
-        state = body(state, env, w, active, b_t)
+        if "reset_any" in sched and sched["reset_any"][t]:
+            state = _reset_leavers(state, env, on_dev(sched["leavers"][t]))
+        b_t = on_dev(sched["budgets"][t]) if "budgets" in sched else None
+        state = body(state, env, on_dev(sched["w"][t]),
+                     on_dev(sched["active"][t]), b_t)
         due = (t >= next_rec) if cad else (t % record_every == 0)
         if due or t == rounds - 1:
-            row = recorder.record_fn(state).to(torch.float32)
+            if uses_sched:
+                mask_t, thr_t = metrics_lib.certificate_round_inputs(
+                    cert, sched["w"][t], sched["active"][t])
+                row = recorder.record_fn(state, {
+                    "cert_mask": on_dev(mask_t, dtype=dtype),
+                    "cert_grad_thresh": on_dev(thr_t, dtype=dtype)})
+            else:
+                row = recorder.record_fn(state)
+            row = row.to(torch.float32)
             history["round"].append(t)
             for j, val in enumerate(row.cpu().tolist()):
                 history[recorder.labels[j]].append(val)
@@ -317,20 +421,34 @@ def _run_cola_loop(body, env, state, rounds, record_every, recorder, budgets,
                      history=metrics_lib.annotate_violation(history))
 
 
-def _run_cola_block(body, env, state, rounds, record_every, recorder,
-                    budgets, w, active, block_size) -> RunResult:
-    """Round-block driver (see ``repro_torch.core.executor``)."""
-    sched = {} if budgets is None else {"budgets": budgets}
+def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
+                    block_size) -> RunResult:
+    """Round-block driver (see ``repro_torch.core.executor``).
+
+    The leaver reset is decided on the host: ``reset_any`` is a host entry
+    of the schedule (``host_entries``), so a round without leavers runs no
+    reset and reads A no extra time, and the decision costs no device sync
+    (the reference gates it with a ``lax.cond`` on the same flag)."""
+    has_reset = "reset_any" in sched
 
     def step_fn(st, env_ctx, s_t):
-        return body(st, env_ctx, w, active, s_t.get("budgets"))
+        if has_reset and s_t["reset_any"]:
+            st = _reset_leavers(st, env_ctx, s_t["leavers"])
+        return body(st, env_ctx, s_t["w"], s_t["active"], s_t.get("budgets"))
 
     cad = metrics_lib.as_cadence(record_every)
     rec_mask = None if cad else exec_engine.record_flags(rounds, record_every)
+    cert = metrics_lib.first_certificate(recorder)
+    if cert is not None and cert.dynamic:
+        # the churn certificate's per-round mask and threshold ride the
+        # schedule; under an adaptive cadence any round may record
+        sched = dict(sched, **metrics_lib.certificate_schedule(
+            recorder, sched["w"], sched["active"],
+            np.ones((rounds,), dtype=bool) if cad else rec_mask))
     res = exec_engine.run_round_blocks(
         step_fn, state, sched, context=env, recorder=recorder,
         record_mask=rec_mask, block_size=block_size, cadence=cad,
-        num_rounds=rounds)
+        num_rounds=rounds, host_entries=("reset_any",))
     return RunResult(state=res.state,
                      history=metrics_lib.history_from(recorder, res))
 

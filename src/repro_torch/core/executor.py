@@ -8,6 +8,10 @@ the device busy instead:
   without waiting for the device;
 * each record round writes its metric row into a preallocated device
   tensor; the rows are fetched once, at the end of the run;
+* schedule entries (``(T, ...)`` host arrays) are moved to the device once
+  per block; entries named in ``host_entries`` stay on the host, so a round
+  body can branch on them in Python without a device sync (the COLA driver
+  gates the leaver reset on its host ``reset_any`` flag this way);
 * a recorder with a stop condition (``stop_fn``) arms early exit through a
   device-side stop flag. Once a recorded row satisfies it, the remaining
   rounds of the block become no-ops (the state is carried through
@@ -70,7 +74,8 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
                      record_mask: np.ndarray | None = None,
                      block_size: int = 64,
                      num_rounds: int | None = None,
-                     cadence: Any = None) -> BlockRunResult:
+                     cadence: Any = None,
+                     host_entries: tuple = ()) -> BlockRunResult:
     """Run ``T`` rounds of ``step_fn`` with one host sync per block.
 
     Args:
@@ -81,9 +86,10 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
         block's slice is moved to the state's device once), or None.
       context: run-constant object passed through to ``step_fn``.
       recorder: a ``repro_torch.core.metrics`` Recorder — ``record_fn`` runs
-        on rounds where ``record_mask`` is set; ``stop_fn`` (when not None)
-        arms early exit: the round whose row satisfies it is the LAST live
-        round.
+        on rounds where ``record_mask`` is set, as ``record_fn(state,
+        sched_t)`` when ``recorder.uses_schedule`` is set; ``stop_fn``
+        (when not None) arms early exit: the round whose row satisfies it
+        is the LAST live round.
       record_mask: ``(T,)`` bool — which rounds record a row (default all).
       block_size: rounds per host synchronisation.
       num_rounds: explicit T when neither schedule nor record_mask has it.
@@ -92,6 +98,9 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
         and the controller keeps it only when due (eager PyTorch cannot
         skip the evaluation without a host sync); the last round always
         records.
+      host_entries: names of schedule entries that stay host numpy: their
+        ``sched_t`` slice is the numpy value of the round, never a tensor,
+        so ``step_fn`` may branch on it without a host sync.
 
     Returns:
       BlockRunResult(state, metrics, rounds, stop_round).
@@ -101,6 +110,12 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
     device = _leaves(state)[0].device
     record_fn = recorder.record_fn if recorder is not None else None
     stop_fn = recorder.stop_fn if recorder is not None else None
+    # schedule-aware recorders (the churn certificate) also get the round's
+    # schedule slice
+    if getattr(recorder, "uses_schedule", False):
+        record_at = record_fn
+    elif record_fn is not None:
+        record_at = lambda s, _sched_t: record_fn(s)
     has_stop = stop_fn is not None
     has_cadence = cadence is not None and record_fn is not None
     if record_fn is not None and record_mask is None and not has_cadence:
@@ -126,8 +141,10 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
     start = 0
     while start < t_total:
         stop = min(start + block_size, t_total)
-        sched_b = {name: torch.as_tensor(np.asarray(v[start:stop]),
-                                         device=device)
+        sched_b = {name: (np.asarray(v[start:stop]) if name in host_entries
+                          else torch.as_tensor(
+                              np.ascontiguousarray(v[start:stop]),
+                              device=device))
                    for name, v in schedule.items()}
         for t in range(start, stop):
             sched_t = {name: v[t - start] for name, v in sched_b.items()}
@@ -135,7 +152,7 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
             state = (_select(stopped, state, new_state) if has_stop
                      else new_state)
             if has_cadence:
-                row = record_fn(state).to(torch.float32)
+                row = record_at(state, sched_t).to(torch.float32)
                 due = (nxt <= t) | (t == t_total - 1)
                 do_rec = due & ~stopped
                 far = recorder.cadence_ratio(row).to(torch.float32) \
@@ -151,7 +168,7 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
                 if has_stop:
                     stopped = stopped | (do_rec & stop_fn(row))
             elif rec_all[t]:
-                row = record_fn(state).to(torch.float32)
+                row = record_at(state, sched_t).to(torch.float32)
                 metrics[row_i] = row
                 valid[row_i] = ~stopped
                 if has_stop:

@@ -4,13 +4,17 @@ A Recorder bundles what to measure each record round, what the columns are
 called, and when the run may stop early (duck-typed, no base class):
 
   labels      tuple[str, ...] — column names; the history dict keys.
-  record_fn   state -> (len(labels),) row tensor on the state's device.
+  record_fn   state -> (len(labels),) row tensor on the state's device;
+              ``record_fn(state, sched_t)`` when ``uses_schedule`` is set
+              (the round's schedule slice, e.g. the churn certificate's
+              ``cert_mask`` / ``cert_grad_thresh``).
   stop_fn     None (never stop) or row -> 0-d bool tensor; evaluated only
               on record rounds, so ``record_every`` is also the
               certification cadence.
 
 Implementations: ``GapRecorder`` (the Lemma-2 ``gap_report`` row),
-``CertificateRecorder`` (the Prop.-1 local certificates, static graph),
+``CertificateRecorder`` (the Prop.-1 local certificates, on the static
+graph or, ``dynamic``, on each churn round's reweighted exchange),
 ``ComposedRecorder`` (concatenated rows, stops when any part stops) and
 ``FnRecorder`` (a bare row function).
 """
@@ -101,13 +105,17 @@ class GapRecorder:
 
 @dataclasses.dataclass(frozen=True)
 class CertificateRecorder:
-    """Prop.-1 local certificates as an on-device metric row (static graph).
+    """Prop.-1 local certificates as an on-device metric row.
 
     All round-invariant inputs (sigma_k, the Eq.-9/10 thresholds, the
     self-inclusive neighbor mask) are resolved at construction — see
-    ``certificate_recorder``. ``stop_fn`` fires at certification. The
-    reference's churn (``dynamic``), attack-audit (``attack_aware``) and
-    client-sampling (``cohort``) modes are not ported yet and raise.
+    ``certificate_recorder``. ``stop_fn`` fires at certification. Under
+    churn (``dynamic``, see ``dynamize``) the Eq.-10 neighbor mask and
+    threshold come from the round's schedule instead (``cert_mask``,
+    ``cert_grad_thresh``: the support of the reweighted W_t and beta of the
+    active subnetwork, ``certificate_schedule``). The reference's
+    attack-audit (``attack_aware``) and client-sampling (``cohort``) modes
+    are not ported yet and raise.
     """
 
     problem: Any
@@ -136,18 +144,26 @@ class CertificateRecorder:
     labels = CERT_METRICS
 
     def __post_init__(self):
-        for flag, item in (("dynamic", "7 (elasticity)"),
-                           ("attack_aware", "11 (attacks)"),
+        for flag, item in (("attack_aware", "11 (attacks)"),
                            ("cohort", "10 (client sampling)")):
             if getattr(self, flag):
                 raise NotImplementedError(
                     f"CertificateRecorder({flag}=True) is not ported yet: "
                     f"ROADMAP queue 1 item {item}")
 
-    def record_fn(self, state) -> torch.Tensor:
+    @property
+    def uses_schedule(self) -> bool:
+        return self.dynamic
+
+    def record_fn(self, state, sched=None) -> torch.Tensor:
         v_stack, x_parts = state.v_stack, state.x_parts
         grads = self.problem.grad_f(v_stack)                     # (K, d)
-        neigh_mean = neighborhood_mean(grads, self.neigh_mask)
+        if self.dynamic:
+            mask = sched["cert_mask"]
+            grad_thresh = sched["cert_grad_thresh"]
+        else:
+            mask, grad_thresh = self.neigh_mask, self.grad_thresh
+        neigh_mean = neighborhood_mean(grads, mask)
         local_gap = node_subproblem_gaps(self.problem, x_parts, v_stack,
                                          self.a_parts, self.gp_parts,
                                          self.masks, grads)
@@ -155,13 +171,19 @@ class CertificateRecorder:
         v_sum = torch.sum(v_stack, dim=0)
         ax_sum = torch.bmm(self.a_parts, x_parts.unsqueeze(-1)).sum(dim=(0, 2))
         resid = consensus_residual(v_sum, ax_sum, self.part.num_nodes)
-        return self.summarize(local_gap, disagree, resid=resid)
+        return self.summarize(local_gap, disagree, resid=resid,
+                              grad_thresh=grad_thresh)
 
-    def summarize(self, local_gap, disagree, *, resid) -> torch.Tensor:
-        """Assemble the scalar row from per-node quantities."""
+    def summarize(self, local_gap, disagree, *, resid,
+                  grad_thresh=None) -> torch.Tensor:
+        """Assemble the scalar row from per-node quantities.
+        ``grad_thresh`` overrides the static Eq.-10 threshold (the churn
+        round's value)."""
         dtype = local_gap.dtype
+        if grad_thresh is None:
+            grad_thresh = self.grad_thresh
         cond9 = local_gap <= self.gap_thresh
-        cond10 = disagree <= self.grad_thresh
+        cond10 = disagree <= grad_thresh
         n_target = float(self.part.num_nodes)
         n9 = torch.sum(cond9.to(dtype))
         n10 = torch.sum(cond10.to(dtype))
@@ -187,7 +209,9 @@ class CertificateRecorder:
         return None
 
     def cadence_ratio(self, row) -> torch.Tensor:
-        """Distance-to-certification: the worse of the two margins."""
+        """Distance-to-certification: the worse of the two margins. Uses
+        the static thresholds in ``dynamic`` mode too: the cadence is a
+        scheduling heuristic, certification itself reads the round's."""
         gap_r = row[self.labels.index("local_gap_max")] / self.gap_thresh
         dis_r = (row[self.labels.index("grad_disagreement_max")]
                  / self.grad_thresh)
@@ -210,8 +234,15 @@ class ComposedRecorder:
     def labels(self):
         return tuple(lbl for p in self.parts for lbl in p.labels)
 
-    def record_fn(self, state) -> torch.Tensor:
-        return torch.cat([p.record_fn(state) for p in self.parts])
+    @property
+    def uses_schedule(self) -> bool:
+        return any(getattr(p, "uses_schedule", False) for p in self.parts)
+
+    def record_fn(self, state, sched=None) -> torch.Tensor:
+        return torch.cat([
+            p.record_fn(state, sched)
+            if getattr(p, "uses_schedule", False) else p.record_fn(state)
+            for p in self.parts])
 
     def _slices(self):
         off = 0
@@ -314,6 +345,75 @@ def certificate_recorder(problem, part: Partition, env, neighbors,
         gap_thresh=float(gap_thresh), grad_thresh=float(grad_thresh),
         stop_on_certified=stop_on_certified, cons_tol=cons_tol,
         viol_tol=viol_tol, stop_on_violation=stop_on_violation)
+
+
+def dynamize(recorder):
+    """Churn-aware variant: every certificate part reads its Eq.-10
+    neighborhood mask and threshold from the per-round schedule (see
+    ``certificate_schedule``) instead of the static graph — the static
+    graph's denser mixing would make the threshold unsoundly loose in
+    rounds where nodes have dropped."""
+    if isinstance(recorder, ComposedRecorder):
+        return dataclasses.replace(recorder, parts=tuple(
+            dynamize(p) for p in recorder.parts))
+    if isinstance(recorder, CertificateRecorder):
+        return dataclasses.replace(recorder, dynamic=True)
+    return recorder
+
+
+def first_certificate(recorder) -> CertificateRecorder | None:
+    """The first ``CertificateRecorder`` in ``recorder`` (itself or a part
+    of a ``ComposedRecorder``), or None."""
+    if isinstance(recorder, CertificateRecorder):
+        return recorder
+    if isinstance(recorder, ComposedRecorder):
+        for p in recorder.parts:
+            found = first_certificate(p)
+            if found is not None:
+                return found
+    return None
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def certificate_round_inputs(cert: CertificateRecorder, w_t, active
+                             ) -> tuple[np.ndarray, float]:
+    """(neighbor mask, Eq.-10 threshold) for ONE churn round, on the host:
+    the mask is the support of the reweighted W_t (self-inclusive; dropped
+    neighbors have W_kj = 0 and leave the neighborhood, as in the real
+    exchange), and the threshold re-derives with beta of the ACTIVE
+    subnetwork's mixing submatrix (frozen nodes are fixed points of W_t,
+    whose eigenvalue-1 blocks say nothing about the survivors'
+    contraction)."""
+    w_t = np.asarray(w_t, np.float64)
+    k = w_t.shape[0]
+    mask = (w_t != 0) | np.eye(k, dtype=bool)
+    act = np.asarray(active) > 0
+    beta_t = topo.beta(w_t[np.ix_(act, act)]) if act.sum() > 1 else 0.0
+    n_sizes = np.sum(_host(cert.masks), axis=1)
+    scale = float(np.sum(n_sizes ** 2 * _host(cert.sigma_k)))
+    thresh = (scale ** -0.5) * (1.0 - beta_t) / (
+        2.0 * cert.l_bound * np.sqrt(float(k))) * cert.eps
+    return mask, float(thresh)
+
+
+def certificate_schedule(recorder, w_stack, actives,
+                         record_mask: np.ndarray) -> dict:
+    """The dynamic certificate's per-round schedule entries, on the host:
+    ``cert_mask`` (T, K, K) and ``cert_grad_thresh`` (T,), evaluated for
+    the record rounds only (no other round's slice is read)."""
+    cert = first_certificate(recorder)
+    t, k = np.shape(w_stack)[0], np.shape(w_stack)[1]
+    dtype = np.asarray(w_stack[:1]).dtype if t else np.float32
+    masks = np.zeros((t, k, k), dtype=dtype)
+    thresh = np.zeros((t,), dtype=dtype)
+    for t_i in np.nonzero(np.asarray(record_mask, dtype=bool))[0]:
+        m, th = certificate_round_inputs(cert, w_stack[t_i], actives[t_i])
+        masks[t_i] = m
+        thresh[t_i] = th
+    return {"cert_mask": masks, "cert_grad_thresh": thresh}
 
 
 def make_recorder(kind, problem, part: Partition, env, graph, w,

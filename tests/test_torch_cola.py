@@ -163,6 +163,10 @@ def _budgets(t, rng):
     return rng.integers(0, 9, size=4)
 
 
+def _churn(t, rng):
+    return rng.random(4) < 0.7
+
+
 @pytest.mark.parametrize("executor", ["block", "loop"])
 def test_budget_schedule_matches_reference(executor):
     ref, port = _lasso()
@@ -179,7 +183,14 @@ def test_budget_schedule_matches_reference(executor):
     dict(recorder="gap+certificate", eps=0.2, record_every=5),
     dict(recorder="gap", eps=5.0, record_every=2),
     dict(recorder="gap+certificate", eps=0.2, record_every="adaptive"),
-    dict(recorder="gap", budget_schedule=_budgets, record_every=7)])
+    dict(recorder="gap", budget_schedule=_budgets, record_every=7),
+    dict(recorder="gap", active_schedule=_churn, record_every=3),
+    dict(recorder="gap", active_schedule=_churn, leave_mode="reset",
+         budget_schedule=_budgets, record_every=4),
+    dict(recorder="gap+certificate", eps=0.2, active_schedule=_churn,
+         record_every=5),
+    dict(recorder="gap+certificate", eps=0.2, active_schedule=_churn,
+         leave_mode="reset", record_every="adaptive")])
 def test_loop_and_block_executors_bitwise(kw):
     _, port = _lasso()
     runs = [tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(kappa=2.0),
@@ -249,14 +260,27 @@ def test_solve_reference_matches_reference():
 @pytest.mark.parametrize("bad", [
     dict(cfg=dict(wire="int8")), dict(cfg=dict(pipeline=True)),
     dict(cfg=dict(robust="trim")), dict(cfg=dict(telemetry=True)),
-    dict(cfg=dict(participation=object())), dict(attacks=[object()]),
-    dict(active_schedule=np.ones((5, 4), bool)),
-    dict(leave_mode="reset")])
+    dict(cfg=dict(participation=object())), dict(attacks=[object()])])
 def test_unported_features_raise(bad):
     _, port = _lasso()
     cfg = tcola.ColaConfig(**bad.pop("cfg", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         tcola.run_cola(port, ttopo.ring(4), cfg, 5, device="cpu", **bad)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(active_schedule=np.ones((5, 4), bool)),
+    dict(leave_mode="reset"),
+    dict(active_schedule=np.array([[1, 1, 0, 1]] * 2 + [[0, 1, 1, 1]] * 3,
+                                  bool), leave_mode="reset")])
+def test_elasticity_arguments_match_reference(kw):
+    """The churn arguments run now (ROADMAP queue 1 item 7): an all-active
+    (T, K) mask, reset without churn (nothing leaves), and resets."""
+    ref, port = _lasso()
+    want = j_run(ref, jtopo.ring(4), JConfig(), 5, **kw)
+    got = tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(), 5,
+                         device="cpu", **kw)
+    _assert_history(got.history, want.history)
 
 
 def test_unported_certificate_modes_raise():
@@ -265,7 +289,7 @@ def test_unported_certificate_modes_raise():
     rec = tmet.certificate_recorder(port, part, tcola.build_env(port, part),
                                     ttopo.ring(4), 0.1)
     import dataclasses
-    for flag in ("dynamic", "attack_aware", "cohort"):
+    for flag in ("attack_aware", "cohort"):
         with pytest.raises(NotImplementedError):
             dataclasses.replace(rec, **{flag: True})
 

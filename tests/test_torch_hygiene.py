@@ -1,7 +1,7 @@
 """Import and device hygiene of the port.
 
-* No file of ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX or the
-  reference package (an AST scan).
+* No file of ``src/repro_torch``, ``chip_smoke.py`` or the port's examples
+  imports JAX or the reference package (an AST scan).
 * Importing the port leaves ``jax`` and ``repro`` out of ``sys.modules``.
 * Without a card, the entry points refuse to run unless ``device="cpu"``
   is asked for.
@@ -18,7 +18,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_elastic_lasso.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -44,6 +45,7 @@ def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys, repro_torch; repro_torch.run_cola; "
             "from repro_torch.kernels import ops; import repro_torch.convert; "
             "import repro_torch.launch.serve; "
+            "import repro_torch.core.baselines; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -70,6 +72,18 @@ def test_entry_points_raise_without_a_card():
         run_cola(prob, topology.ring(2), ColaConfig(), 2)
     res = run_cola(prob, topology.ring(2), ColaConfig(), 2, device="cpu")
     assert res.state.x_parts.device.type == "cpu"
+
+    from repro_torch.core import baselines
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        baselines.make_consensus_problem(x, y, 2, loss="square", reg="l2",
+                                         lam=0.1)
+    cons = baselines.make_consensus_problem(x, y, 2, loss="square",
+                                            reg="l2", lam=0.1, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        baselines.run_dgd(cons, topology.ring(2), step=0.1, rounds=2)
+    res = baselines.run_dgd(cons, topology.ring(2), step=0.1, rounds=2,
+                            device="cpu")
+    assert res.w_stack.device.type == "cpu"
 
     from repro_torch import build_model, get_config, smoke_variant
     from repro_torch.launch import serve
