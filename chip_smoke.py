@@ -11,8 +11,9 @@ line:
 2. build   — builds the kernels from ``src/repro_torch/kernels/csrc/``.
 3. kernel  — each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Gram: K=16, n_k=125 with G resident in shared
-   memory, K=4, n_k=500 and K=2, n_k=1,000 with G streamed; residual:
-   K=16, d=2,000, n_k=25,000), with and without a step budget, and timed.
+   memory, K=4, n_k=500 and K=2, n_k=1,000 with G streamed, K=1,000,
+   n_k=2 for run_cohort's cohort; residual: K=16, d=2,000, n_k=25,000),
+   with and without a step budget, and timed.
    gram_vs_residual — at K=4, d=400,000, n_k=500 (run_c's shape), the
    Gram path per round (the c = A^T grad product plus the Gram kernel)
    against the residual kernel forced on a_cols: the measurement behind
@@ -29,7 +30,11 @@ line:
    (the plain versions), for both CD kernels and for a lasso with
    n_k=300 (Gram kernel, G streamed); churned lasso runs (nodes leave and
    reset, straggler budgets, the dynamic certificate with eps) through the
-   Gram kernel and through the residual kernel; DGD, DIGing and D-ADMM.
+   Gram kernel and through the residual kernel; the quantized wire (int8
+   with EF and the pipeline through each CD kernel, fp8_e5m2 under churn
+   and reset; the same draws on both sides, ``compare_wire_runs``); client
+   sampling (dense with the dynamic certificate, cohort at K=64 with the
+   cohort certificate); DGD, DIGing and D-ADMM.
 6. run_a   — lasso at the LIBSVM epsilon dataset's shape (synthetic
    400,000 x 2,000, ring(16)) through the Gram kernel.
 7. run_b   — ridge through its dual mapping at the same shape through the
@@ -49,6 +54,17 @@ line:
 7e. baselines — DGD, DIGing and D-ADMM at the same 400,000 x 2,000 data
    split by rows over ring(16): ms per round, device idle share, bytes
    bound per round.
+7f. run_q8 / run_f8p — run_a on the int8 wire with EF, and on the fp8 wire
+   with EF and the pipeline (held bitwise to the unpipelined fp8 run);
+   each with a ``_wire`` row: the codec's draws, encode and mix in device
+   ms against the encode's bytes bound, rounds and last gap beside run_a's.
+7g. run_part — run_a's lasso over complete(16), K'=8 sampled per round
+   (dense, streamed, dynamic certificate); the sampler's device ms.
+7h. run_cohort — 1,000,000 clients, 1,000 per round, ridge through its
+   dual at d=2,000 (2 samples per client), data drawn on the card: ms per
+   round, device ms, idle share, the sampler and the cohort write-back in
+   device ms, peak device memory (K halves on out-of-memory, and a
+   ``run_cohort_cut`` row says so).
 8. serve_a — Qwen3-4B at full width and depth in bf16 through
    ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
 9. serve_b — H2O-Danube3-4B at full width, 4 layers: 2 prompts of 4,608
@@ -110,8 +126,14 @@ SMALL_RTOL = 1e-4
 # an H100; 5 % leaves room for that and fails a wrong cache or mask, which
 # moves logits by their own size.
 FWD_TOL = 0.05
+# quantized wire, card vs CPU: |probe difference| above which a rounding
+# decision flipped between the two (fp32 noise keeps the probes ~1e-5
+# apart at the small runs' sizes, one flipped int8/fp8 step moves them
+# ~1e-3)
+PROBE_TOL = 1e-4
 
 EPS_SAMPLES, EPS_FEATURES, NODES = 400_000, 2_000, 16
+COHORT_CLIENTS = 1_000_000
 
 
 def emit(obj) -> None:
@@ -236,12 +258,14 @@ def kernel_phase(torch, cd_glm) -> dict:
     results = {}
 
     # Gram kernel, lasso prox: K=16, n_k=125 (epsilon features over 16
-    # nodes; G resident), K=4, n_k=500 (over 4 nodes, run_c) and K=2,
-    # n_k=1,000 (G streamed through the ring)
+    # nodes; G resident), K=4, n_k=500 (over 4 nodes, run_c), K=2,
+    # n_k=1,000 (G streamed through the ring) and K=1,000, n_k=2 (run_cohort's
+    # gathered cohort: 1,000 clients of 2 samples each)
     kw = dict(l1=0.05, l2=0.0, box=10.0)
     rows = []
     for kg, n_k, step_counts in ((k, EPS_FEATURES // k, (125, 1000)),
-                                 (4, 500, (500,)), (2, 1000, (1000,))):
+                                 (4, 500, (500,)), (2, 1000, (1000,)),
+                                 (1000, 2, (2,))):
         a = torch.randn((kg, 4_000, n_k), generator=gen, device=dev) \
             / 4_000 ** 0.5
         gram = torch.bmm(a.transpose(1, 2), a)
@@ -420,8 +444,10 @@ def round_profile(torch, prob, graph, cfg, rounds: int) -> dict:
     ms per round (``device_ms``: rounds queued behind a sleep kernel) and
     the device's idle share of the round, then a ``torch.profiler`` window
     over the same rounds for device ms by kernel; ``profiler_coverage`` is
-    the profiler's device total over the queued one."""
-    from repro_torch.core import cola, partition, topology
+    the profiler's device total over the queued one. On a quantized wire
+    the body runs as the drivers run it: EF state armed, each round with
+    its own draws of the port's stream (seed 0), the draws included."""
+    from repro_torch.core import cola, partition, quant, topology
     part = partition.make_partition(prob.n, graph.num_nodes)
     env = cola.build_env(prob, part)
     state = cola.init_state(prob, part)
@@ -429,17 +455,25 @@ def round_profile(torch, prob, graph, cfg, rounds: int) -> dict:
     w = torch.as_tensor(topology.metropolis_weights(graph),
                         dtype=torch.float32, device="cuda")
     active = torch.ones((graph.num_nodes,), device="cuda")
-    state = body(state, env, w, active)
+    draws = None
+    if quant.is_quantized(cfg.wire):
+        draws = quant.wire_uniforms(0, graph.num_nodes, prob.d, "cuda")
+        state = cola._arm_wire_state(state, cfg, draws)
+    t_next = 0
+
+    def one():
+        nonlocal state, t_next
+        state = body(state, env, w, active, None,
+                     **cola._round_draws(draws, t_next))
+        t_next += 1
+
+    one()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(rounds):
-        state = body(state, env, w, active)
+        one()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / rounds
-
-    def one():
-        nonlocal state
-        state = body(state, env, w, active)
 
     dev_ms = device_ms(torch, one, rounds)
 
@@ -500,11 +534,13 @@ def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
 
 
 def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
-             other, profile=None, check_gap=True, **kw) -> dict:
+             other, profile=None, check_gap=True, keep_state=False,
+             extra=None, **kw) -> dict:
     """Drive run_cola once with the launch counts zeroed just before and
     read just after; check launches and the history (the gap must fall
     unless ``check_gap`` is off). ``profile()`` gives the timing keys
-    (default: ``round_profile`` of the static round body)."""
+    (default: ``round_profile`` of the static round body); ``extra`` keys
+    go into the row; ``keep_state`` returns the final state too."""
     cd_glm.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -536,7 +572,7 @@ def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
     timing = (profile() if profile is not None
               else round_profile(torch, prob, graph, cfg, rounds=3))
     out = {"phase": name, "problem": prob.name, "d": prob.d, "n": prob.n,
-           "nodes": graph.num_nodes, "rounds": rounds,
+           "nodes": graph.num_nodes, "rounds": rounds, **(extra or {}),
            "stop_round": h["stop_round"], "executed_rounds": executed,
            "launches": launches, "wall_s_incl_setup": wall,
            **timing,
@@ -545,6 +581,8 @@ def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
            "history": {"round": h["round"], "rows": rows}}
     emit(out)
     out["raw_history"] = h
+    if keep_state:
+        out["state"] = res.state
     return out
 
 
@@ -881,6 +919,370 @@ def baselines_phase(torch, bl, topology, x, y) -> dict:
     torch.cuda.empty_cache()
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# the quantized wire and client sampling
+# ---------------------------------------------------------------------------
+
+def wire_probe(torch, tmet, k: int, d: int, device):
+    """A recorder column: a fixed random projection of v (drawn on the
+    CPU from seed 99, so that the card and the CPU project alike). Where
+    the two runs' probes part by more than ``PROBE_TOL``, a rounding
+    decision of the codec has flipped between them."""
+    p = torch.randn((k, d), generator=torch.Generator().manual_seed(99))
+    p = p.to(device)
+    return tmet.FnRecorder(("probe",),
+                           lambda s: torch.sum(s.v_stack * p)[None])
+
+
+def grid_step(wire: str, v):
+    """(K, 1) numpy: the coarsest grid step of each row of v on ``wire``
+    (absmax / 127 for int8, absmax * 2^-mantissa bits for fp8)."""
+    import numpy as np
+    am = np.abs(v).max(axis=1, keepdims=True)
+    if wire == "int8":
+        return am / 127.0
+    return am * 2.0 ** -{"fp8": 3, "fp8_e5m2": 2}[wire]
+
+
+def compare_wire_runs(name, res, wire: str, ef: bool) -> dict:
+    """Card against CPU on a quantized wire, both with the same draws (the
+    port's counter stream is the same on both). The runs compute the codec
+    on fp32 states that differ in the last bits, so a value may land on
+    the other side of a rounding boundary: rows before the first row whose
+    probes part (``PROBE_TOL``) are held to ``SMALL_RTOL`` (atol relative
+    to max |primal|), as the other ``small`` rows; the final v, x and EF
+    residual to ``SMALL_RTOL`` noise and, after a flip, one grid step of
+    their row with error feedback (which takes a flipped step back), two
+    without."""
+    import numpy as np
+    g, w = res["cuda"].history, res["cpu"].history
+    if g["round"] != w["round"] or g["stop_round"] != w["stop_round"]:
+        fail(f"{name}: card and CPU record other rounds or stop elsewhere")
+    parted = np.abs(np.asarray(g["probe"]) - np.asarray(w["probe"])) \
+        > PROBE_TOL
+    first = int(np.argmax(parted)) if parted.any() else len(w["round"])
+    atol = SMALL_RTOL * max(abs(v) for v in w["primal"])
+    worst = {}
+    for key in ("primal", "dual", "gap", "consensus_violation"):
+        a, b = np.asarray(g[key][:first]), np.asarray(w[key][:first])
+        if not np.allclose(a, b, rtol=SMALL_RTOL, atol=atol):
+            fail(f"{name}: card and CPU disagree on {key} before any "
+                 f"rounding flipped: {a.tolist()} vs {b.tolist()}")
+        worst[key] = float(np.max(np.abs(a - b))) if a.size else 0.0
+    sc, sp = res["cuda"].state, res["cpu"].state
+    v_ref = sp.v_stack.numpy()
+    steps = 0.0 if first == len(w["round"]) else (1.0 if ef else 2.0)
+    step = steps * grid_step(wire, v_ref)
+    v_noise = SMALL_RTOL * float(np.abs(v_ref).max())
+    x_ref = sp.x_parts.numpy()
+    pairs = [("v", sc.v_stack, v_ref, v_noise, step),
+             ("x", sc.x_parts, x_ref,
+              SMALL_RTOL * float(np.abs(x_ref).max()), step.max())]
+    if ef:
+        pairs.append(("ef", sc.ef, sp.ef.numpy(), v_noise, step))
+    for key, a, b, noise, s in pairs:
+        diff = np.abs(a.cpu().numpy() - b)
+        if not np.all(diff <= noise + s):
+            fail(f"{name}: card and CPU final {key} differ by up to "
+                 f"{diff.max()} (fp32 noise {noise}, grid steps {steps})")
+        worst[key] = float(diff.max())
+    return {"max_abs_diff": worst, "rows_before_a_flip": first,
+            "rows": len(w["round"]), "grid_steps_allowed_at_the_end": steps}
+
+
+def small_wire_phase(torch, rt, topo, synthetic, cd_glm, tmet) -> None:
+    """Quantized runs, the card against the CPU with the same draws: int8
+    with EF and the pipeline through each CD kernel (n_k 8 on the Gram
+    kernel, 50 on the residual kernel), and fp8_e5m2 with churn (p_stay
+    0.8) and leavers that reset."""
+    from repro_torch.core.partition import make_partition
+    rounds = 20
+    cases = (("int8", "cd_gram", 200, 64, 8, dict(pipeline=True), {}),
+             ("int8", "cd_residual", 40, 200, 4, dict(pipeline=True), {}),
+             ("fp8_e5m2", "cd_gram", 200, 64, 8, {},
+              dict(active_schedule=stay_masks(rounds, 8, 0.8),
+                   leave_mode="reset")))
+    for wire, kernel, n_samples, n_features, nodes, cfg_kw, kw in cases:
+        x, y, _ = synthetic.regression(n_samples, n_features, seed=0,
+                                       sparsity_solution=0.2)
+        res, launches = {}, {}
+        for dev in ("cuda", "cpu"):
+            prob = rt.PROBLEMS["lasso"](x, y, 5e-2, box=5.0, device=dev)
+            part = make_partition(prob.n, nodes)
+            rec = tmet.ComposedRecorder((
+                tmet.GapRecorder(prob, part),
+                wire_probe(torch, tmet, nodes, prob.d, dev)))
+            cd_glm.reset_launches()
+            res[dev] = rt.run_cola(
+                prob, topo.ring(nodes),
+                rt.ColaConfig(kappa=2.0, wire=wire, **cfg_kw), rounds,
+                record_every=2, recorder=rec, seed=3, device=dev,
+                block_size=8, **kw)
+            launches[dev] = dict(cd_glm.LAUNCHES)
+        if launches["cuda"][kernel] != rounds or launches["cpu"][kernel]:
+            fail(f"small wire {wire} {kernel}: launches {launches}, want "
+                 f"{rounds} on the card and none on the CPU")
+        cmp = compare_wire_runs(f"small wire {wire} {kernel}", res,
+                                wire, True)
+        emit({"phase": "small", "problem": "lasso", "wire": wire,
+              "error_feedback": True, "kernel": kernel,
+              "n_k": -(-n_features // nodes), "nodes": nodes, **cfg_kw,
+              **({"p_stay": 0.8, "leave_mode": "reset"} if kw else {}),
+              "launches": launches["cuda"], **cmp, "rtol": SMALL_RTOL,
+              "atol": "rtol * max|primal|"})
+
+
+def small_participation_phase(torch, rt, topo, synthetic, cd_glm, tmet,
+                              schedule) -> None:
+    """Client sampling, the card against the CPU with the same draws (the
+    sampler's counter stream is the same on both): dense mode over
+    complete(8) (K' = 4) with the dynamic certificate, and cohort mode at
+    K = 64 (K' = 16, n_k = 2) with the cohort certificate; both
+    certificates take the exact sigma_k (computed once on the CPU)."""
+    from repro_torch.core.partition import make_partition
+    rounds = 20
+    x, y, _ = synthetic.regression(200, 128, seed=0, sparsity_solution=0.2)
+    for mode, k, k_active in (("dense", 8, 4), ("cohort", 64, 16)):
+        sample = schedule.SampleConfig(k_active=k_active, mode=mode)
+        graph = topo.complete(k) if mode == "dense" \
+            else topo.implicit_complete(k)
+        hist, launches = {}, {}
+        sigma = None
+        for dev in ("cpu", "cuda"):
+            prob = rt.PROBLEMS["lasso"](x, y, 5e-2, box=5.0, device=dev)
+            part = make_partition(prob.n, k)
+            env = rt.build_env(prob, part)
+            if sigma is None:
+                sigma = torch.linalg.matrix_norm(env.a_parts, ord=2) ** 2
+            cert = (tmet.cohort_certificate_recorder(
+                prob, part, env, 0.2, sigma_k=sigma) if mode == "cohort"
+                else tmet.certificate_recorder(prob, part, env, graph, 0.2,
+                                               sigma_k=sigma))
+            rec = tmet.ComposedRecorder((tmet.GapRecorder(prob, part), cert))
+            cd_glm.reset_launches()
+            res = rt.run_cola(prob, graph, rt.ColaConfig(
+                kappa=2.0, participation=sample), rounds, record_every=2,
+                recorder=rec, eps=0.2, seed=5, device=dev, block_size=8)
+            launches[dev] = dict(cd_glm.LAUNCHES)
+            hist[dev] = res.history
+        if launches["cuda"]["cd_gram"] != rounds or launches["cpu"]["cd_gram"]:
+            fail(f"small participation {mode}: launches {launches}, want "
+                 f"{rounds} Gram launches on the card and none on the CPU")
+        worst = compare_histories(
+            f"small participation {mode}", hist,
+            ("primal", "dual", "gap", "consensus_violation",
+             "local_gap_max", "grad_disagreement_max", "cond9_nodes",
+             "cond10_nodes"), scale_key="primal")
+        emit({"phase": "small", "problem": "lasso", "participation": mode,
+              "nodes": k, "k_active": k_active, "n_k": -(-128 // k),
+              "recorder": "gap+certificate (exact sigma_k)", "eps": 0.2,
+              "stop_round": hist["cuda"]["stop_round"],
+              "launches": launches["cuda"], "max_abs_diff": worst,
+              "rtol": SMALL_RTOL, "atol": "rtol * max|primal|"})
+
+
+def codec_profile(torch, quant, mixing, wire: str, k: int, d: int) -> dict:
+    """The codec of one gossip step at (K, d) on the card: the draws
+    (``quant.wire_uniforms``), the EF encode (quantize, dequantize, new
+    residual) and the mix of the dequantized stack (W @ deq, ring(K)),
+    each in device ms, beside the bytes bound of the encode: it reads v
+    and ef and writes the dequantized stack and ef (4 K d fp32)."""
+    from repro_torch.core import topology
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    v = torch.randn((k, d), generator=gen, device="cuda")
+    ef = 0.01 * torch.randn((k, d), generator=gen, device="cuda")
+    w = torch.as_tensor(topology.metropolis_weights(topology.ring(k)),
+                        dtype=torch.float32, device="cuda")
+    draws = quant.wire_uniforms(0, k, d, "cuda")
+    u = draws(0, 0)
+    step = lambda: mixing.qmix_steps(w, v, ef, 1, wire, lambda s: u)
+    out = {}
+    for key, fn in (("draws", lambda: draws(1, 0)),
+                    ("encode", lambda: quant.encode(v, wire, u, ef)),
+                    ("mix", lambda: mixing.dense_mix(w, v)),
+                    ("encode_and_mix", step)):
+        out[f"{key}_device_ms"] = device_ms(torch, fn, 10)
+    out["encode_bytes"] = 4 * 4 * k * d
+    out["encode_bound_ms"] = out["encode_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["draws_bound_ms"] = 4 * k * d / HBM_BYTES_PER_S * 1e3
+    out["payload_bytes_per_step"] = quant.payload_bytes(d, wire, k)
+    out["fp32_payload_bytes_per_step"] = quant.payload_bytes(d, "fp32", k)
+    return out
+
+
+def wire_run(torch, rt, cd_glm, quant, mixing, name, prob, graph, wire,
+             run_a, pipeline=False) -> dict:
+    """run_a's lasso on a quantized wire with EF (and the pipeline): the
+    run itself (``main_run``: launches, history, the round body's timing
+    with its draws), then the codec of one gossip step at this shape
+    (``codec_profile``) and the run's rounds and last gap beside run_a's.
+    A pipelined run is held bitwise to the unpipelined run on the card: x
+    and v equal, and its payload and residual what the unpipelined run
+    would encode next."""
+    cfg = rt.ColaConfig(kappa=1.0, wire=wire, pipeline=pipeline)
+    kw = dict(recorder="gap+certificate", eps=1e-3, record_every=1,
+              executor="block", block_size=8)
+    run = main_run(torch, rt, cd_glm, name, prob, graph, cfg, 20,
+                   kernel="cd_gram", other="cd_residual", keep_state=True,
+                   extra={"wire": wire, "error_feedback": True,
+                          "pipeline": pipeline}, **kw)
+    state = run.pop("state")
+    h, ha = run["raw_history"], run_a["raw_history"]
+    row = {"phase": name + "_wire", "wire": wire, "pipeline": pipeline,
+           "shape": f"K={graph.num_nodes}, d={prob.d}",
+           **codec_profile(torch, quant, mixing, wire, graph.num_nodes,
+                           prob.d),
+           "recorded_rounds": len(h["round"]), "stop_round": h["stop_round"],
+           "gap_last": h["gap"][-1],
+           "run_a_recorded_rounds": len(ha["round"]),
+           "run_a_stop_round": ha["stop_round"],
+           "run_a_gap_last": ha["gap"][-1],
+           "ms_per_round": run["ms_per_round"],
+           "device_ms_per_round": run["device_ms_per_round"],
+           "run_a_ms_per_round": run_a["ms_per_round"],
+           "run_a_device_ms_per_round": run_a["device_ms_per_round"]}
+    if pipeline:
+        twin = rt.run_cola(prob, graph, rt.ColaConfig(kappa=1.0, wire=wire),
+                           20, device="cuda", **kw)
+        same = lambda a, b: torch.equal(
+            a.view(torch.uint8) if a.element_size() == 1 else a,
+            b.view(torch.uint8) if b.element_size() == 1 else b)
+        t_next = 20 if h["stop_round"] is None else h["stop_round"] + 1
+        u = quant.wire_uniforms(0, graph.num_nodes, prob.d, "cuda")(t_next,
+                                                                    0)
+        q, s, _, ef = quant.encode(twin.state.v_stack, wire, u, twin.state.ef)
+        checks = {"x": same(state.x_parts, twin.state.x_parts),
+                  "v": same(state.v_stack, twin.state.v_stack),
+                  "history": twin.history == h,
+                  "payload": same(state.buf[0], q),
+                  "scale": same(state.buf[1], s),
+                  "ef": same(state.ef, ef)}
+        if not all(checks.values()):
+            fail(f"{name}: the pipelined run is not bitwise the unpipelined "
+                 f"one: {checks}")
+        row["bitwise_vs_unpipelined"] = checks
+        del twin
+    emit(row)
+    del state
+    return run
+
+
+def participation_profile(torch, rt, schedule, prob, graph, cfg,
+                          rounds: int) -> dict:
+    """A dense participation round as the block driver runs it: the
+    sampler's generator for round t (active mask, W, the certificate's
+    mask and threshold), then the round body; ``timed_rounds`` over
+    ``rounds`` rounds, and the sampler alone in device ms."""
+    from repro_torch.core import cola, metrics, partition
+    k = graph.num_nodes
+    part = partition.make_partition(prob.n, k)
+    env = cola.build_env(prob, part)
+    body = cola.make_round(prob, part, cfg)
+    cert = metrics.certificate_recorder(prob, part, env, graph, 1e-3)
+    stream = schedule.ScheduleProgram(parts=schedule.participation_parts(
+        k, cfg.participation, dtype=torch.float32, run_seed=0, device="cuda",
+        cert=cert)).stream_fn()
+    state = cola.init_state(prob, part)
+    t_next = 0
+
+    def one():
+        nonlocal state, t_next
+        s_t = stream(t_next)
+        state = body(state, env, s_t["w"], s_t["active"])
+        t_next += 1
+
+    out = timed_rounds(torch, one, rounds)
+    out["sampler_device_ms"] = device_ms(torch, lambda: stream(0), 10)
+    del env
+    return out
+
+
+def cohort_profile(torch, schedule, prob, graph, cfg, rounds: int) -> dict:
+    """The cohort round as ``_run_cola_cohort`` runs it: the sampler's
+    generator (K-hash, top-K', sort, mask), then the gather / local solve
+    / in-place scatter round body; ``timed_rounds``, and the sampler alone
+    in device ms."""
+    from repro_torch.core import cola, partition
+    k = graph.num_nodes
+    part = partition.make_partition(prob.n, k)
+    env = cola.build_env(prob, part)
+    step = cola._cohort_round(prob, part, cfg, env)
+    stream = schedule.ScheduleProgram(parts=schedule.cohort_parts(
+        k, cfg.participation, dtype=torch.float32, run_seed=0,
+        device="cuda")).stream_fn()
+    state = cola.init_state(prob, part)
+    t_next = 0
+
+    def one():
+        nonlocal t_next
+        step(state, env, stream(t_next), None)
+        t_next += 1
+
+    out = timed_rounds(torch, one, rounds)
+    s_t = stream(0)
+    idx = s_t["cohort_idx"]
+    rows = state.v_stack.index_select(0, idx)
+    out["sampler_device_ms"] = device_ms(torch, lambda: stream(0), 10)
+    # the round's write-back of the cohort's v rows, in place (what the
+    # body does) and out of place (a new (K, d) tensor, as an eager
+    # ``.at[idx].set`` would make it)
+    out["scatter_in_place_device_ms"] = device_ms(
+        torch, lambda: state.v_stack.index_copy_(0, idx, rows), 10)
+    out["scatter_out_of_place_device_ms"] = device_ms(
+        torch, lambda: state.v_stack.index_copy(0, idx, rows), 3)
+    out["scatter_bound_ms"] = 2 * rows.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    del env, state, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def cohort_run(torch, rt, cd_glm, schedule, topology, k: int) -> dict:
+    """run_cohort at K clients: ridge through its dual mapping at the
+    epsilon dataset's feature width (d = 2,000), 2 samples per client
+    (n = 2K), lambda = 0.01, K' = 1,000 sampled per round over
+    implicit_complete(K), the gap recorder every 5 rounds, 20 rounds, no
+    eps; the data drawn on the card. Peak device memory beside it."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, y = regression_on_device(torch, 2 * k, EPS_FEATURES, seed=1)
+    prob = rt.PROBLEMS["ridge_dual"](x, y, 1e-2, device="cuda")
+    graph = topology.implicit_complete(k)
+    cfg = rt.ColaConfig(kappa=1.0,
+                        participation=schedule.SampleConfig(k_active=1_000))
+    if cfg.participation.resolve_mode(k) != "cohort":
+        fail(f"run_cohort: K={k} does not resolve to cohort mode")
+    peak = {}
+
+    def profile():
+        # the run's peak, read before the profile allocates its own env
+        peak["run"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return cohort_profile(torch, schedule, prob, graph, cfg, 5)
+
+    run = main_run(torch, rt, cd_glm, "run_cohort", prob, graph, cfg, 20,
+                   kernel="cd_gram", other="cd_residual", profile=profile,
+                   check_gap=False, recorder="gap", record_every=5,
+                   executor="block", block_size=8, keep_state=True,
+                   extra={"k_active": 1_000, "samples_per_client": 2,
+                          "lam": 1e-2, "graph": "implicit_complete"})
+    state = run.pop("state")
+    touched = int((state.x_parts != 0).any(dim=1).sum())
+    if not 1_000 <= touched <= 20 * 1_000:
+        fail(f"run_cohort: {touched} clients moved, want between one "
+             "cohort (1,000) and 20 cohorts")
+    row = {"phase": "run_cohort_memory", "clients": k,
+           "max_memory_allocated_bytes": peak["run"],
+           "profile_max_memory_allocated_bytes":
+               torch.cuda.max_memory_allocated(),
+           "clients_updated": touched,
+           "gap_first_last": [run["raw_history"]["gap"][0],
+                              run["raw_history"]["gap"][-1]]}
+    emit(row)
+    del prob, x, y, state
+    torch.cuda.empty_cache()
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1306,7 +1708,8 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
 
     import repro_torch as rt
-    from repro_torch.core import baselines as bl, subproblem, topology
+    from repro_torch.core import baselines as bl, metrics, mixing, quant, \
+        schedule, subproblem, topology
     from repro_torch.data import synthetic
     from repro_torch.kernels import build, cd_glm
     from repro_torch.kernels import flash_attention as fa
@@ -1332,6 +1735,9 @@ def main() -> int:
     gvr = gram_vs_residual_phase(torch, cd_glm, subproblem)
     small_phase(torch, rt, topology, synthetic, cd_glm)
     small_churn_phase(torch, rt, topology, synthetic, cd_glm)
+    small_wire_phase(torch, rt, topology, synthetic, cd_glm, metrics)
+    small_participation_phase(torch, rt, topology, synthetic, cd_glm,
+                              metrics, schedule)
     small_baselines_phase(torch, bl, topology, synthetic)
 
     ring = topology.ring(NODES)
@@ -1342,6 +1748,25 @@ def main() -> int:
                      other="cd_residual", recorder="gap+certificate",
                      eps=1e-3, record_every=1, executor="block",
                      block_size=8)
+    # run_a on the quantized wire: int8 with EF; fp8 with EF, pipelined,
+    # held bitwise to the unpipelined fp8 run; client sampling over
+    # complete(16)
+    run_q8 = wire_run(torch, rt, cd_glm, quant, mixing, "run_q8", lasso,
+                      ring, "int8", run_a)
+    run_f8p = wire_run(torch, rt, cd_glm, quant, mixing, "run_f8p", lasso,
+                       ring, "fp8", run_a, pipeline=True)
+    run_part = main_run(
+        torch, rt, cd_glm, "run_part", lasso, topology.complete(NODES),
+        rt.ColaConfig(kappa=1.0, participation=schedule.SampleConfig(
+            k_active=NODES // 2)), 20, kernel="cd_gram", other="cd_residual",
+        profile=lambda: participation_profile(
+            torch, rt, schedule, lasso, topology.complete(NODES),
+            rt.ColaConfig(kappa=1.0, participation=schedule.SampleConfig(
+                k_active=NODES // 2)), 5),
+        recorder="gap+certificate", eps=1e-3, record_every=1,
+        executor="block", block_size=8,
+        extra={"k_active": NODES // 2, "mode": "dense", "stream": True,
+               "run_a_ms_per_round": run_a["ms_per_round"]})
     # the same lasso over 4 nodes: n_k = 500, G streamed
     run_c = main_run(torch, rt, cd_glm, "run_c", lasso, topology.ring(4),
                      rt.ColaConfig(kappa=1.0, cd_mode="auto"), 20,
@@ -1363,6 +1788,18 @@ def main() -> int:
     baselines_phase(torch, bl, topology, x, y)
     del x, y
     torch.cuda.empty_cache()
+    # a million clients, a thousand a round; half as many if the card's
+    # memory does not hold them
+    try:
+        run_cohort = cohort_run(torch, rt, cd_glm, schedule, topology,
+                                COHORT_CLIENTS)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        emit({"phase": "run_cohort_cut", "clients": COHORT_CLIENTS,
+              "cut_to": COHORT_CLIENTS // 2,
+              "reason": "out of device memory"})
+        run_cohort = cohort_run(torch, rt, cd_glm, schedule, topology,
+                                COHORT_CLIENTS // 2)
 
     serve_a = serve_phase(torch, rt, fa, serve_mod, "serve_a",
                           rt.get_config("qwen3_4b"), batch=8,
@@ -1401,6 +1838,11 @@ def main() -> int:
         launches_run_c=run_c["launches"]["cd_gram"],
         launches_run_d=run_d["launches"]["cd_gram"],
         launches_run_e=run_e["launches"]["cd_gram"],
+        launches_run_q8=run_q8["launches"]["cd_gram"],
+        launches_run_f8p=run_f8p["launches"]["cd_gram"],
+        launches_run_part=run_part["launches"]["cd_gram"],
+        launches_run_cohort=run_cohort["launches"]["cd_gram"],
+        n_k_2=gram_at(2),
         shape="K=16, n_k=125 (G resident), 125 steps",
         n_k_500=gram_at(500), n_k_1000=gram_at(1000),
         gram_vs_residual={key: gvr[key] for key in (

@@ -15,22 +15,28 @@ while far from eps, every round near certification. The local solves run
 through the port's CUDA CD kernels on the card (``--device cuda``, the
 default) and through their plain PyTorch version with ``--device cpu``.
 
+``--wire int8|fp8|fp8_e5m2`` quantizes every gossip payload to one byte
+per element plus a 4-byte fp32 scale per node (stochastic rounding, error
+feedback unless ``--no-error-feedback``), and the run prints the bytes one
+node sends per round on that wire beside the fp32 wire's.
+
 The reference example's other flags come with later parts of the port
 (ROADMAP queue 1): ``--byzantine`` and ``--robust`` with item 11 (attacks
-and robust mixing), ``--wire`` and ``--no-error-feedback`` with item 9 (the
-quantized wire), ``--telemetry`` and ``--report`` with item 15
-(observability).
+and robust mixing), ``--telemetry`` and ``--report`` with item 15
+(observability), and its comm-plan rendering (``plan.render``) with item
+13 (the topology compiler).
 
   PYTHONPATH=src python examples/torch_elastic_lasso.py [--device cpu]
       [--topo torus] [--p-stay 0.8] [--eps 3.0] [--rounds 1500]
-      [--leave-mode freeze]
+      [--leave-mode freeze] [--wire int8] [--no-error-feedback]
 """
 import argparse
 
 import numpy as np
 
 from repro_torch import PROBLEMS, ColaConfig, run_cola, solve_reference
-from repro_torch.core import metrics as metrics_lib, topology as topo
+from repro_torch.core import metrics as metrics_lib, quant, \
+    topology as topo
 from repro_torch.data import synthetic
 
 NODES = 16
@@ -59,6 +65,12 @@ def main() -> None:
                     help="what a leaving node does with its block")
     ap.add_argument("--topo", default="torus", choices=sorted(TOPOLOGIES),
                     help="gossip graph over the 16 nodes")
+    ap.add_argument("--wire", default="fp32", choices=list(quant.WIRES),
+                    help="gossip wire codec: 1-byte payloads + fp32 absmax "
+                         "scales (default fp32)")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="disable the EF residual carry: shows the raw "
+                         "quantization noise floor")
     ap.add_argument("--device", default="cuda",
                     help="where the run happens (default cuda; cpu runs the "
                          "kernels' plain PyTorch versions)")
@@ -68,18 +80,26 @@ def main() -> None:
     prob = PROBLEMS["lasso"](x, y, 1e-3, device=args.device)
     opt = solve_reference(prob, rounds=500, kappa=8)
     graph = TOPOLOGIES[args.topo]()
+    ef = not args.no_error_feedback
+    # one gossip step per round (ColaConfig.gossip_steps = 1)
+    print(f"wire={args.wire}: {quant.payload_bytes(prob.d, args.wire):,} B "
+          f"per node per round ({quant.payload_bytes(prob.d, 'fp32'):,} B "
+          "on fp32)" + (f", error feedback {'on' if ef else 'OFF'}"
+                        if quant.is_quantized(args.wire) else ""))
 
     def churn(t, rng):
         return rng.random(NODES) < args.p_stay
 
     cadence = metrics_lib.AdaptiveCadence(base=1, max_every=64, grow=2,
                                           near=2.0)
-    res = run_cola(prob, graph, ColaConfig(kappa=2.0), rounds=args.rounds,
+    res = run_cola(prob, graph,
+                   ColaConfig(kappa=2.0, wire=args.wire, error_feedback=ef),
+                   rounds=args.rounds,
                    record_every=cadence, recorder="gap+certificate",
                    eps=args.eps, active_schedule=churn,
                    leave_mode=args.leave_mode, device=args.device)
     h = res.history
-    print(f"p_stay={args.p_stay} topo={graph.name} "
+    print(f"p_stay={args.p_stay} topo={graph.name} wire={args.wire} "
           f"leave_mode={args.leave_mode}: suboptimality trajectory "
           "(adaptive record cadence)")
     for t, p in zip(h["round"][::5], h["primal"][::5]):

@@ -1,6 +1,7 @@
 """Carry data and state across from numpy, so a run can start from the same
 inputs as another implementation (e.g. the JAX reference) and hand its
-results back. Precomputed certificate constants need no conversion:
+results back (a quantized wire's EF residual and pipelined payload
+included). Precomputed certificate constants need no conversion:
 ``metrics.certificate_recorder(sigma_k=)`` takes the (K,) sigma_k as any
 array.
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.baselines import ConsensusProblem
+from repro_torch.core import quant
 from repro_torch.core.cola import ColaState
 from repro_torch.core.problems import PROBLEMS, Problem
 from repro_torch.device import resolve
@@ -35,16 +37,42 @@ def problem_from_numpy(name: str, x, y, lam: float, *, device,
                           **kw)
 
 
-def state_from_numpy(x_parts, v_stack, *, device) -> ColaState:
-    """A ``ColaState`` from (K, n_k) / (K, d) arrays."""
+def state_from_numpy(x_parts, v_stack, *, device, ef=None, buf=None,
+                     wire: str | None = None) -> ColaState:
+    """A ``ColaState`` from (K, n_k) / (K, d) arrays, and on a quantized
+    wire the (K, d) EF residual ``ef`` and the pipelined payload ``buf`` =
+    (payload bits, (K, 1) fp32 scale): the payload as int8 or fp8 bits
+    (any 1-byte numpy dtype, e.g. the reference's float8 arrays viewed as
+    uint8), read as ``wire``'s dtype."""
     dev = resolve(device)
-    return ColaState(x_parts=torch.as_tensor(np.asarray(x_parts), device=dev),
-                     v_stack=torch.as_tensor(np.asarray(v_stack), device=dev))
+    # copies: a run may update its state in place (the cohort round does),
+    # which must not write through to the caller's arrays
+    as_t = lambda a: torch.tensor(np.asarray(a), device=dev)
+    if buf is not None:
+        if not quant.is_quantized(wire):
+            raise ValueError("buf= needs the quantized wire it was encoded "
+                             f"for, got wire={wire!r}")
+        bits, scale = buf
+        bits = np.asarray(bits).view(np.uint8)
+        buf = (as_t(bits).view(quant.wire_dtype(wire)),
+               as_t(scale))
+    return ColaState(x_parts=as_t(x_parts), v_stack=as_t(v_stack),
+                     ef=None if ef is None else as_t(ef), buf=buf)
 
 
-def state_to_numpy(state: ColaState) -> tuple[np.ndarray, np.ndarray]:
-    """(x_parts, v_stack) as numpy arrays."""
-    return state.x_parts.cpu().numpy(), state.v_stack.cpu().numpy()
+def state_to_numpy(state: ColaState) -> tuple:
+    """(x_parts, v_stack) as numpy arrays; a state with a quantized wire's
+    ``ef`` or ``buf`` gives (x_parts, v_stack, ef, buf), ``buf`` as
+    (payload bits as uint8, scale) or None."""
+    x, v = state.x_parts.cpu().numpy(), state.v_stack.cpu().numpy()
+    if state.ef is None and state.buf is None:
+        return x, v
+    ef = None if state.ef is None else state.ef.cpu().numpy()
+    buf = None
+    if state.buf is not None:
+        q, scale = state.buf
+        buf = (q.view(torch.uint8).cpu().numpy(), scale.cpu().numpy())
+    return x, v, ef, buf
 
 
 def consensus_problem_from_numpy(x_parts, y_parts, row_mask, *, loss: str,

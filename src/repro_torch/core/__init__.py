@@ -1,5 +1,6 @@
 # CoLA's core in PyTorch: problems, partition, topology, the local CD solver,
-# gossip mixing, duality gaps and certificates, recorders, the round-block
+# gossip mixing and the quantized wire, duality gaps and certificates,
+# recorders, streamed schedules and client sampling, the round-block
 # executor and the Algorithm-1 driver.
 from repro_torch.core import (  # noqa: F401
     cola,
@@ -9,6 +10,9 @@ from repro_torch.core import (  # noqa: F401
     mixing,
     partition,
     problems,
+    quant,
+    schedule,
+    streams,
     subproblem,
     topology,
 )

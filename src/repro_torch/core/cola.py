@@ -24,9 +24,22 @@ under churn the certificates judge each round's reweighted exchange
 (``metrics.dynamize``). Both drivers draw the schedules from one
 ``numpy.random.default_rng(seed)`` in the reference's order.
 
-This port covers the fp32 wire. Quantized wires, pipelining, robust
-aggregation, client sampling, attacks and telemetry raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Quantized gossip (``cfg.wire``, ``repro_torch.core.quant``): each gossip
+step sends an int8/fp8 payload plus one fp32 scale per node, with
+stochastic rounding and, by default, an error-feedback residual carried in
+``ColaState.ef``; ``cfg.pipeline`` encodes round t+1's first payload at the
+end of round t (``ColaState.buf``), bitwise the same run. The uniforms come
+from ``wire_draws`` (the port's counter stream by default).
+
+Client sampling (``cfg.participation``, ``repro_torch.core.schedule``): K'
+of K nodes of a complete graph take part in each round, drawn on the
+device inside the round loop. Dense mode streams the active mask and the
+reweighted W through the standard round body; cohort mode
+(``_run_cola_cohort``, million-node populations) gathers and updates only
+the cohort's rows.
+
+Robust aggregation, attacks and telemetry raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -37,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import executor as exec_engine, metrics as metrics_lib, \
-    mixing, topology as topo
+    mixing, quant, schedule as schedule_lib, topology as topo
 from repro_torch.core.partition import Partition, make_partition
 from repro_torch.core.problems import Problem
 from repro_torch.core.subproblem import (SubproblemSpec, block_cols,
@@ -60,13 +73,23 @@ class ColaConfig:
     cd_mode: str = "auto"           # local solver formulation:
     #   "auto" — Gram-cached when subproblem.gram_pays says it's cheaper,
     #   "gram" / "residual" — force one kernel.
+    wire: str = "fp32"              # gossip payload codec (core/quant.py):
+    #   "fp32", or "int8" / "fp8" / "fp8_e5m2": per-node-row absmax
+    #   quantization with stochastic rounding, 1 byte per element plus a
+    #   4-byte fp32 scale per row.
+    error_feedback: bool = True     # on a quantized wire, send Q(v + e) and
+    #   keep e' = (v + e) - deq (ColaState.ef): the error telescopes across
+    #   rounds instead of leaving a noise floor.
+    pipeline: bool = False          # quantized wires only: encode round
+    #   t+1's first payload at the end of round t (ColaState.buf); the run
+    #   is bitwise the unpipelined one.
+    participation: Any = None       # client sampling: a
+    #   core.schedule.SampleConfig; K' of K nodes of a complete graph take
+    #   part in each round (block executor only).
     # Reference options not ported yet; run_cola rejects anything but the
     # defaults (see ``_check_supported``).
     robust: str | None = None
-    wire: str = "fp32"
-    pipeline: bool = False
     telemetry: bool = False
-    participation: Any = None
 
     def resolved_sigma(self, k: int) -> float:
         return self.gamma * k if self.sigma_prime is None else self.sigma_prime
@@ -85,6 +108,10 @@ class ColaConfig:
 class ColaState(NamedTuple):
     x_parts: torch.Tensor  # (K, n_k)
     v_stack: torch.Tensor  # (K, d)
+    # (K, d) error-feedback residual on a quantized wire with EF (else None)
+    ef: torch.Tensor | None = None
+    # pipelined wire: the (payload, scale) of the next round's first step
+    buf: Any = None
 
 
 class ColaEnv(NamedTuple):
@@ -135,20 +162,33 @@ def init_state(problem: Problem, part: Partition) -> ColaState:
 
 
 def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
-    """The one-round function of Algorithm 1 on the fp32 wire, shared by
-    both drivers: ``one_round(state, env, w, active, budgets=None)``."""
+    """The one-round function of Algorithm 1, shared by both drivers:
+    ``one_round(state, env, w, active, budgets=None, draws=None,
+    draws_next=None)``. On a quantized wire ``draws(step)`` gives this
+    round's (K, d) rounding uniforms of gossip step ``step`` (None: round
+    to nearest), and ``draws_next`` the next round's, which the pipelined
+    body encodes with."""
     k = part.num_nodes
     sigma = cfg.resolved_sigma(k)
     spec = SubproblemSpec(sigma_over_tau=sigma / problem.tau, inv_k=1.0 / k)
     steps = cfg.coord_steps(part.block)
+    quantized = quant.is_quantized(cfg.wire)
     if cfg.grad_mode not in ("local", "mixed"):
         raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
 
     def one_round(state: ColaState, env: ColaEnv, w: torch.Tensor,
-                  active: torch.Tensor, budgets=None) -> ColaState:
-        # Step 4: gossip mixing of the local estimates (B steps, App. E.2).
-        v_half = mixing.mix_power_wire(w, state.v_stack, None,
-                                       cfg.gossip_steps)
+                  active: torch.Tensor, budgets=None, draws=None,
+                  draws_next=None) -> ColaState:
+        # Step 4: gossip mixing of the local estimates (B steps, App. E.2);
+        # on a quantized wire every step mixes the codec's view of every
+        # payload, and a pipelined run's first payload is state.buf
+        if quantized:
+            v_half, ef_new = mixing.qmix_steps(
+                w, state.v_stack, state.ef, cfg.gossip_steps, cfg.wire,
+                draws, payload=state.buf)
+        else:
+            v_half = mixing.mix_power_wire(w, state.v_stack, None,
+                                           cfg.gossip_steps)
         # Gradient each node uses for its subproblem.
         grads = problem.grad_f(v_half)
         if cfg.grad_mode == "mixed":
@@ -173,14 +213,26 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
         x_new = state.x_parts + cfg.gamma * dx
         dv = torch.bmm(env.a_parts, dx.unsqueeze(-1)).squeeze(-1)
         v_new = v_half + cfg.gamma * k * dv
-        return ColaState(x_parts=x_new, v_stack=v_new)
+        if not quantized:
+            return ColaState(x_parts=x_new, v_stack=v_new)
+        buf_new = None
+        if cfg.pipeline:
+            # the next round's step-0 encode, with the next round's draws:
+            # bitwise what that round would encode at its top
+            q, s, _, ef_new = quant.encode(
+                v_new, cfg.wire, None if draws_next is None
+                else draws_next(0), ef_new)
+            buf_new = (q, s)
+        return ColaState(x_parts=x_new, v_stack=v_new, ef=ef_new,
+                         buf=buf_new)
 
     return one_round
 
 
 def make_round(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
-    """The one-round function ``round(state, env, w, active, budgets=None)``.
-    ``w`` and ``active`` are tensors on the problem's device."""
+    """The one-round function ``round(state, env, w, active, budgets=None,
+    draws=None, draws_next=None)``. ``w`` and ``active`` are tensors on the
+    problem's device; ``draws`` as ``_round_body`` says."""
     return _round_body(problem, part, cfg)
 
 
@@ -199,12 +251,8 @@ def _check_supported(cfg: ColaConfig, *, attacks, leave_mode) -> None:
     """Reject the reference features this port does not run yet, each with
     the ROADMAP queue-1 item that brings it."""
     for bad, what, item in (
-            (cfg.wire != "fp32", f"wire={cfg.wire!r}", "9 (quantized wire)"),
-            (cfg.pipeline, "cfg.pipeline", "9 (quantized wire)"),
             (cfg.robust is not None, f"robust={cfg.robust!r}",
              "11 (attacks and robust mixing)"),
-            (cfg.participation is not None, "cfg.participation",
-             "10 (client sampling)"),
             (cfg.telemetry, "cfg.telemetry", "15 (observability)"),
             (attacks is not None, "attacks=", "11 (attacks and robust mixing)")):
         if bad:
@@ -286,19 +334,120 @@ def _materialize_schedule(graph, rounds, active_schedule, budget_schedule,
     return sched
 
 
+def _check_wire_config(cfg: ColaConfig, *, leave_mode: str) -> None:
+    """Reject the corners the quantized wire does not support, as the
+    reference does (each would change what crosses the wire)."""
+    if not quant.is_quantized(cfg.wire):
+        if cfg.pipeline:
+            raise ValueError(
+                "cfg.pipeline requires a quantized wire — the fp32 payload "
+                "has no encode step to hoist (set wire='int8'/'fp8')")
+        return
+    if cfg.grad_mode == "mixed":
+        raise NotImplementedError(
+            "grad_mode='mixed' with a quantized wire: the gradient exchange "
+            "would cross in fp32 and break the declared byte budget")
+    if cfg.pipeline and leave_mode == "reset":
+        raise NotImplementedError(
+            "cfg.pipeline with leave_mode='reset': the pre-encoded payload "
+            "in flight would be stale after the leaver reset")
+
+
+def _arm_wire_state(state: ColaState, cfg: ColaConfig,
+                    wire_draws) -> ColaState:
+    """Attach the quantized wire's state to a fresh state: the EF residual
+    (zeros) and, when pipelining, round 0's pre-encoded first payload."""
+    if not quant.is_quantized(cfg.wire):
+        return state
+    ef = quant.ef_init(state.v_stack, cfg.wire) if cfg.error_feedback \
+        else None
+    buf = None
+    if cfg.pipeline:
+        q, s, _, ef = quant.encode(state.v_stack, cfg.wire, wire_draws(0, 0),
+                                   ef)
+        buf = (q, s)
+    return state._replace(ef=ef, buf=buf)
+
+
+def _round_draws(wire_draws, t: int) -> dict:
+    """The ``draws`` / ``draws_next`` arguments of round ``t``'s body."""
+    if wire_draws is None:
+        return {}
+    return {"draws": lambda step: wire_draws(t, step),
+            "draws_next": lambda step: wire_draws(t + 1, step)}
+
+
+def _cohort_round(problem: Problem, part: Partition, cfg: ColaConfig,
+                  env: ColaEnv) -> Callable:
+    """The cohort round body of ``_run_cola_cohort``, ``step(state, env,
+    sched_t, stopped)``: gathers the cohort's rows, mixes with the
+    closed-form sampled-complete W (the exact uniform average over the
+    cohort), solves on the slices and writes the cohort's rows back in
+    place, keeping the old rows where ``stopped`` (a 0-d bool tensor, or
+    None) is set."""
+    k = part.num_nodes
+    sigma = cfg.resolved_sigma(k)
+    spec = SubproblemSpec(sigma_over_tau=sigma / problem.tau, inv_k=1.0 / k)
+    gamma = cfg.gamma
+    steps = cfg.coord_steps(part.block)
+    use_gram = (env.gram_parts is not None
+                and cfg.use_gram(problem.d, part.block,
+                                 env.a_parts.element_size()))
+    if cfg.cd_mode == "gram" and env.gram_parts is None:
+        raise ValueError(
+            "cd_mode='gram' but the env has no Gram blocks — build it "
+            "with build_env(problem, part, with_gram=True)")
+    rows = lambda t, idx: None if t is None else t.index_select(0, idx)
+
+    def step_fn(st, env_ctx, s_t, stopped):
+        idx = s_t["cohort_idx"]                              # (K',) sorted
+        v_sub = rows(st.v_stack, idx)                        # (K', d)
+        x_sub = rows(st.x_parts, idx)
+        a_sub = rows(env_ctx.a_parts, idx)                   # (K', d, n_k)
+        # Step 4 over the sampled complete subnetwork: the exact uniform
+        # cohort average (rank-one W); inactive nodes untouched
+        v_half = torch.mean(v_sub, dim=0, keepdim=True).expand_as(v_sub) \
+            .contiguous()
+        grads = problem.grad_f(v_half)
+        dx = cd_solve_all(
+            problem, spec, a_sub, x_sub, grads, rows(env_ctx.gp_parts, idx),
+            rows(env_ctx.masks, idx), steps,
+            gram_parts=rows(env_ctx.gram_parts, idx) if use_gram else None,
+            a_cols=rows(env_ctx.a_cols, idx),
+            gram_cols=rows(env_ctx.gram_cols, idx) if use_gram else None)
+        # Steps 6-8 on the cohort's rows, written back in place
+        dv = torch.bmm(a_sub, dx.unsqueeze(-1)).squeeze(-1)
+        x_new = x_sub + gamma * dx
+        v_new = v_half + gamma * k * dv
+        if stopped is not None:
+            x_new = torch.where(stopped, x_sub, x_new)
+            v_new = torch.where(stopped, v_sub, v_new)
+        st.x_parts.index_copy_(0, idx, x_new)
+        st.v_stack.index_copy_(0, idx, v_new)
+        return st
+
+    return step_fn
+
+
 def _reset_leavers(state: ColaState, env: ColaEnv,
                    leavers: torch.Tensor) -> ColaState:
     """Fig.-6 model: zero x_[k] of the leaving nodes (``leavers``, (K,)
     bool on the state's device); every node subtracts
     sum_leavers A_[k] x_[k] from its estimate, so (1/K) sum_k v_k = A x
-    still holds (Lemma 1). One bmm over all K blocks: a read of A."""
+    still holds (Lemma 1). One bmm over all K blocks: a read of A. A
+    leaver's EF residual describes payloads that no longer exist and is
+    zeroed too (a pipelined wire rejects reset, so ``buf`` is None)."""
     leave = leavers.to(state.x_parts.dtype)
     contrib = torch.bmm(env.a_parts,
                         (state.x_parts * leave[:, None]).unsqueeze(-1))
     total = contrib.squeeze(-1).sum(dim=0)                      # (d,)
     x_new = torch.where(leavers[:, None], torch.zeros_like(state.x_parts),
                         state.x_parts)
-    return ColaState(x_parts=x_new, v_stack=state.v_stack - total[None, :])
+    ef_new = (None if state.ef is None else
+              torch.where(leavers[:, None], torch.zeros_like(state.ef),
+                          state.ef))
+    return ColaState(x_parts=x_new, v_stack=state.v_stack - total[None, :],
+                     ef=ef_new, buf=state.buf)
 
 
 def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
@@ -307,7 +456,7 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
              budget_schedule=None, leave_mode: str = "freeze", seed: int = 0,
              w_override: np.ndarray | None = None, attacks=None,
              executor: str = "block", block_size: int = 64,
-             device=None) -> RunResult:
+             wire_draws: Callable | None = None, device=None) -> RunResult:
     """Driver: runs Algorithm 1 under a pluggable metric Recorder.
 
     Args:
@@ -328,10 +477,16 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
         Fig. 6: x_[k] zeroed and every v_j adjusted to keep the Lemma-1
         mean invariant).
       seed: seed of the ``numpy.random.default_rng`` the schedule callables
-        draw from (active draw, then budget draw, in each round).
+        draw from (active draw, then budget draw, in each round), of the
+        wire's rounding draws and of the participation draws.
       w_override: this mixing matrix instead of Metropolis weights (rounds
         without churn).
       executor: "block" (default) or "loop".
+      wire_draws: on a quantized wire, ``(round, step) -> (K, d)`` fp32
+        uniforms in [0, 1) for the stochastic rounding of that gossip step
+        (row k: node k's draws). Default: the port's own counter stream
+        from ``seed`` (``quant.wire_uniforms``). It exists for the parity
+        tests, which feed in the reference's threefry uniforms.
       device: where the run happens (default "cuda"); the problem must
         live there. Without a card, pass ``device="cpu"`` explicitly.
     """
@@ -340,12 +495,40 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
         raise ValueError(f"problem data is on {problem.a.device}, run_cola "
                          f"was asked to run on {dev}")
     _check_supported(cfg, attacks=attacks, leave_mode=leave_mode)
+    _check_wire_config(cfg, leave_mode=leave_mode)
     k = graph.num_nodes
     part = make_partition(problem.n, k)
+    sample = cfg.participation
+    if sample is not None:
+        if not isinstance(sample, schedule_lib.SampleConfig):
+            raise TypeError(
+                "cfg.participation must be a repro_torch.core.schedule."
+                f"SampleConfig, got {type(sample).__name__}")
+        if active_schedule is not None:
+            raise ValueError(
+                "participation= and active_schedule= both set: client "
+                "sampling IS an active schedule — pass one or the other")
+        if executor != "block":
+            raise ValueError(
+                "cfg.participation requires executor='block' — the sampled "
+                "schedule streams through the round-block executor")
+        schedule_lib.require_complete(graph)
+        if sample.resolve_mode(k) == "cohort":
+            return _run_cola_cohort(
+                problem, cfg, rounds, part=part, record_every=record_every,
+                recorder=recorder, eps=eps, budget_schedule=budget_schedule,
+                leave_mode=leave_mode, seed=seed, w_override=w_override,
+                block_size=block_size)
     env = build_env(problem, part,
                     with_gram=cfg.use_gram(problem.d, part.block,
                                            problem.a.element_size()))
     state = init_state(problem, part)
+    if quant.is_quantized(cfg.wire):
+        if wire_draws is None:
+            wire_draws = quant.wire_uniforms(seed, k, problem.d, dev)
+        state = _arm_wire_state(state, cfg, wire_draws)
+    else:
+        wire_draws = None
     base_w = w_override if w_override is not None \
         else topo.metropolis_weights(graph)
     rec = metrics_lib.make_recorder(recorder, problem, part, env, graph,
@@ -354,9 +537,9 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                                       "active_schedule")
     budget_schedule = _as_schedule_fn(budget_schedule, rounds, k,
                                       "budget_schedule")
-    if active_schedule is not None:
+    if active_schedule is not None or sample is not None:
         # certificates judge each churn round's reweighted exchange, not
-        # the static graph
+        # the static graph (client sampling is streamed churn)
         rec = metrics_lib.dynamize(rec)
     np_dtype = torch.empty((), dtype=problem.a.dtype).numpy().dtype
     sched = _materialize_schedule(graph, rounds, active_schedule,
@@ -364,16 +547,44 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                                   np_dtype)
     body = _round_body(problem, part, cfg)
     if executor == "block":
+        stream = None
+        if sample is not None:
+            sched, stream = _participation_schedule(
+                sched, sample, rec, k=k, rounds=rounds, seed=seed,
+                leave_mode=leave_mode, dtype=problem.a.dtype, device=dev)
         return _run_cola_block(body, env, state, rounds, record_every, rec,
-                               sched, block_size)
+                               sched, block_size, stream=stream,
+                               wire_draws=wire_draws)
     if executor == "loop":
         return _run_cola_loop(body, env, state, rounds, record_every, rec,
-                              sched)
+                              sched, wire_draws=wire_draws)
     raise ValueError(f"unknown executor {executor!r} (want 'block' or 'loop')")
 
 
+def _participation_schedule(sched, sample, recorder, *, k, rounds, seed,
+                            leave_mode, dtype, device):
+    """A dense participation run's schedule: the sampler's generator parts
+    stream (``sample.stream``; the broadcast w/active give way to them) or
+    are materialized into (T, ...) stacks. Under reset, the host flag
+    ``reset_any`` comes from the same draws on the CPU. Returns
+    ``(sched, stream)``."""
+    cert = metrics_lib.first_certificate(recorder)
+    prog = schedule_lib.ScheduleProgram(parts=schedule_lib.participation_parts(
+        k, sample, dtype=dtype, run_seed=seed, device=device,
+        cert=cert if cert is not None and cert.dynamic else None,
+        leave_reset=leave_mode == "reset"))
+    sched = {name: v for name, v in sched.items()
+             if name not in ("w", "active")}
+    if leave_mode == "reset":
+        sched["reset_any"] = schedule_lib.reset_flags(k, sample, seed, rounds)
+    if sample.stream:
+        return sched, prog.stream_fn()
+    sched.update(prog.materialize(rounds))
+    return sched, None
+
+
 def _run_cola_loop(body, env, state, rounds, record_every, recorder,
-                   sched) -> RunResult:
+                   sched, wire_draws=None) -> RunResult:
     """Reference driver: one round at a time (the leaver reset before the
     round), a blocking metric fetch every record round and a host-side stop
     check. A schedule-aware recorder gets the round's certificate inputs."""
@@ -393,7 +604,8 @@ def _run_cola_loop(body, env, state, rounds, record_every, recorder,
             state = _reset_leavers(state, env, on_dev(sched["leavers"][t]))
         b_t = on_dev(sched["budgets"][t]) if "budgets" in sched else None
         state = body(state, env, on_dev(sched["w"][t]),
-                     on_dev(sched["active"][t]), b_t)
+                     on_dev(sched["active"][t]), b_t,
+                     **_round_draws(wire_draws, t))
         due = (t >= next_rec) if cad else (t % record_every == 0)
         if due or t == rounds - 1:
             if uses_sched:
@@ -422,24 +634,33 @@ def _run_cola_loop(body, env, state, rounds, record_every, recorder,
 
 
 def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
-                    block_size) -> RunResult:
+                    block_size, *, stream=None, wire_draws=None) -> RunResult:
     """Round-block driver (see ``repro_torch.core.executor``).
 
     The leaver reset is decided on the host: ``reset_any`` is a host entry
     of the schedule (``host_entries``), so a round without leavers runs no
     reset and reads A no extra time, and the decision costs no device sync
-    (the reference gates it with a ``lax.cond`` on the same flag)."""
+    (the reference gates it with a ``lax.cond`` on the same flag). So is
+    the round index ``round`` that keys a quantized wire's draws.
+    ``stream``: a participation run's generator (its entries replace w,
+    active and the certificate's)."""
     has_reset = "reset_any" in sched
+    if wire_draws is not None:
+        sched = dict(sched, round=np.arange(rounds))
 
     def step_fn(st, env_ctx, s_t):
         if has_reset and s_t["reset_any"]:
             st = _reset_leavers(st, env_ctx, s_t["leavers"])
-        return body(st, env_ctx, s_t["w"], s_t["active"], s_t.get("budgets"))
+        draws = {} if wire_draws is None else _round_draws(
+            wire_draws, int(s_t["round"]))
+        return body(st, env_ctx, s_t["w"], s_t["active"], s_t.get("budgets"),
+                    **draws)
 
     cad = metrics_lib.as_cadence(record_every)
     rec_mask = None if cad else exec_engine.record_flags(rounds, record_every)
     cert = metrics_lib.first_certificate(recorder)
-    if cert is not None and cert.dynamic:
+    if cert is not None and cert.dynamic and "cert_mask" not in sched \
+            and stream is None:
         # the churn certificate's per-round mask and threshold ride the
         # schedule; under an adaptive cadence any round may record
         sched = dict(sched, **metrics_lib.certificate_schedule(
@@ -448,9 +669,88 @@ def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
     res = exec_engine.run_round_blocks(
         step_fn, state, sched, context=env, recorder=recorder,
         record_mask=rec_mask, block_size=block_size, cadence=cad,
-        num_rounds=rounds, host_entries=("reset_any",))
+        num_rounds=rounds, host_entries=("reset_any", "round"),
+        stream=stream)
     return RunResult(state=res.state,
                      history=metrics_lib.history_from(recorder, res))
+
+
+def _run_cola_cohort(problem, cfg, rounds, *, part, record_every, recorder,
+                     eps, budget_schedule, leave_mode, seed, w_override,
+                     block_size) -> RunResult:
+    """Million-node client sampling: each round only the sampled K'-node
+    cohort computes, and nothing (K, K)- or (T, K)-shaped exists.
+
+    The streamed schedule gives the sorted cohort indices (K',) and the
+    active mask (K,). The round body gathers the cohort's (K', ...) rows of
+    the state and the env (``a_parts``, and the CD kernel's layout:
+    ``gram_cols`` for the Gram kernel, ``a_cols`` for the residual one),
+    mixes with the closed-form sampled-complete W (the exact uniform
+    average over the cohort), runs the local solve on the slices and
+    writes the cohort's rows back in place (``index_copy_``): frozen nodes
+    are untouched, the dense participation semantics. It selects the old
+    rows itself once the stop flag is set (``in_place``), so a round
+    copies K' rows, never the (K, d) state.
+    """
+    sample = cfg.participation
+    k = part.num_nodes
+    for flag, what in (
+            (budget_schedule is not None, "budget_schedule="),
+            (leave_mode != "freeze", f"leave_mode={leave_mode!r}"),
+            (w_override is not None, "w_override="),
+            (quant.is_quantized(cfg.wire), f"wire={cfg.wire!r}"),
+            (cfg.grad_mode != "local", f"grad_mode={cfg.grad_mode!r}"),
+            (cfg.gossip_steps != 1, "gossip_steps != 1")):
+        if flag:
+            raise NotImplementedError(
+                f"{what} is not supported in cohort participation mode — "
+                "the gather/scatter round body implements the bare "
+                "Algorithm-1 round over the sampled cohort (dense "
+                f"participation mode, K <= {schedule_lib.DENSE_MAX_NODES}, "
+                "supports these compositions)")
+    env = build_env(problem, part,
+                    with_gram=cfg.use_gram(problem.d, part.block,
+                                           problem.a.element_size()))
+    state = init_state(problem, part)
+    if isinstance(recorder, str):
+        # make_recorder wants a dense graph and W for the certificate; the
+        # cohort form derives its thresholds without either
+        if recorder not in ("gap", "certificate", "gap+certificate"):
+            raise ValueError(f"unknown recorder {recorder!r} (want 'gap', "
+                             "'certificate', 'gap+certificate' or a "
+                             "Recorder instance)")
+        recs = []
+        if recorder in ("gap", "gap+certificate"):
+            recs.append(metrics_lib.GapRecorder(
+                problem, part, eps=eps if recorder == "gap" else None))
+        if recorder in ("certificate", "gap+certificate"):
+            if eps is None:
+                raise ValueError(
+                    f"recorder={recorder!r} needs eps=: the Prop.-1 "
+                    "conditions certify a specific accuracy")
+            recs.append(metrics_lib.cohort_certificate_recorder(
+                problem, part, env, eps))
+        rec = (recs[0] if len(recs) == 1
+               else metrics_lib.ComposedRecorder(tuple(recs)))
+    else:
+        rec = recorder
+
+    step_fn = _cohort_round(problem, part, cfg, env)
+    prog = schedule_lib.ScheduleProgram(parts=schedule_lib.cohort_parts(
+        k, sample, dtype=problem.a.dtype, run_seed=seed,
+        device=problem.a.device))
+    if sample.stream:
+        sched, stream = {}, prog.stream_fn()
+    else:
+        sched, stream = prog.materialize(rounds), None
+    cad = metrics_lib.as_cadence(record_every)
+    rec_mask = None if cad else exec_engine.record_flags(rounds, record_every)
+    res = exec_engine.run_round_blocks(
+        step_fn, state, sched, context=env, recorder=rec,
+        record_mask=rec_mask, block_size=block_size, cadence=cad,
+        num_rounds=rounds, stream=stream, in_place=True)
+    return RunResult(state=res.state,
+                     history=metrics_lib.history_from(rec, res))
 
 
 def solve_reference(problem: Problem, rounds: int = 3000,

@@ -12,12 +12,19 @@ the device busy instead:
   per block; entries named in ``host_entries`` stay on the host, so a round
   body can branch on them in Python without a device sync (the COLA driver
   gates the leaver reset on its host ``reset_any`` flag this way);
+* a ``stream`` generator ``t -> {entry: tensor}`` is evaluated on the
+  device for each round and merged over the round's schedule slice, so
+  per-round inputs that are cheap to re-derive (participation masks,
+  sampled mixing matrices) need no (T, ...) schedule;
 * a recorder with a stop condition (``stop_fn``) arms early exit through a
   device-side stop flag. Once a recorded row satisfies it, the remaining
   rounds of the block become no-ops (the state is carried through
   unchanged by a ``torch.where`` select, so the stopped run's final state
   equals the full run's state at the stop round), and the host reads the
-  flag once per block and skips the blocks after it.
+  flag once per block and skips the blocks after it. An ``in_place`` round
+  body updates the state itself and gets the stop flag to keep it
+  unchanged: the cohort round writes K' rows of a (K, d) state, where a
+  select over the whole state would copy all of it every round.
 
 PyTorch runs eagerly, so a no-op round still computes its round body before
 the select discards it, and the reference's compiled-driver cache has no
@@ -75,7 +82,9 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
                      block_size: int = 64,
                      num_rounds: int | None = None,
                      cadence: Any = None,
-                     host_entries: tuple = ()) -> BlockRunResult:
+                     host_entries: tuple = (),
+                     stream: Callable[[int], dict] | None = None,
+                     in_place: bool = False) -> BlockRunResult:
     """Run ``T`` rounds of ``step_fn`` with one host sync per block.
 
     Args:
@@ -101,6 +110,14 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
       host_entries: names of schedule entries that stay host numpy: their
         ``sched_t`` slice is the numpy value of the round, never a tensor,
         so ``step_fn`` may branch on it without a host sync.
+      stream: optional generator ``t -> {entry: tensor}`` (e.g.
+        ``schedule.ScheduleProgram.stream_fn``), evaluated for each round
+        and merged over its schedule slice (streamed entries win) before
+        the step function and the recorder see it.
+      in_place: ``step_fn(state, context, sched_t, stopped)`` updates the
+        state in place and returns it; ``stopped`` is the 0-d bool stop
+        flag (None when no stop is armed), and the step must leave the
+        state unchanged where it is set. The engine then selects nothing.
 
     Returns:
       BlockRunResult(state, metrics, rounds, stop_round).
@@ -148,9 +165,15 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
                    for name, v in schedule.items()}
         for t in range(start, stop):
             sched_t = {name: v[t - start] for name, v in sched_b.items()}
-            new_state = step_fn(state, context, sched_t)
-            state = (_select(stopped, state, new_state) if has_stop
-                     else new_state)
+            if stream is not None:
+                sched_t.update(stream(t))
+            if in_place:
+                state = step_fn(state, context, sched_t,
+                                stopped if has_stop else None)
+            else:
+                new_state = step_fn(state, context, sched_t)
+                state = (_select(stopped, state, new_state) if has_stop
+                         else new_state)
             if has_cadence:
                 row = record_at(state, sched_t).to(torch.float32)
                 due = (nxt <= t) | (t == t_total - 1)

@@ -14,7 +14,8 @@ called, and when the run may stop early (duck-typed, no base class):
 
 Implementations: ``GapRecorder`` (the Lemma-2 ``gap_report`` row),
 ``CertificateRecorder`` (the Prop.-1 local certificates, on the static
-graph or, ``dynamic``, on each churn round's reweighted exchange),
+graph, ``dynamic`` on each churn round's reweighted exchange, or
+``cohort`` on each round's sampled cohort of a complete graph),
 ``ComposedRecorder`` (concatenated rows, stops when any part stops) and
 ``FnRecorder`` (a bare row function).
 """
@@ -113,9 +114,16 @@ class CertificateRecorder:
     churn (``dynamic``, see ``dynamize``) the Eq.-10 neighbor mask and
     threshold come from the round's schedule instead (``cert_mask``,
     ``cert_grad_thresh``: the support of the reweighted W_t and beta of the
-    active subnetwork, ``certificate_schedule``). The reference's
-    attack-audit (``attack_aware``) and client-sampling (``cohort``) modes
-    are not ported yet and raise.
+    active subnetwork, ``certificate_schedule``). In ``cohort`` mode
+    (client sampling over a complete graph, ``cohort_certificate_recorder``)
+    the Eq.-10 neighborhood is the round's sampled cohort: its mixing is
+    the exact uniform average, so the neighborhood mean is one cohort-mean
+    broadcast (no (K, K) mask anywhere) and the threshold is the beta = 0
+    run constant ``grad_thresh``; the schedule gives ``cohort_idx`` (K',)
+    and ``active`` (K,), and a frozen node keeps its own gradient as its
+    neighborhood mean (disagreement 0), as a churn round isolates it. The
+    reference's attack-audit mode (``attack_aware``) is not ported yet and
+    raises.
     """
 
     problem: Any
@@ -123,7 +131,8 @@ class CertificateRecorder:
     a_parts: torch.Tensor      # (K, d, n_k)
     gp_parts: torch.Tensor     # (K, n_k)
     masks: torch.Tensor        # (K, n_k)
-    neigh_mask: torch.Tensor   # (K, K) 0/1 self-inclusive neighbor mask
+    # (K, K) 0/1 self-inclusive neighbor mask; None in cohort mode
+    neigh_mask: torch.Tensor | None
     sigma_k: torch.Tensor      # (K,) spectral-norm cache
     eps: float
     beta_ub: float
@@ -144,18 +153,18 @@ class CertificateRecorder:
     labels = CERT_METRICS
 
     def __post_init__(self):
-        for flag, item in (("attack_aware", "11 (attacks)"),
-                           ("cohort", "10 (client sampling)")):
-            if getattr(self, flag):
-                raise NotImplementedError(
-                    f"CertificateRecorder({flag}=True) is not ported yet: "
-                    f"ROADMAP queue 1 item {item}")
+        if self.attack_aware:
+            raise NotImplementedError(
+                "CertificateRecorder(attack_aware=True) is not ported yet: "
+                "ROADMAP queue 1 item 11 (attacks)")
 
     @property
     def uses_schedule(self) -> bool:
-        return self.dynamic
+        return self.dynamic or self.cohort
 
     def record_fn(self, state, sched=None) -> torch.Tensor:
+        if self.cohort:
+            return self._cohort_record(state, sched)
         v_stack, x_parts = state.v_stack, state.x_parts
         grads = self.problem.grad_f(v_stack)                     # (K, d)
         if self.dynamic:
@@ -163,7 +172,21 @@ class CertificateRecorder:
             grad_thresh = sched["cert_grad_thresh"]
         else:
             mask, grad_thresh = self.neigh_mask, self.grad_thresh
-        neigh_mean = neighborhood_mean(grads, mask)
+        return self._row(state, grads, neighborhood_mean(grads, mask),
+                         grad_thresh)
+
+    def _cohort_record(self, state, sched) -> torch.Tensor:
+        """Cohort-mode row: the Eq.-9 gaps and the Lemma-1 sums over the
+        whole population (a frozen node must still meet condition 9, as
+        under churn), the Eq.-10 neighborhood mean one cohort mean."""
+        grads = self.problem.grad_f(state.v_stack)               # (K, d)
+        cohort_mean = torch.mean(grads[sched["cohort_idx"]], dim=0)
+        act = sched["active"] > 0
+        neigh_mean = torch.where(act[:, None], cohort_mean[None, :], grads)
+        return self._row(state, grads, neigh_mean, None)
+
+    def _row(self, state, grads, neigh_mean, grad_thresh) -> torch.Tensor:
+        v_stack, x_parts = state.v_stack, state.x_parts
         local_gap = node_subproblem_gaps(self.problem, x_parts, v_stack,
                                          self.a_parts, self.gp_parts,
                                          self.masks, grads)
@@ -301,6 +324,18 @@ class FnRecorder:
         return self.stop
 
 
+def _l_bound(problem) -> float:
+    """The problem's L (the bound on g_i's support), which Prop. 1 needs
+    finite."""
+    l_bound = float(problem.l_bound)
+    if not math.isfinite(l_bound):
+        raise ValueError(
+            f"problem {problem.name!r} has unbounded g_i support "
+            "(l_bound=inf): Prop. 1 needs an L-bounded problem "
+            "(lasso / box-constrained) — use the gap recorder instead")
+    return l_bound
+
+
 def certificate_recorder(problem, part: Partition, env, neighbors,
                          eps: float, *, w=None, sigma_k=None,
                          stop_on_certified: bool = True,
@@ -325,12 +360,7 @@ def certificate_recorder(problem, part: Partition, env, neighbors,
             w = topo.metropolis_weights(graph)
     if w is None:
         w = np.asarray(neighbors, dtype=np.float64)
-    l_bound = float(problem.l_bound)
-    if not math.isfinite(l_bound):
-        raise ValueError(
-            f"problem {problem.name!r} has unbounded g_i support "
-            "(l_bound=inf): Prop. 1 needs an L-bounded problem "
-            "(lasso / box-constrained) — use the gap recorder instead")
+    l_bound = _l_bound(problem)
     k = part.num_nodes
     sigma_k = block_spectral_norms(env.a_parts, cache=sigma_k)
     beta_ub = float(topo.beta(np.asarray(w)))
@@ -345,6 +375,31 @@ def certificate_recorder(problem, part: Partition, env, neighbors,
         gap_thresh=float(gap_thresh), grad_thresh=float(grad_thresh),
         stop_on_certified=stop_on_certified, cons_tol=cons_tol,
         viol_tol=viol_tol, stop_on_violation=stop_on_violation)
+
+
+def cohort_certificate_recorder(problem, part: Partition, env, eps: float, *,
+                                sigma_k=None, stop_on_certified: bool = True,
+                                cons_tol: float = 1e-2, viol_tol: float = 0.1,
+                                stop_on_violation: bool = False
+                                ) -> CertificateRecorder:
+    """The client-sampling certificate (``cohort=True``): Prop. 1 over the
+    sampled subnetwork of a COMPLETE base graph, with no (K, K) tensor:
+    the neighborhood is structural (the cohort) and the thresholds take
+    the sampled-complete contraction factor beta = 0 (the induced mixing
+    matrix is a rank-one projector). ``sigma_k``: optional precomputed
+    (K,) ``block_spectral_norms`` values."""
+    l_bound = _l_bound(problem)
+    k = part.num_nodes
+    sigma_k = block_spectral_norms(env.a_parts, cache=sigma_k)
+    gap_thresh, grad_thresh = certificate_thresholds(
+        env.masks, sigma_k, 0.0, l_bound, eps, k)
+    return CertificateRecorder(
+        problem=problem, part=part, a_parts=env.a_parts,
+        gp_parts=env.gp_parts, masks=env.masks, neigh_mask=None,
+        sigma_k=sigma_k, eps=float(eps), beta_ub=0.0, l_bound=l_bound,
+        gap_thresh=float(gap_thresh), grad_thresh=float(grad_thresh),
+        stop_on_certified=stop_on_certified, cons_tol=cons_tol,
+        viol_tol=viol_tol, stop_on_violation=stop_on_violation, cohort=True)
 
 
 def dynamize(recorder):

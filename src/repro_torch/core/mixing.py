@@ -1,13 +1,16 @@
 """Gossip mixing operators on stacked node state: v_k <- sum_l W_kl v_l
-(Algorithm 1, step 4), over the fp32 wire.
+(Algorithm 1, step 4).
 
-``mix_power`` applies B gossip steps (App. E.2) by folding W first:
-B-1 (K, K) products and one (K, d) mix, O(B K^3 + K^2 d) instead of the
-sequential O(B K^2 d).
+``mix_power`` applies B gossip steps (App. E.2) on the fp32 wire by
+folding W first: B-1 (K, K) products and one (K, d) mix, O(B K^3 + K^2 d)
+instead of the sequential O(B K^2 d). ``qmix_steps`` runs the B steps
+over a quantized wire (``repro_torch.core.quant``), one encode per step.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import quant
 
 
 def dense_mix(w: torch.Tensor, v_stack: torch.Tensor) -> torch.Tensor:
@@ -45,3 +48,28 @@ def mix_power_wire(w: torch.Tensor, v_send: torch.Tensor,
     diag = torch.diagonal(w).to(first.dtype)
     first = first + diag[:, None] * (v_self - v_send)
     return mix_power(w, first, steps - 1)
+
+
+def qmix_steps(w: torch.Tensor, v_stack: torch.Tensor, ef, steps: int,
+               wire: str, draws=None, payload=None):
+    """B gossip steps over a QUANTIZED wire.
+
+    Every step, each node encodes its current value once (EF-compensated
+    when ``ef`` is not None; stochastic rounding with the uniforms
+    ``draws(step)``, (K, d), or round-to-nearest when ``draws`` is None),
+    and the mix runs on the dequantized stack: ``W @ deq``. Every
+    contribution goes through the codec, the node's own diagonal term
+    included. ``payload``: an optional pre-encoded ``(q, scale)`` for the
+    first step (the pipelined driver's double buffer).
+
+    Returns ``(mixed, ef_new)``.
+    """
+    out = v_stack
+    for s in range(steps):
+        if s == 0 and payload is not None:
+            deq = quant.dequantize(*payload)
+        else:
+            u = None if draws is None else draws(s)
+            _, _, deq, ef = quant.encode(out, wire, u, ef)
+        out = dense_mix(w, deq)
+    return out, ef

@@ -39,7 +39,9 @@ class Partition:
         d, n = a.shape
         if n != self.n:
             raise ValueError(f"matrix has {n} columns, partition has {self.n}")
-        a_pad = F.pad(a, (0, self.pad_width()))
+        # no padding, no pad copy: the blocks are then the one copy of A
+        # (a full-size A is half the card)
+        a_pad = F.pad(a, (0, self.pad_width())) if self.pad_width() else a
         return a_pad.reshape(d, self.num_nodes, self.block).movedim(1, 0) \
             .contiguous()
 

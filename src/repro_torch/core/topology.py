@@ -87,6 +87,26 @@ def complete(k: int) -> Topology:
     return Topology("complete", ~np.eye(k, dtype=bool))
 
 
+@dataclasses.dataclass(frozen=True)
+class ImplicitTopology:
+    """A graph too large for a dense (K, K) adjacency matrix.
+
+    It has the ``name`` and ``num_nodes`` of a ``Topology`` and nothing
+    else: code that needs the adjacency or a mixing matrix must handle it
+    apart (the cohort participation path of ``repro_torch.core.cola`` does:
+    its mixing is the closed-form average over the sampled subnetwork).
+    """
+
+    name: str
+    num_nodes: int
+
+
+def implicit_complete(k: int) -> ImplicitTopology:
+    """The complete graph over K nodes without the O(K^2) adjacency: the
+    million-node population that cohort participation takes."""
+    return ImplicitTopology("complete", k)
+
+
 def star(k: int) -> Topology:
     adj = _empty_adj(k)
     adj[0, 1:] = True

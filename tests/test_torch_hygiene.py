@@ -46,6 +46,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "from repro_torch.kernels import ops; import repro_torch.convert; "
             "import repro_torch.launch.serve; "
             "import repro_torch.core.baselines; "
+            "import repro_torch.core.quant, repro_torch.core.schedule, "
+            "repro_torch.core.streams; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

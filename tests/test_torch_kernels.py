@@ -137,7 +137,8 @@ def test_residual_kernel_chunks_and_threads(cuda, d, n_k, steps, threads,
     _close(out, cd_glm.cd_residual_plain(*args, **kw))
 
 
-@pytest.mark.parametrize("k,n_k", [(3, 20), (4, 125), (2, 236), (2, 300)])
+@pytest.mark.parametrize("k,n_k", [(3, 20), (4, 125), (2, 236), (2, 300),
+                                 (1000, 2)])
 @pytest.mark.parametrize("prox", PROX)
 @pytest.mark.parametrize("budget", [False, True])
 def test_gram_kernel_matches_plain(cuda, k, n_k, prox, budget):
