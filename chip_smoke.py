@@ -34,7 +34,12 @@ line:
    with EF and the pipeline through each CD kernel, fp8_e5m2 under churn
    and reset; the same draws on both sides, ``compare_wire_runs``); client
    sampling (dense with the dynamic certificate, cohort at K=64 with the
-   cohort certificate); DGD, DIGing and D-ADMM.
+   cohort certificate); DGD, DIGing and D-ADMM; attacks and defenses
+   (``small_attack``: trim / median / clip crossed with a Byzantine sign
+   flip and random payloads, with a stale free rider, an identity link
+   corruption and an eavesdropper, on connected_cycle(8, 2) through each
+   CD kernel; int8 with EF and trim under a sign flip; DGD and DIGing
+   with trim).
 6. run_a   — lasso at the LIBSVM epsilon dataset's shape (synthetic
    400,000 x 2,000, ring(16)) through the Gram kernel.
 7. run_b   — ridge through its dual mapping at the same shape through the
@@ -65,6 +70,23 @@ line:
    round, device ms, idle share, the sampler and the cohort write-back in
    device ms, peak device memory (K halves on out-of-memory, and a
    ``run_cohort_cut`` row says so).
+7i. run_atk_* — run_a's lasso on torus_2d(4, 4) (the reference's attack
+   graph) with two nodes sending -10x their state from round 5: clean,
+   undefended (with an eavesdropper on nodes 0 and 3, whose taps are
+   held bitwise to the replayed pre-round payloads), trim, median, clip,
+   trim on a clean run (its final state against the clean run's) and
+   trim on the int8 wire with EF. Each ``<name>_attack`` row: ms per
+   round, device ms and idle share of the replayed rounds, the mix's
+   device ms per gossip step against the bytes bound of one read and one
+   write of the (16, 400,000) stack, peak device memory, the edges the
+   gate rejects per round, violated and stop rounds, the last Lemma-1
+   residual. gate_step — one full-width robust step per mode on the
+   attacked stack, the card against the CPU (flags equal, center
+   bitwise, output within rtol 1e-5 and atol 1e-6 max|v|), and the
+   center's sort against a stable sort and the reference's comparison
+   count.
+7j. baselines_robust — DGD and DIGing with trim on the baselines' data,
+   ms per round beside the plain runs'.
 8. serve_a — Qwen3-4B at full width and depth in bf16 through
    ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
 9. serve_b — H2O-Danube3-4B at full width, 4 layers: 2 prompts of 4,608
@@ -533,14 +555,24 @@ def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
                             for n, m, c in kernels[:top]]}
 
 
+def executed_rounds(h, rounds: int, block: int) -> int:
+    """Rounds the block executor ran: all, or up to the end of the block
+    holding the stop round."""
+    if h["stop_round"] is None:
+        return rounds
+    return min(rounds, -(-(h["stop_round"] + 1) // block) * block)
+
+
 def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
              other, profile=None, check_gap=True, keep_state=False,
-             extra=None, **kw) -> dict:
+             finite=True, extra=None, **kw) -> dict:
     """Drive run_cola once with the launch counts zeroed just before and
     read just after; check launches and the history (the gap must fall
-    unless ``check_gap`` is off). ``profile()`` gives the timing keys
-    (default: ``round_profile`` of the static round body); ``extra`` keys
-    go into the row; ``keep_state`` returns the final state too."""
+    unless ``check_gap`` is off; rows and the final state must be finite
+    unless ``finite`` is off, for a run that may diverge). ``profile()``
+    gives the timing keys (default: ``round_profile`` of the static round
+    body); ``extra`` keys go into the row; ``keep_state`` returns the
+    final state (and the eavesdropper's taps) too."""
     cd_glm.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -549,11 +581,7 @@ def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
     wall = time.perf_counter() - t0
     launches = dict(cd_glm.LAUNCHES)
     h = res.history
-    block = kw["block_size"]
-    if h["stop_round"] is None:
-        executed = rounds
-    else:
-        executed = min(rounds, -(-(h["stop_round"] + 1) // block) * block)
+    executed = executed_rounds(h, rounds, kw["block_size"])
     if launches[kernel] != executed:
         fail(f"{name}: {kernel} launched {launches[kernel]} times, want one "
              f"per executed round ({executed})")
@@ -561,13 +589,13 @@ def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
         fail(f"{name}: {other} launched {launches[other]} times, want 0")
     rows = [[h[key][i] for key in h if isinstance(h[key], list)
              and key != "round"] for i in range(len(h["round"]))]
-    if not all(math.isfinite(v) for row in rows for v in row):
+    if finite and not all(math.isfinite(v) for row in rows for v in row):
         fail(f"{name}: non-finite history row")
     if check_gap and not h["gap"][-1] < h["gap"][0]:
         fail(f"{name}: gap did not decrease ({h['gap'][0]} -> {h['gap'][-1]})")
     x_fin = bool(torch.isfinite(res.state.x_parts).all()
                  and torch.isfinite(res.state.v_stack).all())
-    if not x_fin:
+    if finite and not x_fin:
         fail(f"{name}: non-finite final state")
     timing = (profile() if profile is not None
               else round_profile(torch, prob, graph, cfg, rounds=3))
@@ -583,6 +611,7 @@ def main_run(torch, rt, cd_glm, name, prob, graph, cfg, rounds, *, kernel,
     out["raw_history"] = h
     if keep_state:
         out["state"] = res.state
+        out["taps"] = res.taps
     return out
 
 
@@ -736,10 +765,14 @@ def small_baselines_phase(torch, bl, topo, synthetic) -> None:
               "rtol": SMALL_RTOL, "atol": "rtol * max|column|"})
 
 
-def timed_rounds(torch, one, rounds: int) -> dict:
+def timed_rounds(torch, one, rounds: int, device_reps: int | None = None
+                 ) -> dict:
     """``rounds`` calls of ``one`` (one round each): host-clock ms per
-    round around synchronised rounds, device ms per round (``device_ms``)
-    and the device's idle share of the round."""
+    round around synchronised rounds, device ms per round (``device_ms``
+    over ``device_reps`` rounds, default ``rounds``: a round of a few
+    hundred launches must stay under the card's queue of pending
+    launches while they wait behind the sleep kernel) and the device's
+    idle share of the round."""
     one()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -747,7 +780,7 @@ def timed_rounds(torch, one, rounds: int) -> dict:
         one()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / rounds
-    dev_ms = device_ms(torch, one, rounds)
+    dev_ms = device_ms(torch, one, device_reps or rounds)
     return {"ms_per_round": host_ms, "device_ms_per_round": dev_ms,
             "device_idle_share": 1.0 - dev_ms / host_ms}
 
@@ -1286,6 +1319,482 @@ def cohort_run(torch, rt, cd_glm, schedule, topology, k: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# attacks and robust mixing
+# ---------------------------------------------------------------------------
+
+# the full-width Byzantine: the reference's attack on its torus
+# (benchmarks/attack_smoke.py), two of 16 nodes sending -10x their state
+# from round 5 on
+FULL_BYZANTINE = dict(nodes=(0, 10), mode="sign_flip", scale=10.0, start=5,
+                      seed=1)
+ROBUST_MODES = ("trim", "median", "clip")
+# a full-width robust gossip step, card against CPU: the output within
+# GATE_RTOL and GATE_ATOL * max|v| (the same gate, fp32 products summed in
+# another order); the flags equal and the center bitwise
+GATE_RTOL, GATE_ATOL = 1e-5, 1e-6
+
+
+def small_attack_phase(torch, rt, topo, synthetic, cd_glm, tmet, attack,
+                       bl) -> None:
+    """Attacked and defended runs, the card against the CPU, on
+    connected_cycle(8, 2), lasso, gap+certificate with eps 0.5 (the honest
+    cohort's certificate): each robust mode crossed with a Byzantine sign
+    flip and random payloads, each run also holding a stale free rider,
+    an identity link corruption and an eavesdropper, through each CD
+    kernel (n_k = 8 on the Gram kernel, n_k = 300 > d = 200 on the
+    residual kernel); int8 with EF and trim under a sign flip
+    (``compare_wire_runs``); DGD and DIGing with trim."""
+    import numpy as np
+    from repro_torch.core.partition import make_partition
+    rounds, nodes, block = 20, 8, 8
+    graph = topo.connected_cycle(nodes, 2)
+
+    def scenarios(byz_mode):
+        return [attack.Byzantine(nodes=(1, 6), mode=byz_mode,
+                                 scale=3.0 if byz_mode == "sign_flip"
+                                 else 0.5, start=4, seed=2),
+                attack.FreeRider(nodes=(3,), stale=True, start=8),
+                attack.LinkCorruption(edges=((0, 1),), scale=1.0),
+                attack.Eavesdropper(nodes=(1, 2))]
+
+    cert_keys = ("primal", "dual", "gap", "consensus_violation",
+                 "local_gap_max", "grad_disagreement_max", "cond9_nodes",
+                 "cond10_nodes", "consensus_residual")
+    for kernel, n_samples, n_features, kappa in (
+            ("cd_gram", 200, 64, 2.0), ("cd_residual", 200, 2400, 1.0)):
+        x, y, _ = synthetic.regression(n_samples, n_features, seed=0,
+                                       sparsity_solution=0.2)
+        for mode in ROBUST_MODES:
+            for byz_mode in ("sign_flip", "random"):
+                name = f"small attack {mode} {byz_mode} {kernel}"
+                hist, taps, launches = {}, {}, {}
+                for dev in ("cuda", "cpu"):
+                    prob = rt.PROBLEMS["lasso"](x, y, 5e-2, box=5.0,
+                                                device=dev)
+                    cd_glm.reset_launches()
+                    res = rt.run_cola(
+                        prob, graph, rt.ColaConfig(kappa=kappa, robust=mode),
+                        rounds, record_every=2, recorder="gap+certificate",
+                        eps=0.5, attacks=scenarios(byz_mode), device=dev,
+                        block_size=block)
+                    launches[dev] = dict(cd_glm.LAUNCHES)
+                    hist[dev], taps[dev] = res.history, res.taps.cpu()
+                executed = executed_rounds(hist["cuda"], rounds, block)
+                if launches["cuda"][kernel] != executed or \
+                        launches["cpu"][kernel]:
+                    fail(f"{name}: launches {launches}, want {executed} on "
+                         "the card and none on the CPU")
+                worst = compare_histories(name, hist, cert_keys,
+                                          scale_key="primal")
+                if hist["cuda"]["violated_round"] != \
+                        hist["cpu"]["violated_round"]:
+                    fail(f"{name}: violated rounds differ")
+                t_err = float((taps["cuda"] - taps["cpu"]).abs().max())
+                t_scale = float(taps["cpu"].abs().max())
+                if not t_err <= SMALL_RTOL * max(t_scale, 1e-30):
+                    fail(f"{name}: card and CPU taps differ by {t_err}")
+                emit({"phase": "small", "problem": "lasso", "robust": mode,
+                      "byzantine": byz_mode, "kernel": kernel,
+                      "n_k": -(-n_features // nodes), "nodes": nodes,
+                      "graph": graph.name,
+                      "attacks": "Byzantine(1, 6), stale FreeRider(3), "
+                                 "identity LinkCorruption(0->1), "
+                                 "Eavesdropper(1, 2)",
+                      "stop_round": hist["cuda"]["stop_round"],
+                      "violated_round": hist["cuda"]["violated_round"],
+                      "launches": launches["cuda"],
+                      "max_abs_diff": {**worst, "taps": t_err},
+                      "rtol": SMALL_RTOL, "atol": "rtol * max|primal|"})
+    # the quantized wire composed with the attack and the defense
+    x, y, _ = synthetic.regression(200, 64, seed=0, sparsity_solution=0.2)
+    res, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        prob = rt.PROBLEMS["lasso"](x, y, 5e-2, box=5.0, device=dev)
+        part = make_partition(prob.n, nodes)
+        rec = tmet.ComposedRecorder((
+            tmet.GapRecorder(prob, part),
+            wire_probe(torch, tmet, nodes, prob.d, dev)))
+        cd_glm.reset_launches()
+        res[dev] = rt.run_cola(
+            prob, graph, rt.ColaConfig(kappa=2.0, wire="int8",
+                                       robust="trim"), rounds,
+            record_every=2, recorder=rec, seed=3, device=dev,
+            block_size=block,
+            attacks=[attack.Byzantine(nodes=(1, 6), scale=3.0, start=4)])
+        launches[dev] = dict(cd_glm.LAUNCHES)
+    if launches["cuda"]["cd_gram"] != rounds or launches["cpu"]["cd_gram"]:
+        fail(f"small attack int8: launches {launches}")
+    cmp = compare_wire_runs("small attack int8 trim", res, "int8", True)
+    emit({"phase": "small", "problem": "lasso", "wire": "int8",
+          "error_feedback": True, "robust": "trim",
+          "byzantine": "sign_flip", "kernel": "cd_gram", "n_k": 8,
+          "nodes": nodes, "graph": graph.name,
+          "launches": launches["cuda"], **cmp, "rtol": SMALL_RTOL,
+          "atol": "rtol * max|primal|"})
+    # the baselines' robust mixing
+    x, y, _ = synthetic.regression(800, 64, seed=5)
+    lam = 1e-2
+    step = 1.0 / smooth_lipschitz(torch, torch.as_tensor(x), lam)
+    for name, run in (("dgd", bl.run_dgd), ("diging", bl.run_diging)):
+        hist, w_stack = {}, {}
+        for dev in ("cuda", "cpu"):
+            prob = bl.make_consensus_problem(x, y, nodes, loss="square",
+                                             reg="l2", lam=lam, device=dev)
+            r = run(prob, graph, step=step, rounds=30, record_every=5,
+                    robust="trim", device=dev, block_size=8)
+            hist[dev], w_stack[dev] = r.history, r.w_stack.cpu()
+        worst = compare_histories(f"small {name} trim", hist,
+                                  ("objective", "consensus"))
+        w_err = float((w_stack["cuda"] - w_stack["cpu"]).abs().max())
+        if not w_err <= SMALL_RTOL * max(float(w_stack["cpu"].abs().max()),
+                                         1e-30):
+            fail(f"small {name} trim: card and CPU iterates differ by "
+                 f"{w_err}")
+        emit({"phase": "small", "baseline": name, "robust": "trim",
+              "nodes": nodes, "graph": graph.name, "d": 64,
+              "max_abs_diff": {**worst, "w_stack": w_err},
+              "rtol": SMALL_RTOL, "atol": "rtol * max|column|"})
+
+
+def attack_schedule(graph, rounds: int, attacks, d: int) -> tuple:
+    """The port's materialized schedule of a run on ``graph`` without churn,
+    transformed by ``attacks`` as ``run_cola`` does: ``(sched, info)``."""
+    import numpy as np
+    from repro_torch import attack
+    from repro_torch.core import cola, topology
+    sched = cola._materialize_schedule(
+        graph, rounds, None, None, "freeze", 0,
+        topology.metropolis_weights(graph), np.float32)
+    if not attacks:
+        return sched, None
+    ctx = attack.AttackContext(graph=graph, rounds=rounds,
+                               k=graph.num_nodes, d=d, dtype=np.float32,
+                               seed=0, device="cuda")
+    return attack.apply_attacks(sched, attacks, ctx)
+
+
+def attack_profile(torch, mixing, quant, prob, graph, cfg, attacks,
+                   rounds: int, side: dict) -> dict:
+    """A run's rounds replayed on the card as the block driver runs them
+    (the round's W and attack entries, then the round body), from the
+    initial state:
+
+    * round by round: the edges the gate rejects (``gate_flags`` on the
+      round's wire payloads: for a defended run its own mode, for an
+      undefended run what trim would reject; on a quantized wire the
+      dequantized payloads, as the body mixes them), and the tapped
+      nodes' pre-round payloads ``_apply_payload_attack(v_t)[taps]``
+      (``side["taps"]``, held bitwise against the run's taps);
+    * ``timed_rounds`` over the same rounds (device ms over 4 of them:
+      a defended round is ~250 launches);
+    * one gossip step (the robust mix, or the linear mix when undefended)
+      on the last round's payloads in device ms and its peak device
+      memory above what was allocated before it, beside the bytes bound
+      of one read and one write of the (K, d) stack, and for a defended
+      run its device ms by kernel (``device_profile``).
+
+    ``side`` also gets the last round's honest stack ``v`` and payloads
+    ``v_send`` for ``gate_step_check``."""
+    import numpy as np
+    from repro_torch.core import cola, partition
+    k = graph.num_nodes
+    part = partition.make_partition(prob.n, k)
+    env = cola.build_env(prob, part)
+    body = cola.make_round(prob, part, cfg)
+    sched, info = attack_schedule(graph, rounds, attacks, prob.d)
+    names = tuple(n for n in (info.entry_names if info else ())
+                  if n not in ("dishonest", "bias"))
+    if info is not None and "bias" in info.entry_names:
+        fail("attack_profile: random payloads are not replayed here")
+    on_card = lambda a: torch.as_tensor(np.array(a), device="cuda")
+    w = [on_card(sched["w"][t]) for t in range(rounds)]
+    active = on_card(sched["active"][0])
+    atk = [{n: on_card(sched["atk_" + n][t]) for n in names} or None
+           for t in range(rounds)]
+    taps = info.tap_nodes if info else ()
+    ids = torch.arange(k, device="cuda")
+    gate_mode = cfg.robust or "trim"
+    quantized = quant.is_quantized(cfg.wire)
+    draws = quant.wire_uniforms(0, k, prob.d, "cuda") if quantized else None
+    state = cola.init_state(prob, part)
+    if quantized:
+        state = cola._arm_wire_state(state, cfg, draws)
+    rejected, tap_rows = [], []
+    for t in range(rounds):
+        v_send = cola._apply_payload_attack(state.v_stack, atk[t])
+        honest = None if v_send is state.v_stack else state.v_stack
+        g_send, g_self = v_send, honest
+        if quantized:
+            u0 = draws(t, 0)
+            _, _, g_self, _ = quant.encode(state.v_stack, cfg.wire, u0,
+                                           state.ef)
+            g_send = g_self if honest is None else quant.dequantize(
+                *quant.quantize_rows(v_send + state.ef, cfg.wire, u0))
+            if honest is None:
+                g_self = None
+        flags = mixing.gate_flags(w[t], g_send, ids, gate_mode,
+                                  trim=cfg.robust_trim, clip=cfg.robust_clip,
+                                  self_override=g_self)
+        rejected.append(int(flags.sum()))
+        if taps:
+            tap_rows.append(v_send[list(taps)])
+        side["v"], side["v_send"] = state.v_stack, v_send
+        state = body(state, env, w[t], active, None, atk=atk[t],
+                     **cola._round_draws(draws, t))
+    side["taps"] = torch.stack(tap_rows) if taps else None
+    side["w"] = w[-1]
+    t_next = 0
+
+    def one():
+        nonlocal state, t_next
+        t = t_next % rounds
+        state = body(state, env, w[t], active, None, atk=atk[t],
+                     **cola._round_draws(draws, t))
+        t_next += 1
+
+    out = timed_rounds(torch, one, rounds, device_reps=4)
+    v, v_send = side["v"], side["v_send"]
+    self_stack = None if v_send is v else v
+    if cfg.robust is not None:
+        step = lambda: mixing.robust_mix_dense(
+            w[-1], v_send, cfg.robust, trim=cfg.robust_trim,
+            clip=cfg.robust_clip, self_stack=self_stack)
+    else:
+        step = lambda: mixing.mix_power_wire(w[-1], v_send, self_stack, 1)
+    out["mix_device_ms_per_step"] = device_ms(torch, step, 3)
+    if cfg.robust is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof = device_profile(torch, step, (time.perf_counter() - t0) * 1e3,
+                              top=8)
+        out["mix_top_kernels"] = prof["top_kernels"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    out["mix_peak_bytes_above_live"] = \
+        torch.cuda.max_memory_allocated() - before
+    out["mix_bytes_bound_ms"] = 2 * v.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    out["mix_kind"] = cfg.robust or "linear"
+    out["gate_mode_counted"] = gate_mode
+    out["rejected_edges_per_round"] = rejected
+    del env
+    return out
+
+
+def attack_run(torch, rt, cd_glm, mixing, quant, attack, name, prob, graph,
+               *, robust, attacked, wire="fp32", eavesdrop=False) -> dict:
+    """run_a's lasso on torus_2d(4, 4) with ``FULL_BYZANTINE`` (or clean),
+    ``robust``, gap+certificate with eps 1e-3, 20 rounds in blocks of 8:
+    ``main_run`` (launches, history; the gap must fall in a clean run, and
+    the rows stay finite unless the attack meets no defense or only
+    clipping), then a ``<name>_attack`` row: ``attack_profile``'s
+    replay (rejected edges per round, the mix's device ms per gossip step
+    against its bound, ms per round), the run's peak device memory,
+    ``violated_round``, ``stop_round`` and the last Lemma-1 residual. With
+    an eavesdropper on nodes (0, 3) the run's taps must equal, bitwise,
+    ``_apply_payload_attack`` of the tapped rows of each round's
+    pre-round state, taken from the replay."""
+    cfg = rt.ColaConfig(kappa=1.0, robust=robust, wire=wire)
+    attacks = ([attack.Byzantine(**FULL_BYZANTINE)] if attacked else []) \
+        + ([attack.Eavesdropper(nodes=(0, 3))] if eavesdrop else [])
+    side, peak = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+
+    def profile():
+        peak["run"] = torch.cuda.max_memory_allocated()
+        return attack_profile(torch, mixing, quant, prob, graph, cfg,
+                              attacks, 20, side)
+
+    run = main_run(torch, rt, cd_glm, name, prob, graph, cfg, 20,
+                   kernel="cd_gram", other="cd_residual", profile=profile,
+                   check_gap=not attacked,
+                   finite=not attacked or robust in ("trim", "median"),
+                   keep_state=True, recorder="gap+certificate", eps=1e-3,
+                   record_every=1, executor="block", block_size=8,
+                   attacks=attacks or None,
+                   extra={"graph": graph.name, "robust": robust,
+                          "wire": wire, "attack": FULL_BYZANTINE
+                          if attacked else None,
+                          "eavesdropper": [0, 3] if eavesdrop else None})
+    h = run["raw_history"]
+    row = {"phase": name + "_attack", "robust": robust, "wire": wire,
+           "attacked": attacked,
+           "ms_per_round": run["ms_per_round"],
+           "device_ms_per_round": run["device_ms_per_round"],
+           "device_idle_share": run["device_idle_share"],
+           "mix_kind": run["mix_kind"],
+           "mix_top_kernels": run.get("mix_top_kernels"),
+           "mix_device_ms_per_step": run["mix_device_ms_per_step"],
+           "mix_bytes_bound_ms": run["mix_bytes_bound_ms"],
+           "mix_over_bound": run["mix_device_ms_per_step"]
+           / run["mix_bytes_bound_ms"],
+           "mix_peak_bytes_above_live": run["mix_peak_bytes_above_live"],
+           "run_peak_bytes": peak["run"], "run_peak_bytes_above_live":
+           peak["run"] - live,
+           "violated_round": h.get("violated_round"),
+           "stop_round": h["stop_round"],
+           "consensus_residual_last": h["consensus_residual"][-1],
+           "gap_last": h["gap"][-1],
+           "gate_counted": run["gate_mode_counted"],
+           "rejected_edges_per_round": run["rejected_edges_per_round"]}
+    if eavesdrop:
+        got, want = run["taps"], side["taps"]
+        if got is None or tuple(got.shape) != tuple(want.shape) \
+                or not torch.equal(got, want):
+            fail(f"{name}: the taps are not the tapped rows' wire payloads "
+                 "of the replayed pre-round states")
+        row["taps_checked"] = {"shape": list(got.shape), "bitwise": True,
+                               "from": "attack_profile's replay"}
+    emit(row)
+    run["side"] = side
+    return run
+
+
+def stable_sort_center(torch, w, v_send, v):
+    """The gate's center as the port computes it, but with a stable sort
+    (PyTorch's radix sort per coordinate at 16 slots) where the port's
+    ``mixing._center`` sorts unstably (bitonic)."""
+    k, d = v.shape
+    ids = torch.arange(k, device=v.device)
+    mask = (w != 0) | (ids[None, :] == ids[:, None])
+    counts = torch.sum(mask.to(torch.int64), dim=1)
+    guarded = torch.where(mask[:, None, :], v_send.T.contiguous()[None],
+                          torch.finfo(v.dtype).max)
+    guarded[ids, :, ids] = v
+    srt = torch.sort(guarded, dim=-1, stable=True).values
+    target = (counts - 1) // 2
+    return srt.gather(-1, target[:, None, None].expand(k, d, 1))[..., 0] + 0.0
+
+
+def rank_count_center(torch, w, v_send, v):
+    """The reference's K <= 32 formulation of the gate's center: the
+    (counts-1)//2-th order statistic by an O(K^2) comparison count over
+    (R, K, K, d) boolean temporaries (``src/repro/core/mixing.py``'s
+    ``_gate_center_flags``), for comparison with the port's sort."""
+    k = v.shape[0]
+    ids = torch.arange(k, device=v.device)
+    self_hot = ids[None, :] == ids[:, None]
+    mask = (w != 0) | self_hot
+    counts = torch.sum(mask.to(torch.int64), dim=1)
+    guarded = torch.where(mask[:, :, None], v_send[None],
+                          torch.finfo(v.dtype).max)
+    guarded[ids, ids] = v
+    lt = guarded[:, :, None, :] < guarded[:, None, :, :]
+    eq = guarded[:, :, None, :] == guarded[:, None, :, :]
+    ilt = (ids[:, None] < ids[None, :])[None, :, :, None]
+    rank = torch.sum(lt | (eq & ilt), dim=1)
+    del lt, eq
+    sel = rank == ((counts - 1) // 2)[:, None, None]
+    return torch.sum(torch.where(sel, guarded, 0.0), dim=1)
+
+
+def gate_step_check(torch, mixing, w, v, v_send) -> dict:
+    """One full-width robust gossip step per mode on the attacked (K, d)
+    stack (run_atk_trim's last round: the honest states ``v``, the
+    payloads ``v_send`` with two nodes at -10x), on the card against the
+    same functions' plain run on the CPU: the gate flags equal, the
+    trim/median center bitwise, the output within ``GATE_RTOL`` and
+    ``GATE_ATOL`` * max|v|. Then the center's formulations on the card:
+    the port's sort, the same with a stable sort (``stable_sort_center``)
+    and the reference's comparison count (``rank_count_center``), each in
+    device ms with its peak memory, held bitwise to each other."""
+    k = v.shape[0]
+    ids = torch.arange(k, device="cuda")
+    c = lambda t: t.cpu()
+    out = {"phase": "gate_step", "shape": f"K={k}, d={v.shape[1]}",
+           "rtol": GATE_RTOL, "atol": f"{GATE_ATOL} * max|v|"}
+    center = mixing.robust_center(w, v_send, ids, self_override=v)
+    center_cpu = mixing.robust_center(c(w), c(v_send), c(ids),
+                                      self_override=c(v))
+    if not torch.equal(center.cpu(), center_cpu):
+        fail("gate_step: the card's center is not the CPU's bitwise")
+    atol = GATE_ATOL * float(v_send.abs().max())
+    for mode in ROBUST_MODES:
+        flags = mixing.gate_flags(w, v_send, ids, mode, self_override=v)
+        flags_cpu = mixing.gate_flags(c(w), c(v_send), c(ids), mode,
+                                      self_override=c(v))
+        if not torch.equal(flags.cpu(), flags_cpu):
+            fail(f"gate_step {mode}: card and CPU gate flags differ")
+        mixed = mixing.robust_mix_dense(w, v_send, mode, self_stack=v).cpu()
+        mixed_cpu = mixing.robust_mix_dense(c(w), c(v_send), mode,
+                                            self_stack=c(v))
+        err = (mixed - mixed_cpu).abs()
+        if not bool((err <= atol + GATE_RTOL * mixed_cpu.abs()).all()):
+            fail(f"gate_step {mode}: card and CPU outputs differ by up to "
+                 f"{float(err.max())}")
+        out[mode] = {"rejected_edges": int(flags.sum()),
+                     "max_abs_diff": float(err.max())}
+    out["center_bitwise"] = True
+    for key, fn in (("sort", lambda: mixing.robust_center(
+            w, v_send, ids, self_override=v)),
+                    ("stable_sort", lambda: stable_sort_center(
+                        torch, w, v_send, v)),
+                    ("rank_count", lambda: rank_count_center(
+                        torch, w, v_send, v))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        if not torch.equal(got, center):
+            fail(f"gate_step: the {key} center is not the port's bitwise")
+        del got
+        out[f"center_{key}"] = {"device_ms": device_ms(torch, fn, 3),
+                                "peak_bytes_above_live": peak}
+    emit(out)
+    return out
+
+
+def baselines_robust_phase(torch, bl, topology, x, y, plain: dict) -> dict:
+    """DGD and DIGing with robust="trim" on the baselines' row split
+    (``baselines_phase``'s problem, step and graph), 20 rounds: the
+    objective must fall and every row be finite; ms per round beside the
+    plain runs' of this script's ``baselines`` phase."""
+    lam, rounds = 1e-4, 20
+    prob = bl.make_consensus_problem(x, y, NODES, loss="square", reg="l2",
+                                     lam=lam, device="cuda")
+    step = 1.0 / smooth_lipschitz(torch, x, lam)
+    graph = topology.ring(NODES)
+    out = {}
+    for name, run, make in (("dgd", bl.run_dgd, bl.dgd_round),
+                            ("diging", bl.run_diging, bl.diging_round)):
+        res = run(prob, graph, step=step, rounds=rounds, record_every=1,
+                  robust="trim", device="cuda", block_size=8)
+        h = res.history
+        if not all(math.isfinite(v) for v in h["objective"] + h["consensus"]):
+            fail(f"baselines_robust {name}: non-finite rows")
+        if not h["objective"][-1] < h["objective"][0]:
+            fail(f"baselines_robust {name}: objective did not decrease")
+        round_fn, carry = make(prob, graph, step=step, robust="trim")
+
+        def one():
+            nonlocal carry
+            carry = round_fn(carry)
+
+        timing = timed_rounds(torch, one, 5)
+        out[name] = {"phase": "baselines_robust", "method": name,
+                     "robust": "trim", "nodes": NODES, "rounds": rounds,
+                     **timing,
+                     "plain_ms_per_round": plain[name]["ms_per_round"],
+                     "plain_device_ms_per_round":
+                         plain[name]["device_ms_per_round"],
+                     "objective_first_last": [h["objective"][0],
+                                              h["objective"][-1]]}
+        emit(out[name])
+        del carry
+    del prob
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # flash attention and the LM zoo's serving path
 # ---------------------------------------------------------------------------
 
@@ -1708,6 +2217,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
 
     import repro_torch as rt
+    from repro_torch import attack
     from repro_torch.core import baselines as bl, metrics, mixing, quant, \
         schedule, subproblem, topology
     from repro_torch.data import synthetic
@@ -1739,6 +2249,8 @@ def main() -> int:
     small_participation_phase(torch, rt, topology, synthetic, cd_glm,
                               metrics, schedule)
     small_baselines_phase(torch, bl, topology, synthetic)
+    small_attack_phase(torch, rt, topology, synthetic, cd_glm, metrics,
+                       attack, bl)
 
     ring = topology.ring(NODES)
     x, y = regression_on_device(torch, EPS_SAMPLES, EPS_FEATURES, seed=0)
@@ -1776,6 +2288,37 @@ def main() -> int:
     # the same lasso under churn on Fig. 4's graph: leavers freeze, reset
     run_d = churn_run(torch, rt, cd_glm, "run_d", lasso, leave_mode="freeze")
     run_e = churn_run(torch, rt, cd_glm, "run_e", lasso, leave_mode="reset")
+    # the same lasso on the reference's attack graph, torus_2d(4, 4):
+    # clean, attacked (undefended, with an eavesdropper), each defense,
+    # trim on a clean run, and trim on the int8 wire with EF
+    torus = topology.torus_2d(4, 4)
+    atk_runs = {}
+    for name, robust, attacked, wire, eavesdrop in (
+            ("run_atk_clean", None, False, "fp32", False),
+            ("run_atk_none", None, True, "fp32", True),
+            ("run_atk_trim", "trim", True, "fp32", False),
+            ("run_atk_median", "median", True, "fp32", False),
+            ("run_atk_clip", "clip", True, "fp32", False),
+            ("run_atk_trim_clean", "trim", False, "fp32", False),
+            ("run_atk_q8", "trim", True, "int8", False)):
+        atk_runs[name] = attack_run(
+            torch, rt, cd_glm, mixing, quant, attack, name, lasso, torus,
+            robust=robust, attacked=attacked, wire=wire, eavesdrop=eavesdrop)
+    a, b = (atk_runs[n]["state"] for n in ("run_atk_trim_clean",
+                                           "run_atk_clean"))
+    emit({"phase": "run_atk_trim_clean_vs_clean",
+          "max_abs_diff_v": float((a.v_stack - b.v_stack).abs().max()),
+          "max_abs_diff_x": float((a.x_parts - b.x_parts).abs().max()),
+          "max_abs_v": float(b.v_stack.abs().max()),
+          "rejected_edges_trim_clean": sum(
+              atk_runs["run_atk_trim_clean"]["rejected_edges_per_round"])})
+    side = atk_runs["run_atk_trim"]["side"]
+    gate_step_check(torch, mixing, side["w"], side["v"], side["v_send"])
+    for run in atk_runs.values():
+        for key in ("state", "taps", "side"):
+            run.pop(key, None)
+    del a, b, side
+    torch.cuda.empty_cache()
     del lasso
     torch.cuda.empty_cache()
     ridge = rt.PROBLEMS["ridge_dual"](x, y, 1e-2, device="cuda")
@@ -1785,7 +2328,8 @@ def main() -> int:
                      executor="block", block_size=8)
     del ridge
     torch.cuda.empty_cache()
-    baselines_phase(torch, bl, topology, x, y)
+    plain = baselines_phase(torch, bl, topology, x, y)
+    baselines_robust_phase(torch, bl, topology, x, y, plain)
     del x, y
     torch.cuda.empty_cache()
     # a million clients, a thousand a round; half as many if the card's
@@ -1842,6 +2386,8 @@ def main() -> int:
         launches_run_f8p=run_f8p["launches"]["cd_gram"],
         launches_run_part=run_part["launches"]["cd_gram"],
         launches_run_cohort=run_cohort["launches"]["cd_gram"],
+        **{f"launches_{name}": run["launches"]["cd_gram"]
+           for name, run in atk_runs.items()},
         n_k_2=gram_at(2),
         shape="K=16, n_k=125 (G resident), 125 steps",
         n_k_500=gram_at(500), n_k_1000=gram_at(1000),

@@ -13,9 +13,10 @@ F_k(w) = f(X_k w; y_k) + (1/K) g(w): the data is partitioned by SAMPLES
 (rows), each node holds a full copy of w — in contrast to CoLA's column
 partitioning.
 
-Their rounds are dense mixing ``W @ ws`` and the products ``X_k w`` and
-``X_k^T r`` (``torch.bmm``), as the reference leaves them to XLA: no CUDA
-kernel of this package runs here. The runners execute on the round-block
+Their rounds are dense mixing ``W @ ws`` (or, with ``robust=`` on DGD and
+DIGing, the robust aggregation of ``mixing.robust_mix_dense``) and the
+products ``X_k w`` and ``X_k^T r`` (``torch.bmm``), as the reference leaves
+them to XLA: no CUDA kernel of this package runs here. The runners execute on the round-block
 engine (``repro_torch.core.executor``) by default, with ``executor="loop"``
 kept as the per-round path; both give bitwise the same results.
 """
@@ -27,8 +28,22 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import executor as exec_engine, metrics as metrics_lib, \
-    topology as topo
+    mixing, topology as topo
 from repro_torch.device import resolve
+
+
+def _baseline_mixer(w_mix, robust, trim, clip):
+    """The consensus contraction of the baseline rounds: ``w_mix @`` when
+    ``robust`` is None, else the robust per-neighborhood aggregation of
+    CoLA's mixing layer, so DGD and DIGing face the attack harness on equal
+    footing."""
+    if robust is None:
+        return lambda ws: w_mix @ ws
+    if robust not in mixing.ROBUST_MODES:
+        raise ValueError(f"unknown robust mode {robust!r} "
+                         f"(want one of {mixing.ROBUST_MODES})")
+    return lambda ws: mixing.robust_mix_dense(w_mix, ws, robust, trim=trim,
+                                              clip=clip)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,15 +135,11 @@ class BaselineResult(NamedTuple):
     history: dict
 
 
-def _check_unported(robust, telemetry) -> None:
-    for bad, what, item in (
-            (robust is not None, f"robust={robust!r}",
-             "11 (attacks and robust mixing)"),
-            (telemetry, "telemetry=True", "15 (observability)")):
-        if bad:
-            raise NotImplementedError(
-                f"repro_torch baselines: {what} is not ported yet "
-                f"(ROADMAP queue 1 item {item})")
+def _check_unported(telemetry) -> None:
+    if telemetry:
+        raise NotImplementedError(
+            "repro_torch baselines: telemetry=True is not ported yet "
+            "(ROADMAP queue 1 item 15 (observability))")
 
 
 def _on_device(prob: ConsensusProblem, device) -> None:
@@ -186,17 +197,21 @@ def _run(prob: ConsensusProblem, round_fn: Callable, state, rounds: int,
 # ---------------------------------------------------------------------------
 
 def dgd_round(prob: ConsensusProblem, graph: topo.Topology, *, step: float,
-              diminishing: bool = False) -> tuple[Callable, tuple]:
+              diminishing: bool = False, robust: str | None = None,
+              robust_trim: int = 1, robust_clip: float | None = None
+              ) -> tuple[Callable, tuple]:
     """DGD's round ``(ws, t) -> (ws, t)`` and its initial carry:
     ws <- prox(W ws - alpha grad(ws), alpha), alpha = step or
-    step / sqrt(t + 1). One gradient (two reads of X) per round."""
-    w_mix = _mixing(prob, graph)
+    step / sqrt(t + 1), ``W ws`` the robust aggregation under ``robust``.
+    One gradient (two reads of X) per round."""
+    mix = _baseline_mixer(_mixing(prob, graph), robust, robust_trim,
+                          robust_clip)
     k, d = prob.num_nodes, prob.dim
 
     def one_round(carry):
         ws, t = carry
         alpha = step / torch.sqrt(t + 1.0) if diminishing else step
-        new = prob.prox_reg(w_mix @ ws - alpha * prob.smooth_grad(ws), alpha)
+        new = prob.prox_reg(mix(ws) - alpha * prob.smooth_grad(ws), alpha)
         return (new, t + 1.0)
 
     zeros = prob.x_parts.new_zeros
@@ -205,13 +220,16 @@ def dgd_round(prob: ConsensusProblem, graph: topo.Topology, *, step: float,
 
 def run_dgd(prob: ConsensusProblem, graph: topo.Topology, *, step: float,
             rounds: int, record_every: int = 1, diminishing: bool = False,
-            robust: str | None = None, executor: str = "block",
+            robust: str | None = None, robust_trim: int = 1,
+            robust_clip: float | None = None, executor: str = "block",
             block_size: int = 64, telemetry: bool = False,
             device=None) -> BaselineResult:
-    _check_unported(robust, telemetry)
+    _check_unported(telemetry)
     _on_device(prob, device)
     return _run(prob, *dgd_round(prob, graph, step=step,
-                                 diminishing=diminishing),
+                                 diminishing=diminishing, robust=robust,
+                                 robust_trim=robust_trim,
+                                 robust_clip=robust_clip),
                 rounds, record_every, executor, block_size)
 
 
@@ -228,17 +246,21 @@ def _tracked_grad(prob: ConsensusProblem, ws):
 
 
 def diging_round(prob: ConsensusProblem, graph: topo.Topology, *,
-                 step: float) -> tuple[Callable, tuple]:
+                 step: float, robust: str | None = None,
+                 robust_trim: int = 1, robust_clip: float | None = None
+                 ) -> tuple[Callable, tuple]:
     """DIGing's round ``(ws, s, g_prev) -> ...`` and its initial carry:
     ws <- W ws - step s; s <- W s + g(ws) - g_prev. One gradient per
-    round."""
-    w_mix = _mixing(prob, graph)
+    round. Under ``robust`` both contractions (iterate and tracker) go
+    through the robust aggregation: a liar corrupts s like ws."""
+    mix = _baseline_mixer(_mixing(prob, graph), robust, robust_trim,
+                          robust_clip)
 
     def one_round(carry):
         ws, s, g_prev = carry
-        ws_new = w_mix @ ws - step * s
+        ws_new = mix(ws) - step * s
         g_new = _tracked_grad(prob, ws_new)
-        return (ws_new, w_mix @ s + g_new - g_prev, g_new)
+        return (ws_new, mix(s) + g_new - g_prev, g_new)
 
     ws0 = prob.x_parts.new_zeros((prob.num_nodes, prob.dim))
     g0 = _tracked_grad(prob, ws0)
@@ -247,13 +269,16 @@ def diging_round(prob: ConsensusProblem, graph: topo.Topology, *,
 
 def run_diging(prob: ConsensusProblem, graph: topo.Topology, *, step: float,
                rounds: int, record_every: int = 1,
-               robust: str | None = None, executor: str = "block",
+               robust: str | None = None, robust_trim: int = 1,
+               robust_clip: float | None = None, executor: str = "block",
                block_size: int = 64, telemetry: bool = False,
                device=None) -> BaselineResult:
-    _check_unported(robust, telemetry)
+    _check_unported(telemetry)
     _on_device(prob, device)
-    return _run(prob, *diging_round(prob, graph, step=step), rounds,
-                record_every, executor, block_size)
+    return _run(prob, *diging_round(prob, graph, step=step, robust=robust,
+                                    robust_trim=robust_trim,
+                                    robust_clip=robust_clip),
+                rounds, record_every, executor, block_size)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +328,7 @@ def run_dadmm(prob: ConsensusProblem, graph: topo.Topology, *, rho: float,
 
     with m_k^t the average of x_k and its neighbors' midpoints, the argmin
     solved inexactly by ``inner_steps`` prox-gradient steps."""
-    _check_unported(None, telemetry)
+    _check_unported(telemetry)
     _on_device(prob, device)
     return _run(prob, *dadmm_round(prob, graph, rho=rho,
                                    inner_steps=inner_steps,

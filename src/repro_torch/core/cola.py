@@ -38,8 +38,19 @@ reweighted W through the standard round body; cohort mode
 (``_run_cola_cohort``, million-node populations) gathers and updates only
 the cohort's rows.
 
-Robust aggregation, attacks and telemetry raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+Attacks and defenses (``repro_torch.attack``, ``cfg.robust``): attack
+scenarios transform the materialized schedule (``attacks=``, block
+executor only); a Byzantine payload exists only on the wire (receivers mix
+``coef * v + bias``, each node's own term and state stay honest), free
+riders' dx is zeroed, an eavesdropper's taps land in ``RunResult.taps``.
+``cfg.robust`` swaps the linear mix for a gated trimmed mean, a gated
+median or per-neighbor clipping (``mixing.robust_mix_steps``). On a
+quantized wire the lie is encoded like any payload (one gossip step, no
+pipeline). The certificate of an attacked run audits the honest cohort
+(``metrics.attackify``).
+
+Telemetry raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import attack as attack_lib
 from repro_torch.core import executor as exec_engine, metrics as metrics_lib, \
     mixing, quant, schedule as schedule_lib, topology as topo
 from repro_torch.core.partition import Partition, make_partition
@@ -86,9 +98,14 @@ class ColaConfig:
     participation: Any = None       # client sampling: a
     #   core.schedule.SampleConfig; K' of K nodes of a complete graph take
     #   part in each round (block executor only).
-    # Reference options not ported yet; run_cola rejects anything but the
-    # defaults (see ``_check_supported``).
-    robust: str | None = None
+    robust: str | None = None       # Byzantine-resilient v aggregation:
+    #   None (the linear W mix) or "trim" / "median" / "clip"
+    #   (mixing.robust_neighborhood_mix). Nonlinear: B gossip steps apply
+    #   one after the other.
+    robust_trim: int = 1            # collusion depth of the norm gate
+    robust_clip: float | None = None  # clip radius; None = median-adaptive
+    # A reference option not ported yet; run_cola rejects it (see
+    # ``_check_supported``).
     telemetry: bool = False
 
     def resolved_sigma(self, k: int) -> float:
@@ -161,13 +178,33 @@ def init_state(problem: Problem, part: Partition) -> ColaState:
     )
 
 
+def _apply_payload_attack(v: torch.Tensor, atk: dict | None) -> torch.Tensor:
+    """The wire transform of a Byzantine / free-rider schedule on the
+    OUTGOING per-node payloads: ``coef * v + bias_coef * bias``. The round
+    body's mix input and the eavesdropper's taps both come from here, so
+    a tap records exactly what crossed the wire. Elementwise per node."""
+    if not atk:
+        return v
+    if "coef" in atk:
+        v = atk["coef"][:, None].to(v.dtype) * v
+    if "bias_coef" in atk:
+        v = v + (atk["bias_coef"][:, None].to(v.dtype)
+                 * atk["bias"].to(v.dtype))
+    return v
+
+
 def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
     """The one-round function of Algorithm 1, shared by both drivers:
     ``one_round(state, env, w, active, budgets=None, draws=None,
-    draws_next=None)``. On a quantized wire ``draws(step)`` gives this
-    round's (K, d) rounding uniforms of gossip step ``step`` (None: round
-    to nearest), and ``draws_next`` the next round's, which the pipelined
-    body encodes with."""
+    draws_next=None, atk=None)``. On a quantized wire ``draws(step)``
+    gives this round's (K, d) rounding uniforms of gossip step ``step``
+    (None: round to nearest), and ``draws_next`` the next round's, which
+    the pipelined body encodes with. ``atk`` holds the round's attack
+    entries (``coef``, ``bias_coef``, ``bias``, ``work``; see
+    ``repro_torch.attack``): the emitted payloads become ``coef * v +
+    bias_coef * bias`` on the wire before the mix, while every node's own
+    mixing term and state stay honest, and ``work`` masks dx (free
+    riders)."""
     k = part.num_nodes
     sigma = cfg.resolved_sigma(k)
     spec = SubproblemSpec(sigma_over_tau=sigma / problem.tau, inv_k=1.0 / k)
@@ -175,20 +212,53 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
     quantized = quant.is_quantized(cfg.wire)
     if cfg.grad_mode not in ("local", "mixed"):
         raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+    robust = cfg.robust
+    if robust is not None and robust not in mixing.ROBUST_MODES:
+        raise ValueError(f"unknown robust mode {robust!r} "
+                         f"(want one of {mixing.ROBUST_MODES})")
+
+    def mix(w, v_send, v_self):
+        if robust is None:
+            return mixing.mix_power_wire(w, v_send, v_self, cfg.gossip_steps)
+        return mixing.robust_mix_steps(
+            w, v_send, robust, trim=cfg.robust_trim, clip=cfg.robust_clip,
+            steps=cfg.gossip_steps, self_stack=v_self)
 
     def one_round(state: ColaState, env: ColaEnv, w: torch.Tensor,
                   active: torch.Tensor, budgets=None, draws=None,
-                  draws_next=None) -> ColaState:
-        # Step 4: gossip mixing of the local estimates (B steps, App. E.2);
-        # on a quantized wire every step mixes the codec's view of every
-        # payload, and a pipelined run's first payload is state.buf
-        if quantized:
+                  draws_next=None, atk: dict | None = None) -> ColaState:
+        # Step 4: gossip mixing of the local estimates (B steps, App. E.2).
+        # A payload attack exists only on the wire: receivers mix the lie,
+        # each node's own term uses its honest state (v_self; None on the
+        # honest path, which is then the unattacked program).
+        if quantized and (robust is not None or atk):
+            # a quantized wire composed with attacks or a defense (one
+            # gossip step, no pipeline: _check_wire_config): the lie is
+            # encoded like any payload, with the honest encode's draws;
+            # each node's own slot and EF residual follow the codec view
+            # of its honest value
+            u0 = None if draws is None else draws(0)
+            _, _, deq_self, ef_new = quant.encode(state.v_stack, cfg.wire,
+                                                  u0, state.ef)
+            v_send = _apply_payload_attack(state.v_stack, atk)
+            if v_send is state.v_stack:
+                deq_send, self_stack = deq_self, None
+            else:
+                p_atk = v_send if state.ef is None else v_send + state.ef
+                deq_send = quant.dequantize(
+                    *quant.quantize_rows(p_atk, cfg.wire, u0))
+                self_stack = deq_self
+            v_half = mix(w, deq_send, self_stack)
+        elif quantized:
+            # every step mixes the codec's view of every payload; a
+            # pipelined run's first payload is state.buf
             v_half, ef_new = mixing.qmix_steps(
                 w, state.v_stack, state.ef, cfg.gossip_steps, cfg.wire,
                 draws, payload=state.buf)
         else:
-            v_half = mixing.mix_power_wire(w, state.v_stack, None,
-                                           cfg.gossip_steps)
+            v_send = _apply_payload_attack(state.v_stack, atk)
+            v_half = mix(w, v_send,
+                         None if v_send is state.v_stack else state.v_stack)
         # Gradient each node uses for its subproblem.
         grads = problem.grad_f(v_half)
         if cfg.grad_mode == "mixed":
@@ -209,6 +279,9 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
                           gram_parts=env.gram_parts if use_gram else None,
                           a_cols=env.a_cols, gram_cols=env.gram_cols)
         dx = dx * active[:, None].to(dx.dtype)
+        if atk is not None and "work" in atk:
+            # free riders: no local progress this round
+            dx = dx * atk["work"][:, None].to(dx.dtype)
         # Steps 6-8: local variable + local estimate updates.
         x_new = state.x_parts + cfg.gamma * dx
         dv = torch.bmm(env.a_parts, dx.unsqueeze(-1)).squeeze(-1)
@@ -231,8 +304,9 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
 
 def make_round(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
     """The one-round function ``round(state, env, w, active, budgets=None,
-    draws=None, draws_next=None)``. ``w`` and ``active`` are tensors on the
-    problem's device; ``draws`` as ``_round_body`` says."""
+    draws=None, draws_next=None, atk=None)``. ``w`` and ``active`` are
+    tensors on the problem's device; ``draws`` and ``atk`` as
+    ``_round_body`` says."""
     return _round_body(problem, part, cfg)
 
 
@@ -245,20 +319,19 @@ def cocoa_mixing(k: int) -> np.ndarray:
 class RunResult(NamedTuple):
     state: ColaState
     history: dict  # lists keyed by metric name
+    # (T, n_tap, d) eavesdropper taps on the run's device when the attack
+    # list holds an Eavesdropper (rows after an early stop are zeros), else
+    # None
+    taps: Any = None
 
 
-def _check_supported(cfg: ColaConfig, *, attacks, leave_mode) -> None:
-    """Reject the reference features this port does not run yet, each with
-    the ROADMAP queue-1 item that brings it."""
-    for bad, what, item in (
-            (cfg.robust is not None, f"robust={cfg.robust!r}",
-             "11 (attacks and robust mixing)"),
-            (cfg.telemetry, "cfg.telemetry", "15 (observability)"),
-            (attacks is not None, "attacks=", "11 (attacks and robust mixing)")):
-        if bad:
-            raise NotImplementedError(
-                f"repro_torch.run_cola: {what} is not ported yet "
-                f"(ROADMAP queue 1 item {item})")
+def _check_supported(cfg: ColaConfig, *, leave_mode) -> None:
+    """Reject the reference features this port does not run yet, with the
+    ROADMAP queue-1 item that brings them."""
+    if cfg.telemetry:
+        raise NotImplementedError(
+            "repro_torch.run_cola: cfg.telemetry is not ported yet "
+            "(ROADMAP queue 1 item 15 (observability))")
     if leave_mode not in ("freeze", "reset"):
         raise ValueError(f"unknown leave_mode {leave_mode!r} (want 'freeze' "
                          "or 'reset')")
@@ -334,7 +407,8 @@ def _materialize_schedule(graph, rounds, active_schedule, budget_schedule,
     return sched
 
 
-def _check_wire_config(cfg: ColaConfig, *, leave_mode: str) -> None:
+def _check_wire_config(cfg: ColaConfig, *, attacks=None,
+                       leave_mode: str = "freeze") -> None:
     """Reject the corners the quantized wire does not support, as the
     reference does (each would change what crosses the wire)."""
     if not quant.is_quantized(cfg.wire):
@@ -343,6 +417,17 @@ def _check_wire_config(cfg: ColaConfig, *, leave_mode: str) -> None:
                 "cfg.pipeline requires a quantized wire — the fp32 payload "
                 "has no encode step to hoist (set wire='int8'/'fp8')")
         return
+    composed = attacks is not None or cfg.robust is not None
+    if composed and cfg.pipeline:
+        raise NotImplementedError(
+            "cfg.pipeline with attacks=/cfg.robust on a quantized wire: "
+            "the double-buffered payload is encoded a round early, before "
+            "the attack transform / gate decision for its round exists")
+    if composed and cfg.gossip_steps != 1:
+        raise NotImplementedError(
+            "attacks=/cfg.robust on a quantized wire require "
+            "gossip_steps=1: steps 2..B would have to re-encode mixed "
+            "values, which the composed path does not model yet")
     if cfg.grad_mode == "mixed":
         raise NotImplementedError(
             "grad_mode='mixed' with a quantized wire: the gradient exchange "
@@ -481,6 +566,12 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
         wire's rounding draws and of the participation draws.
       w_override: this mixing matrix instead of Metropolis weights (rounds
         without churn).
+      attacks: optional ``repro_torch.attack`` scenario or list (Byzantine
+        payloads, free riders, link corruption, eavesdropper taps),
+        applied to the materialized schedule after churn and budgets
+        (block executor only; a participation run streams the generative
+        ones). An ``Eavesdropper`` fills ``RunResult.taps``; defenses are
+        ``cfg.robust``.
       executor: "block" (default) or "loop".
       wire_draws: on a quantized wire, ``(round, step) -> (K, d)`` fp32
         uniforms in [0, 1) for the stochastic rounding of that gossip step
@@ -494,8 +585,8 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
     if problem.a.device != dev:
         raise ValueError(f"problem data is on {problem.a.device}, run_cola "
                          f"was asked to run on {dev}")
-    _check_supported(cfg, attacks=attacks, leave_mode=leave_mode)
-    _check_wire_config(cfg, leave_mode=leave_mode)
+    _check_supported(cfg, leave_mode=leave_mode)
+    _check_wire_config(cfg, attacks=attacks, leave_mode=leave_mode)
     k = graph.num_nodes
     part = make_partition(problem.n, k)
     sample = cfg.participation
@@ -518,7 +609,7 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                 problem, cfg, rounds, part=part, record_every=record_every,
                 recorder=recorder, eps=eps, budget_schedule=budget_schedule,
                 leave_mode=leave_mode, seed=seed, w_override=w_override,
-                block_size=block_size)
+                attacks=attacks, block_size=block_size)
     env = build_env(problem, part,
                     with_gram=cfg.use_gram(problem.d, part.block,
                                            problem.a.element_size()))
@@ -547,32 +638,53 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                                   np_dtype)
     body = _round_body(problem, part, cfg)
     if executor == "block":
-        stream = None
+        stream = atk_part = atk_info = None
+        if attacks is not None:
+            ctx = attack_lib.AttackContext(graph=graph, rounds=rounds, k=k,
+                                           d=problem.d, dtype=np_dtype,
+                                           seed=seed, device=dev)
+            if sample is not None:
+                # a participation run streams its schedule: the attacks
+                # ride the same stream as one more generator part
+                atk_part, atk_info = attack_lib.streamed_attacks(attacks, ctx)
+            else:
+                # after churn and budgets, before the certificate schedule:
+                # certificates judge the corrupted exchange
+                sched, atk_info = attack_lib.apply_attacks(sched, attacks,
+                                                           ctx)
+            if "dishonest" in atk_info.entry_names:
+                rec = metrics_lib.attackify(rec)
         if sample is not None:
             sched, stream = _participation_schedule(
                 sched, sample, rec, k=k, rounds=rounds, seed=seed,
-                leave_mode=leave_mode, dtype=problem.a.dtype, device=dev)
+                leave_mode=leave_mode, dtype=problem.a.dtype, device=dev,
+                extra_parts=() if atk_part is None else (atk_part,))
         return _run_cola_block(body, env, state, rounds, record_every, rec,
                                sched, block_size, stream=stream,
-                               wire_draws=wire_draws)
+                               wire_draws=wire_draws, atk_info=atk_info)
     if executor == "loop":
+        if attacks is not None:
+            raise ValueError(
+                "attacks= requires executor='block' — attack scenarios are "
+                "schedule transforms over the pre-materialized (T, ...) "
+                "schedules the loop driver does not build")
         return _run_cola_loop(body, env, state, rounds, record_every, rec,
                               sched, wire_draws=wire_draws)
     raise ValueError(f"unknown executor {executor!r} (want 'block' or 'loop')")
 
 
 def _participation_schedule(sched, sample, recorder, *, k, rounds, seed,
-                            leave_mode, dtype, device):
+                            leave_mode, dtype, device, extra_parts=()):
     """A dense participation run's schedule: the sampler's generator parts
-    stream (``sample.stream``; the broadcast w/active give way to them) or
-    are materialized into (T, ...) stacks. Under reset, the host flag
-    ``reset_any`` comes from the same draws on the CPU. Returns
-    ``(sched, stream)``."""
+    (and ``extra_parts``, the streamed attacks) stream (``sample.stream``;
+    the broadcast w/active give way to them) or are materialized into
+    (T, ...) stacks. Under reset, the host flag ``reset_any`` comes from
+    the same draws on the CPU. Returns ``(sched, stream)``."""
     cert = metrics_lib.first_certificate(recorder)
     prog = schedule_lib.ScheduleProgram(parts=schedule_lib.participation_parts(
         k, sample, dtype=dtype, run_seed=seed, device=device,
         cert=cert if cert is not None and cert.dynamic else None,
-        leave_reset=leave_mode == "reset"))
+        leave_reset=leave_mode == "reset") + tuple(extra_parts))
     sched = {name: v for name, v in sched.items()
              if name not in ("w", "active")}
     if leave_mode == "reset":
@@ -634,7 +746,8 @@ def _run_cola_loop(body, env, state, rounds, record_every, recorder,
 
 
 def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
-                    block_size, *, stream=None, wire_draws=None) -> RunResult:
+                    block_size, *, stream=None, wire_draws=None,
+                    atk_info=None) -> RunResult:
     """Round-block driver (see ``repro_torch.core.executor``).
 
     The leaver reset is decided on the host: ``reset_any`` is a host entry
@@ -643,18 +756,42 @@ def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
     (the reference gates it with a ``lax.cond`` on the same flag). So is
     the round index ``round`` that keys a quantized wire's draws.
     ``stream``: a participation run's generator (its entries replace w,
-    active and the certificate's)."""
+    active and the certificate's). ``atk_info``: the attacks' entries; the
+    random payloads' run-constant (K, d) directions go to the device once
+    (the stacked ``atk_bias`` is a (T, K, d) broadcast of them), and the
+    eavesdropper's taps are the round's aux output."""
     has_reset = "reset_any" in sched
     if wire_draws is not None:
         sched = dict(sched, round=np.arange(rounds))
+    dev = state.x_parts.device
+    # the round body's entries (the recorder reads atk_dishonest itself)
+    atk_names = tuple(n for n in (atk_info.entry_names if atk_info else ())
+                      if n != "dishonest")
+    bias = None
+    if "atk_bias" in sched:
+        bias = torch.as_tensor(np.array(sched["atk_bias"][0]), device=dev)
+        sched = {n: v for n, v in sched.items() if n != "atk_bias"}
+    taps = atk_info.tap_nodes if atk_info is not None else ()
+    tap_idx = torch.as_tensor(taps, dtype=torch.int64, device=dev) \
+        if taps else None
 
     def step_fn(st, env_ctx, s_t):
         if has_reset and s_t["reset_any"]:
             st = _reset_leavers(st, env_ctx, s_t["leavers"])
         draws = {} if wire_draws is None else _round_draws(
             wire_draws, int(s_t["round"]))
-        return body(st, env_ctx, s_t["w"], s_t["active"], s_t.get("budgets"),
-                    **draws)
+        atk = {n: s_t["atk_" + n] if n != "bias" else s_t.get("atk_bias",
+                                                              bias)
+               for n in atk_names} or None
+        new = body(st, env_ctx, s_t["w"], s_t["active"], s_t.get("budgets"),
+                   atk=atk, **draws)
+        if tap_idx is None:
+            return new
+        # what the tapped nodes emit this round (post-reset state, the
+        # round's wire transform), from their rows alone
+        rows = lambda t: t.index_select(0, tap_idx)
+        return new, _apply_payload_attack(
+            rows(st.v_stack), atk and {n: rows(a) for n, a in atk.items()})
 
     cad = metrics_lib.as_cadence(record_every)
     rec_mask = None if cad else exec_engine.record_flags(rounds, record_every)
@@ -670,14 +807,15 @@ def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
         step_fn, state, sched, context=env, recorder=recorder,
         record_mask=rec_mask, block_size=block_size, cadence=cad,
         num_rounds=rounds, host_entries=("reset_any", "round"),
-        stream=stream)
+        stream=stream, with_aux=tap_idx is not None)
     return RunResult(state=res.state,
-                     history=metrics_lib.history_from(recorder, res))
+                     history=metrics_lib.history_from(recorder, res),
+                     taps=res.aux)
 
 
 def _run_cola_cohort(problem, cfg, rounds, *, part, record_every, recorder,
                      eps, budget_schedule, leave_mode, seed, w_override,
-                     block_size) -> RunResult:
+                     attacks, block_size) -> RunResult:
     """Million-node client sampling: each round only the sampled K'-node
     cohort computes, and nothing (K, K)- or (T, K)-shaped exists.
 
@@ -695,9 +833,12 @@ def _run_cola_cohort(problem, cfg, rounds, *, part, record_every, recorder,
     sample = cfg.participation
     k = part.num_nodes
     for flag, what in (
+            (attacks is not None, "attacks="),
             (budget_schedule is not None, "budget_schedule="),
             (leave_mode != "freeze", f"leave_mode={leave_mode!r}"),
             (w_override is not None, "w_override="),
+            (cfg.telemetry, "cfg.telemetry"),
+            (cfg.robust is not None, "cfg.robust"),
             (quant.is_quantized(cfg.wire), f"wire={cfg.wire!r}"),
             (cfg.grad_mode != "local", f"grad_mode={cfg.grad_mode!r}"),
             (cfg.gossip_steps != 1, "gossip_steps != 1")):

@@ -25,6 +25,9 @@ the device busy instead:
   body updates the state itself and gets the stop flag to keep it
   unchanged: the cohort round writes K' rows of a (K, d) state, where a
   select over the whole state would copy all of it every round.
+* a step may also return a per-round output (``with_aux``: the
+  eavesdropper's taps), which the engine writes into a preallocated
+  ``(T, ...)`` device tensor, zeros for the rounds after the stop.
 
 PyTorch runs eagerly, so a no-op round still computes its round body before
 the select discards it, and the reference's compiled-driver cache has no
@@ -44,6 +47,9 @@ class BlockRunResult(NamedTuple):
     # (R,) round indices of the metric rows — truncated at the stop round
     rounds: np.ndarray | None = None
     stop_round: int | None = None  # round that stopped the run, or None
+    # (executed rounds, ...) per-round step outputs on the device
+    # (``with_aux``), zeros after the stop round; or None
+    aux: Any = None
 
 
 def _leaves(state):
@@ -84,7 +90,8 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
                      cadence: Any = None,
                      host_entries: tuple = (),
                      stream: Callable[[int], dict] | None = None,
-                     in_place: bool = False) -> BlockRunResult:
+                     in_place: bool = False,
+                     with_aux: bool = False) -> BlockRunResult:
     """Run ``T`` rounds of ``step_fn`` with one host sync per block.
 
     Args:
@@ -118,9 +125,13 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
         state in place and returns it; ``stopped`` is the 0-d bool stop
         flag (None when no stop is armed), and the step must leave the
         state unchanged where it is set. The engine then selects nothing.
+      with_aux: ``step_fn`` returns ``(state, aux)``; each round's ``aux``
+        tensor (zeros once the stop flag is set, as the reference's
+        skipped rounds give) lands in ``BlockRunResult.aux``, one row per
+        executed round.
 
     Returns:
-      BlockRunResult(state, metrics, rounds, stop_round).
+      BlockRunResult(state, metrics, rounds, stop_round, aux).
     """
     schedule = schedule or {}
     t_total = _num_rounds(schedule, record_mask, num_rounds)
@@ -152,6 +163,7 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
         nxt = torch.zeros((), dtype=torch.int64, device=device)
         every = torch.full((), cadence.base, dtype=torch.int64, device=device)
 
+    aux_buf = None
     row_i = 0
     executed = 0
     stopped_early = False
@@ -172,6 +184,13 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
                                 stopped if has_stop else None)
             else:
                 new_state = step_fn(state, context, sched_t)
+                if with_aux:
+                    new_state, aux = new_state
+                    if aux_buf is None:
+                        aux_buf = torch.zeros((t_total,) + tuple(aux.shape),
+                                              dtype=aux.dtype, device=device)
+                    aux_buf[t] = (torch.where(stopped, 0, aux) if has_stop
+                                  else aux)
                 state = (_select(stopped, state, new_state) if has_stop
                          else new_state)
             if has_cadence:
@@ -215,7 +234,8 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
         if stopped_early and rounds.size:
             stop_round = int(rounds[-1])
     return BlockRunResult(state=state, metrics=metrics_np, rounds=rounds,
-                          stop_round=stop_round)
+                          stop_round=stop_round,
+                          aux=None if aux_buf is None else aux_buf[:executed])
 
 
 def make_block_runner(step_fn: Callable, *, recorder: Any = None,

@@ -17,7 +17,8 @@ Implementations: ``GapRecorder`` (the Lemma-2 ``gap_report`` row),
 graph, ``dynamic`` on each churn round's reweighted exchange, or
 ``cohort`` on each round's sampled cohort of a complete graph),
 ``ComposedRecorder`` (concatenated rows, stops when any part stops) and
-``FnRecorder`` (a bare row function).
+``FnRecorder`` (a bare row function). ``attackify`` makes the certificate
+audit the honest cohort of an attacked run.
 """
 from __future__ import annotations
 
@@ -121,9 +122,18 @@ class CertificateRecorder:
     broadcast (no (K, K) mask anywhere) and the threshold is the beta = 0
     run constant ``grad_thresh``; the schedule gives ``cohort_idx`` (K',)
     and ``active`` (K,), and a frozen node keeps its own gradient as its
-    neighborhood mean (disagreement 0), as a churn round isolates it. The
-    reference's attack-audit mode (``attack_aware``) is not ported yet and
-    raises.
+    neighborhood mean (disagreement 0), as a churn round isolates it.
+
+    ``attack_aware`` (``attackify``) audits the HONEST COHORT of an
+    attacked run: it reads the schedule's ground-truth per-round
+    dishonesty mask ``atk_dishonest`` (what the harness injected, never
+    visible to the defense) and restricts every certificate input to the
+    honest nodes: the Lemma-1 sums, conditions (9) and (10), and the
+    Eq.-10 neighborhood mean (a dishonest node leaves every neighborhood).
+    Under the trim defense with a symmetric W the cohort invariant
+    sum_H v_k = K A_H x_H holds exactly whenever the gate rejects every
+    lie, so a defended run certifies while an undefended one trips
+    ``certificate_violated``.
     """
 
     problem: Any
@@ -152,15 +162,9 @@ class CertificateRecorder:
 
     labels = CERT_METRICS
 
-    def __post_init__(self):
-        if self.attack_aware:
-            raise NotImplementedError(
-                "CertificateRecorder(attack_aware=True) is not ported yet: "
-                "ROADMAP queue 1 item 11 (attacks)")
-
     @property
     def uses_schedule(self) -> bool:
-        return self.dynamic or self.cohort
+        return self.dynamic or self.attack_aware or self.cohort
 
     def record_fn(self, state, sched=None) -> torch.Tensor:
         if self.cohort:
@@ -172,8 +176,14 @@ class CertificateRecorder:
             grad_thresh = sched["cert_grad_thresh"]
         else:
             mask, grad_thresh = self.neigh_mask, self.grad_thresh
+        hon = None
+        if self.attack_aware:
+            hon = (sched["atk_dishonest"] <= 0).to(v_stack.dtype)
+            # dishonest nodes leave every neighborhood mean: their emitted
+            # information is what the defense discards
+            mask = mask * hon[None, :]
         return self._row(state, grads, neighborhood_mean(grads, mask),
-                         grad_thresh)
+                         grad_thresh, honest=hon)
 
     def _cohort_record(self, state, sched) -> torch.Tensor:
         """Cohort-mode row: the Eq.-9 gaps and the Lemma-1 sums over the
@@ -185,29 +195,48 @@ class CertificateRecorder:
         neigh_mean = torch.where(act[:, None], cohort_mean[None, :], grads)
         return self._row(state, grads, neigh_mean, None)
 
-    def _row(self, state, grads, neigh_mean, grad_thresh) -> torch.Tensor:
+    def _row(self, state, grads, neigh_mean, grad_thresh,
+             honest=None) -> torch.Tensor:
         v_stack, x_parts = state.v_stack, state.x_parts
         local_gap = node_subproblem_gaps(self.problem, x_parts, v_stack,
                                          self.a_parts, self.gp_parts,
                                          self.masks, grads)
         disagree = torch.linalg.vector_norm(grads - neigh_mean, dim=1)
-        v_sum = torch.sum(v_stack, dim=0)
-        ax_sum = torch.bmm(self.a_parts, x_parts.unsqueeze(-1)).sum(dim=(0, 2))
+        v_sum, ax_sum = self.invariant_sums(x_parts, v_stack, honest)
         resid = consensus_residual(v_sum, ax_sum, self.part.num_nodes)
         return self.summarize(local_gap, disagree, resid=resid,
-                              grad_thresh=grad_thresh)
+                              grad_thresh=grad_thresh, honest=honest)
+
+    def invariant_sums(self, x_parts, v_stack, honest=None):
+        """[sum_k v_k, sum_k A_[k] x_[k]], the Lemma-1 residual's inputs;
+        ``honest`` (0/1, attack-aware mode) restricts both sums to the
+        honest cohort, whose invariant a working defense preserves."""
+        if honest is not None:
+            x_parts = x_parts * honest[:, None]
+            v_stack = v_stack * honest[:, None]
+        return (torch.sum(v_stack, dim=0),
+                torch.bmm(self.a_parts, x_parts.unsqueeze(-1)).sum(dim=(0, 2)))
 
     def summarize(self, local_gap, disagree, *, resid,
-                  grad_thresh=None) -> torch.Tensor:
+                  grad_thresh=None, honest=None) -> torch.Tensor:
         """Assemble the scalar row from per-node quantities.
         ``grad_thresh`` overrides the static Eq.-10 threshold (the churn
-        round's value)."""
+        round's value). ``honest`` (attack-aware mode, 0/1 per node)
+        restricts conditions (9) and (10) and their maxima to the honest
+        nodes; certifying then needs every HONEST node to meet both."""
         dtype = local_gap.dtype
         if grad_thresh is None:
             grad_thresh = self.grad_thresh
         cond9 = local_gap <= self.gap_thresh
         cond10 = disagree <= grad_thresh
-        n_target = float(self.part.num_nodes)
+        if honest is None:
+            n_target = float(self.part.num_nodes)
+        else:
+            ok = honest > 0
+            cond9, cond10 = cond9 & ok, cond10 & ok
+            local_gap = torch.where(ok, local_gap, 0.0)
+            disagree = torch.where(ok, disagree, 0.0)
+            n_target = torch.sum(honest.to(dtype))
         n9 = torch.sum(cond9.to(dtype))
         n10 = torch.sum(cond10.to(dtype))
         n_both = torch.sum((cond9 & cond10).to(dtype))
@@ -413,6 +442,29 @@ def dynamize(recorder):
             dynamize(p) for p in recorder.parts))
     if isinstance(recorder, CertificateRecorder):
         return dataclasses.replace(recorder, dynamic=True)
+    return recorder
+
+
+def attackify(recorder, cons_tol: float = 0.25, viol_tol: float = 0.5):
+    """Attack-harness variant: every certificate part audits the honest
+    cohort from the schedule's ``atk_dishonest`` mask (see
+    ``CertificateRecorder.attack_aware``). The drivers apply it when an
+    attack corrupts payloads; a clean run's recorder is untouched.
+
+    The tolerances widen: when the attack begins at round S > 0, the
+    cohort invariant inherits the boundary offset C = sum_L (K a_L x_L(S)
+    - v_L(S)), the liars' pre-onset entanglement with the honest states.
+    A sound defense keeps C constant (the residual plateaus near ||C||,
+    ~0.1 for onsets in the first tenth of training, 0 for round-0 onsets),
+    while an undefended run absorbs new lie mass every round and the
+    residual grows toward ~1; the (0.25, 0.5) band separates the two."""
+    if isinstance(recorder, ComposedRecorder):
+        return dataclasses.replace(recorder, parts=tuple(
+            attackify(p, cons_tol, viol_tol) for p in recorder.parts))
+    if isinstance(recorder, CertificateRecorder):
+        return dataclasses.replace(recorder, attack_aware=True,
+                                   cons_tol=max(recorder.cons_tol, cons_tol),
+                                   viol_tol=max(recorder.viol_tol, viol_tol))
     return recorder
 
 

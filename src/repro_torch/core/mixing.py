@@ -5,8 +5,13 @@
 folding W first: B-1 (K, K) products and one (K, d) mix, O(B K^3 + K^2 d)
 instead of the sequential O(B K^2 d). ``qmix_steps`` runs the B steps
 over a quantized wire (``repro_torch.core.quant``), one encode per step.
+``robust_mix_steps`` replaces the linear mix with a Byzantine-resilient
+aggregation (``ColaConfig.robust``: a gated trimmed mean, a gated median
+or per-neighbor clipping; see ``robust_neighborhood_mix``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -73,3 +78,317 @@ def qmix_steps(w: torch.Tensor, v_stack: torch.Tensor, ef, steps: int,
             _, _, deq, ef = quant.encode(out, wire, u, ef)
         out = dense_mix(w, deq)
     return out, ef
+
+
+# ---------------------------------------------------------------------------
+# robust (Byzantine-resilient) aggregation
+# ---------------------------------------------------------------------------
+
+ROBUST_MODES = ("trim", "median", "clip")
+
+# adaptive clip radius = factor x median neighbor deviation norm: > 1 so the
+# honest spread passes unclipped
+_CLIP_TAU_FACTOR = 3.0
+
+# outlier gates of trim/median: a neighbor is distrusted when its payload
+# is anti-correlated with the neighborhood's coordinate-median center
+# (cosine below _TRIM_COS_GATE: honest estimates of the same dual point
+# stay positively correlated once mixing starts, a sign-flipped payload
+# reads ~-0.7), or when its norm exceeds _TRIM_NORM_GATE x the (trim+1)-th
+# largest neighbor norm (inflation attacks). Honest neighbors trip
+# neither, so a clean defended run is the linear mix.
+_TRIM_COS_GATE = -0.2
+_TRIM_NORM_GATE = 3.0
+# the norm gate arms only when the center is nonzero and the payload is not
+# positively aligned with it: early-round honest spikes are 3-11x their
+# neighbors in norm but correlate positively with a nonzero center
+_TRIM_NORM_ARM_COS = 0.2
+
+
+class _Neighborhood(NamedTuple):
+    """The masking and value set-up shared by the robust aggregation and
+    its gate (the reference's ``_neighborhood_setup``). Receiver row r's
+    slot k holds ``flat[k]``, except its own slot, which holds
+    ``self_vals[r]`` (the honest state under a wire attack, ``override``);
+    ``mask`` is the support of W (self included)."""
+
+    flat: torch.Tensor       # (K, d) the buffer
+    w_rows: torch.Tensor     # (R, K)
+    rows: torch.Tensor       # (R,) int64 node ids of the rows
+    self_hot: torch.Tensor   # (R, K) bool
+    mask: torch.Tensor       # (R, K) bool
+    counts: torch.Tensor     # (R,) slots in the support
+    self_vals: torch.Tensor  # (R, d)
+    override: bool
+
+    @property
+    def nb_mask(self) -> torch.Tensor:
+        return self.mask & ~self.self_hot
+
+    def slot_norms(self) -> torch.Tensor:
+        """(R, K) norms of each slot's value."""
+        norm = lambda t: torch.sqrt(torch.sum(t * t, dim=-1))
+        flat_n = norm(self.flat)[None, :].expand(self.self_hot.shape)
+        if not self.override:
+            return flat_n
+        return torch.where(self.self_hot, norm(self.self_vals)[:, None],
+                           flat_n)
+
+    def slot_dots(self, y: torch.Tensor) -> torch.Tensor:
+        """(R, K) dot of each slot's value with the row's ``y`` (R, d)."""
+        dots = y @ self.flat.T
+        if not self.override:
+            return dots
+        return torch.where(self.self_hot,
+                           torch.sum(self.self_vals * y, dim=-1)[:, None],
+                           dots)
+
+    def weighted_sum(self, w: torch.Tensor) -> torch.Tensor:
+        """(R, d) sum_k w[r, k] * slot value (w zero outside the support):
+        a (R, K) x (K, d) product, the own slot apart under an override."""
+        if not self.override:
+            return w @ self.flat
+        w_self = torch.sum(torch.where(self.self_hot, w, 0.0), dim=1)
+        return (torch.where(self.self_hot, 0.0, w) @ self.flat
+                + w_self[:, None] * self.self_vals)
+
+
+def _neighborhood(w_rows, buf, row_ids, self_override) -> _Neighborhood:
+    k = buf.shape[0]
+    flat = buf.reshape(k, -1)
+    w_rows = torch.as_tensor(w_rows, device=flat.device).to(flat.dtype)
+    rows = torch.as_tensor(row_ids, device=flat.device).to(torch.int64)
+    r = rows.shape[0]
+    self_hot = torch.arange(k, device=flat.device)[None, :] == rows[:, None]
+    mask = (w_rows != 0) | self_hot
+    counts = torch.sum(mask.to(torch.int64), dim=1)
+    self_vals = (flat[rows] if self_override is None
+                 else self_override.reshape(r, -1).to(flat.dtype))
+    return _Neighborhood(flat, w_rows, rows, self_hot, mask, counts,
+                         self_vals, self_override is not None)
+
+
+def _masked_trimmed_mean(vals, mask, b_counts, counts):
+    """Coordinate-wise trimmed mean over the masked slots of ``vals`` (R, K,
+    d): drops ``b_counts`` (R,) extremes from each side of the ``counts``
+    (R,) masked slots. Masked-out slots hold the dtype's max, so every
+    sort places them past the kept window."""
+    big = torch.finfo(vals.dtype).max
+    guarded = torch.where(mask[:, :, None], vals, big)
+    srt = torch.sort(guarded, dim=1).values
+    idx = torch.arange(vals.shape[1], device=vals.device)[None, :, None]
+    keep = (idx >= b_counts[:, None, None]) \
+        & (idx < (counts - b_counts)[:, None, None])
+    kept = torch.sum(torch.where(keep, srt, 0.0), dim=1)
+    denom = torch.clamp(counts - 2 * b_counts, min=1).to(vals.dtype)
+    return kept / denom[:, None]
+
+
+def _center(nb: _Neighborhood) -> torch.Tensor:
+    """(R, d) coordinate-wise neighborhood (lower) median: the
+    (counts-1)//2-th order statistic of the support's values, laid out
+    (R, d, K) so that each coordinate's K slots are contiguous; the slots
+    outside the support hold the dtype's max, which sorts past them.
+
+    The selected value is bitwise the reference's rank selection for
+    every payload that is not NaN or +inf (the reference's sentinels
+    order differently there). Values that compare equal are bitwise equal
+    except +0.0 and -0.0, and the reference sums the selection with
+    zeros, which maps -0.0 to +0.0; adding 0.0 here does the same. So the
+    order the sort gives equal values does not matter, and the sort may
+    be unstable: at K <= 32 that is PyTorch's bitonic sort, where a
+    stable sort takes a radix sort per coordinate, slower on the card
+    (``chip_smoke.py``'s ``gate_step`` times both)."""
+    big = torch.finfo(nb.flat.dtype).max
+    r, d = nb.rows.shape[0], nb.flat.shape[1]
+    guarded = torch.where(nb.mask[:, None, :], nb.flat.T.contiguous()[None],
+                          big)                                # (R, d, K)
+    if nb.override:
+        # the own slot is always in the support
+        guarded[torch.arange(r, device=guarded.device), :, nb.rows] = \
+            nb.self_vals
+    srt = torch.sort(guarded, dim=-1).values
+    del guarded
+    target = (nb.counts - 1) // 2
+    return srt.gather(-1, target[:, None, None].expand(r, d, 1))[..., 0] \
+        + 0.0
+
+
+def _gate_center_flags(nb: _Neighborhood, trim: int):
+    """Robust center (R, d) and the per-neighbor outlier gate (R, K) of
+    trim/median (True: receiver row r rejects sender k's edge this step;
+    own slots never flag)."""
+    k = nb.flat.shape[0]
+    center = _center(nb)
+    # the gate on whole-vector geometry: anti-correlation with the robust
+    # center, or norm inflation against the (trim+1)-th largest neighbor
+    # norm, a reference `trim` colluding liars cannot raise
+    norms = nb.slot_norms()                                  # (R, K)
+    cnorm = torch.sqrt(torch.sum(center * center, dim=-1))   # (R,)
+    cos = nb.slot_dots(center) / (norms * cnorm[:, None] + 1e-30)
+    nb_mask = nb.nb_mask
+    m_nb = torch.sum(nb_mask.to(torch.int64), dim=1)
+    nb_norms = torch.where(nb_mask, norms, -torch.inf)
+    depth = torch.clamp(torch.clamp(m_nb - 1, min=0), max=trim)
+    # the (k-1-depth)-th order statistic by rank selection, as the
+    # reference: one (K, K) comparison per row
+    ar = torch.arange(k, device=norms.device)
+    n_lt = nb_norms[:, :, None] < nb_norms[:, None, :]
+    n_eq = nb_norms[:, :, None] == nb_norms[:, None, :]
+    n_ilt = (ar[:, None] < ar[None, :])[None]
+    n_rank = torch.sum((n_lt | (n_eq & n_ilt)).to(torch.int64), dim=1)
+    n_sel = n_rank == (k - 1 - depth)[:, None]
+    ref = torch.sum(torch.where(n_sel, nb_norms, 0.0), dim=1, keepdim=True)
+    ref = torch.where(torch.isfinite(ref), ref, 0.0)         # (R, 1)
+    # the norm gate needs a positive reference and a payload not aligned
+    # with a nonzero center: either false drop would drift the cohort's
+    # Lemma-1 invariant
+    norm_armed = (ref > 0) & (cnorm[:, None] > 0) \
+        & (cos < _TRIM_NORM_ARM_COS)
+    flagged = (cos < _TRIM_COS_GATE) | \
+              ((norms > _TRIM_NORM_GATE * ref) & norm_armed)
+    return center, flagged & nb_mask
+
+
+def _clip_scale(nb: _Neighborhood, clip):
+    """Per-neighbor deviation clipping of mode="clip": the (R, K, d)
+    deviations from the own value and the (R, K) clip factors (``< 1``
+    exactly where a deviation was clipped)."""
+    r = nb.rows.shape[0]
+    dev = nb.flat[None] - nb.self_vals[:, None, :]               # (R, K, d)
+    if nb.override:
+        # a device zero: a Python scalar here would be copied from the
+        # host, which waits for the stream
+        dev[torch.arange(r, device=dev.device), nb.rows] = dev.new_zeros(())
+    norms = torch.sqrt(torch.sum(dev * dev, dim=-1))             # (R, K)
+    nb_mask = nb.nb_mask
+    if clip is not None:
+        tau = torch.full((r,), clip, dtype=dev.dtype, device=dev.device)
+    else:
+        # a multiple of the median neighbor deviation norm: typical
+        # honest neighbors stay unclipped, a sign flip's ~2||v|| does not
+        m_nb = torch.sum(nb_mask.to(torch.int64), dim=1)
+        m1 = torch.clamp(m_nb, min=1)
+        tau = _masked_trimmed_mean(norms[:, :, None], nb_mask,
+                                   (m1 - 1) // 2, m1)[:, 0]
+        tau = torch.where(m_nb > 0, _CLIP_TAU_FACTOR * tau, 0.0)
+    scale = torch.clamp(tau[:, None] / (norms + 1e-30), max=1.0)
+    return dev, scale
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in ROBUST_MODES:
+        raise ValueError(f"unknown robust mode {mode!r} "
+                         f"(want one of {ROBUST_MODES})")
+
+
+def gate_flags(w_rows, buf: torch.Tensor, row_ids, mode: str, *,
+               trim: int = 1, clip: float | None = None,
+               self_override: torch.Tensor | None = None) -> torch.Tensor:
+    """The (R, K) per-edge rejection mask the robust aggregation applies:
+    True where receiver row r rejects sender k's edge this step (trim /
+    median: the outlier gate fired; clip: the deviation was clipped). Own
+    slots never flag. Same arguments as ``robust_neighborhood_mix``."""
+    _check_mode(mode)
+    nb = _neighborhood(w_rows, buf, row_ids, self_override)
+    if mode in ("trim", "median"):
+        return _gate_center_flags(nb, trim)[1]
+    _, scale = _clip_scale(nb, clip)
+    return (scale < 1.0) & nb.nb_mask
+
+
+def robust_center(w_rows, buf: torch.Tensor, row_ids, *,
+                  self_override: torch.Tensor | None = None) -> torch.Tensor:
+    """(R, d) the coordinate-wise neighborhood median the trim/median gate
+    tests against (the reference computes it inside the gate)."""
+    return _center(_neighborhood(w_rows, buf, row_ids, self_override))
+
+
+def robust_neighborhood_mix(w_rows, buf: torch.Tensor, row_ids, mode: str, *,
+                            trim: int = 1, clip: float | None = None,
+                            self_override: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Robust aggregation of a neighborhood buffer, the Byzantine-resilient
+    replacement for ``w_rows @ buf``.
+
+    Args:
+      w_rows: (R, K) these nodes' rows of the round's W; the support (w !=
+        0, self always included) is each neighborhood. A frozen node's row
+        e_k returns its own value.
+      buf: (K, ...) the values each node emitted.
+      row_ids: (R,) node ids of the rows (``arange(K)`` on stacked state).
+      mode: "trim"   — each neighbor is tested against the outlier gate
+                       (payload anti-correlated with the neighborhood's
+                       coordinate-median center, or norm above
+                       ``_TRIM_NORM_GATE`` x the (trim+1)-th largest
+                       neighbor norm); a flagged neighbor's edge is dropped
+                       for this step and its weight moved onto the self
+                       term; the rest pass untouched;
+            "median" — the same gate, a flagged payload replaced by the
+                       center instead of dropped;
+            "clip"   — each neighbor's deviation from the own value is
+                       clipped to ``clip`` (None: ``_CLIP_TAU_FACTOR`` x the
+                       median neighbor deviation norm), then the W-weighted
+                       sum runs on the clipped values.
+      trim: collusion depth the norm gate survives.
+      self_override: optional (R, ...) HONEST own values: under a wire
+        attack ``buf`` holds the emitted payloads, but a node's own slot is
+        its own state (exempt from the gate).
+
+    Every output depends only on the slots inside each row's support. The
+    gate decides per neighbor from whole-vector geometry, so honest
+    payloads pass and a clean defended run takes the linear path: without
+    an override, trim and median then return exactly ``w_rows @ buf``
+    (the rejected weight, zero, is added to the self term). The (K, K)
+    comparisons are the reference's; the center sorts the (R, d, K)
+    support values (``_center``), the weighted sums are (R, K) x (K, d)
+    products.
+    """
+    _check_mode(mode)
+    nb = _neighborhood(w_rows, buf, row_ids, self_override)
+    r = nb.rows.shape[0]
+    if mode in ("trim", "median"):
+        center, flagged = _gate_center_flags(nb, trim)
+        w_drop = torch.sum(torch.where(flagged, nb.w_rows, 0.0), dim=1)
+        out = nb.weighted_sum(torch.where(flagged, 0.0, nb.w_rows))
+        # trim: the flagged edges' weight goes onto the own value; median:
+        # a flagged payload is replaced by the center
+        out = out + w_drop[:, None] * (center if mode == "median"
+                                       else nb.self_vals)
+        return out.reshape((r,) + buf.shape[1:])
+    dev, scale = _clip_scale(nb, clip)
+    clipped = nb.self_vals[:, None, :] + dev * scale[:, :, None]
+    del dev
+    clipped = torch.where(nb.mask[:, :, None], clipped, 0.0)
+    out = torch.einsum("rk,rkd->rd", nb.w_rows, clipped)
+    return out.reshape((r,) + buf.shape[1:])
+
+
+def robust_mix_dense(w: torch.Tensor, v_stack: torch.Tensor, mode: str, *,
+                     trim: int = 1, clip: float | None = None,
+                     self_stack: torch.Tensor | None = None) -> torch.Tensor:
+    """ONE robust gossip step on stacked (K, ...) node state, the robust
+    counterpart of ``dense_mix``; ``self_stack`` holds the honest states
+    when ``v_stack`` holds attacked wire payloads."""
+    k = v_stack.shape[0]
+    flat = v_stack.reshape(k, -1)
+    ov = None if self_stack is None else self_stack.reshape(k, -1)
+    out = robust_neighborhood_mix(
+        w, flat, torch.arange(k, device=flat.device), mode, trim=trim,
+        clip=clip, self_override=ov)
+    return out.reshape(v_stack.shape).to(v_stack.dtype)
+
+
+def robust_mix_steps(w: torch.Tensor, v_stack: torch.Tensor, mode: str, *,
+                     trim: int = 1, clip: float | None = None,
+                     steps: int = 1,
+                     self_stack: torch.Tensor | None = None) -> torch.Tensor:
+    """B consecutive robust gossip steps, applied one after the other (the
+    aggregation is nonlinear: no W^B fold). A wire attack (``self_stack``
+    not None) exists on the FIRST step only; later steps mix received
+    values, which are honest."""
+    out = v_stack
+    for i in range(steps):
+        out = robust_mix_dense(w, out, mode, trim=trim, clip=clip,
+                               self_stack=self_stack if i == 0 else None)
+    return out

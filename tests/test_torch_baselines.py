@@ -136,7 +136,26 @@ def test_loop_and_block_executors_bitwise(method):
     (tbl.run_diging, dict(step=0.1, telemetry=True), "item 15"),
     (tbl.run_dadmm, dict(rho=1.0, telemetry=True), "item 15")])
 def test_unported_options_raise(run, kw, item):
-    _, port = _problems("square", "l2")
+    """Telemetry (ROADMAP queue 1 item 15) still raises. The robust
+    aggregation (item 11) runs now: robust DGD and DIGing against the
+    reference's robust runs, at the tolerances of
+    ``test_baseline_matches_reference``."""
+    ref, port = _problems("square", "l2")
+    if item == "item 11":
+        j_run = {tbl.run_dgd: jbl.run_dgd,
+                 tbl.run_diging: jbl.run_diging}[run]
+        want = j_run(ref, jtopo.ring(K), rounds=30, record_every=5, **kw)
+        got = run(port, ttopo.ring(K), rounds=30, record_every=5,
+                  device="cpu", **kw)
+        h, w = got.history, want.history
+        assert h["round"] == w["round"]
+        np.testing.assert_allclose(h["objective"], w["objective"], rtol=1e-4)
+        np.testing.assert_allclose(h["consensus"], w["consensus"], rtol=1e-4,
+                                   atol=1e-4 * max(w["consensus"]))
+        w_ref = np.asarray(want.w_stack)
+        np.testing.assert_allclose(got.w_stack.numpy(), w_ref, rtol=0,
+                                   atol=1e-4 * np.max(np.abs(w_ref)))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         run(port, ttopo.ring(K), rounds=2, device="cpu", **kw)
 

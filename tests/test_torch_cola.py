@@ -261,10 +261,29 @@ def test_solve_reference_matches_reference():
     dict(cfg=dict(robust="trim")), dict(cfg=dict(telemetry=True)),
     dict(attacks=[object()])])
 def test_unported_features_raise(bad):
-    _, port = _lasso()
-    cfg = tcola.ColaConfig(**bad.pop("cfg", {}))
+    """Telemetry (ROADMAP queue 1 item 15) still raises. Robust mixing and
+    attacks (item 11) run now: robust="trim" matches the reference's run
+    (the tolerances of ``_assert_history``), and an attack list holding
+    something that is no scenario raises TypeError in both packages."""
+    ref, port = _lasso()
+    bad = dict(bad)
+    cfg = bad.pop("cfg", {})
+    if cfg.get("robust"):
+        want = j_run(ref, jtopo.ring(4), JConfig(**cfg), 20, record_every=4)
+        got = tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(**cfg), 20,
+                             record_every=4, device="cpu")
+        _assert_history(got.history, want.history)
+        return
+    if "attacks" in bad:
+        with pytest.raises(TypeError, match="not an attack scenario"):
+            j_run(ref, jtopo.ring(4), JConfig(), 5, **bad)
+        with pytest.raises(TypeError, match="not an attack scenario"):
+            tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(), 5,
+                           device="cpu", **bad)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        tcola.run_cola(port, ttopo.ring(4), cfg, 5, device="cpu", **bad)
+        tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(**cfg), 5,
+                       device="cpu", **bad)
 
 
 @pytest.mark.parametrize("cfg,exc", [
@@ -299,13 +318,39 @@ def test_elasticity_arguments_match_reference(kw):
 
 
 def test_unported_certificate_modes_raise():
-    _, port = _lasso()
-    part = t_make_partition(port.n, 4)
-    rec = tmet.certificate_recorder(port, part, tcola.build_env(port, part),
-                                    ttopo.ring(4), 0.1)
-    import dataclasses
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dataclasses.replace(rec, attack_aware=True)
+    """The attack-audit mode (ROADMAP queue 1 item 11) is ported: the
+    attackified certificate's row over the honest cohort matches the
+    reference's on the same state and dishonesty mask (rtol 1e-4, atol
+    1e-4 * max|column|: fp32 sums in another order), and a node marked
+    dishonest leaves the conditions' count."""
+    ref, port = _lasso()
+    k = 4
+    jpart, tpart = j_make_partition(ref.n, k), t_make_partition(port.n, k)
+    jenv, tenv = j_build_env(ref, jpart), tcola.build_env(port, tpart)
+    sigma = np.array([np.linalg.norm(a, 2) ** 2
+                      for a in np.asarray(jenv.a_parts)], np.float32)
+    jrec = jmet.attackify(jmet.certificate_recorder(
+        ref, jpart, jenv, jtopo.ring(k), 0.1, sigma_k=jnp.asarray(sigma)))
+    trec = tmet.attackify(tmet.certificate_recorder(
+        port, tpart, tenv, ttopo.ring(k), 0.1, sigma_k=sigma))
+    assert trec.attack_aware and trec.uses_schedule
+    assert (trec.cons_tol, trec.viol_tol) == (jrec.cons_tol, jrec.viol_tol)
+    rng = np.random.default_rng(7)
+    x = (0.1 * rng.standard_normal((k, tpart.block))).astype(np.float32)
+    v = rng.standard_normal((k, port.d)).astype(np.float32)
+    from repro.core.cola import ColaState as JState
+    for dis in ([0, 0, 0, 0], [0, 1, 0, 0], [1, 0, 0, 1]):
+        dis = np.asarray(dis, np.float32)
+        want = np.asarray(jrec.record_fn(
+            JState(jnp.asarray(x), jnp.asarray(v)),
+            {"atk_dishonest": jnp.asarray(dis)}))
+        got = trec.record_fn(
+            tcola.ColaState(torch.as_tensor(x), torch.as_tensor(v)),
+            {"atk_dishonest": torch.as_tensor(dis)}).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max())
+        labels = tmet.CERT_METRICS
+        assert got[labels.index("cond9_nodes")] <= k - dis.sum()
 
 
 def test_run_on_another_device_than_the_problem_raises():

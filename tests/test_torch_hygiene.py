@@ -19,7 +19,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
-    ROOT / "examples" / "torch_elastic_lasso.py"]
+    ROOT / "examples" / "torch_elastic_lasso.py",
+    ROOT / "examples" / "torch_attack_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -47,7 +48,7 @@ def test_import_leaves_jax_and_reference_unloaded():
             "import repro_torch.launch.serve; "
             "import repro_torch.core.baselines; "
             "import repro_torch.core.quant, repro_torch.core.schedule, "
-            "repro_torch.core.streams; "
+            "repro_torch.core.streams; import repro_torch.attack; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
