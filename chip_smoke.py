@@ -96,9 +96,31 @@ line:
    step against a full forward, and profile the prefill and one decode
    step.
 10. serve_small — Qwen3-4B width, 2 layers, fp32: the card against the CPU.
-11. total   — the script's seconds so far.
-12. kernels — one line listing every kernel with its launches on the main
-   path, error, times and bound.
+11. attn_grad — the flash kernel with a gradient (``FlashAttention``) at
+   the training shape (B=2, S=1,024, 32/8 heads, hd 128, causal): dq, dk,
+   dv against autograd of the plain version on the card, bf16 and fp32;
+   the forward, the backward, the plain forward + backward and SDPA's
+   forward + backward timed.
+12. train_small — Qwen3-4B's smoke variant (fp32: ``flash_tf32``), the
+   card against the CPU from the same weights: the loss and every
+   gradient leaf, 3 AdamW steps, 3 gossip rounds over ring(4) plain, with
+   trim and with DP on the int8 wire.
+13. train_a — Qwen3-4B at full width, 8 of 36 layers, through
+   ``launch.train.train``: bf16 compute, fp32 masters and AdamW moments,
+   remat full, B=4 x S=1,024, 6 steps: ms per step, tokens/s, MFU, the
+   flash launches per step, a profiled step (device ms, idle), peak
+   memory, the loss per step.
+14. train_gossip / train_gossip_dp — the same width at 2 layers, 4
+   replicas on ring(4), B=2 x S=1,024 per node, 4 rounds through
+   ``launch.train.gossip_train``: local steps and mix ms per round,
+   consensus distance, peak memory; with DP (per-link noise, int8 wire)
+   the draws', the codec's and the DP mix's ms per gossip step and the
+   final epsilon against the accountant's closed form. At 1 layer on
+   out-of-memory (a ``_cut`` row).
+15. total   — the script's seconds so far.
+16. kernels — one line listing every kernel with its launches on the main
+   path, error, times and bound (``flash_mma`` also with its launches in
+   the training phases and the gradient's times).
 
 Every kernel time ``ms`` is CUDA events around back-to-back eager calls
 after a warm-up, so it includes the host's launch cost where that exceeds
@@ -117,6 +139,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -153,6 +176,24 @@ FWD_TOL = 0.05
 # apart at the small runs' sizes, one flipped int8/fp8 step moves them
 # ~1e-3)
 PROBE_TOL = 1e-4
+
+# training, card vs CPU at the smoke width (fp32, flash_tf32 held to the
+# fp32 bar, PyTorch's products with TF32 off): losses and gradients within
+# rtol, with an atol of rtol x the leaf's largest gradient
+TRAIN_RTOL = 1e-4
+# a run of AdamW steps (or a DP run) card vs CPU: the share of each leaf's
+# coordinates within TRAIN_RTOL x max|p|. A first AdamW step moves a
+# coordinate whose gradient is at rounding level by +-lr whichever side of
+# 0 it rounds to, and a stochastic-rounding decision on the int8 wire may
+# flip where the two devices' normals differ in the last bits.
+AGREE_SHARE = 0.999
+# the flash backward against autograd of the plain version on the card:
+# |g - ref| <= tol |ref| + tol max|ref|. bf16: the gradients are rounded
+# to bf16 (2^-8 relative) and the Function's rowsum(dO * O) reads the
+# kernel's bf16 output where autograd differentiates the fp32 one; fp32:
+# the 3xTF32 forward is held to 2e-5.
+ATTN_GRAD_TOL = 2e-2
+ATTN_GRAD_TOL_FP32 = 1e-4
 
 EPS_SAMPLES, EPS_FEATURES, NODES = 400_000, 2_000, 16
 COHORT_CLIENTS = 1_000_000
@@ -1778,7 +1819,9 @@ def baselines_robust_phase(torch, bl, topology, x, y, plain: dict) -> dict:
             nonlocal carry
             carry = round_fn(carry)
 
-        timing = timed_rounds(torch, one, 5)
+        # 3 rounds behind the sleep kernel: a DIGing round with trim is
+        # two robust mixes, ~250 launches
+        timing = timed_rounds(torch, one, 5, device_reps=3)
         out[name] = {"phase": "baselines_robust", "method": name,
                      "robust": "trim", "nodes": NODES, "rounds": rounds,
                      **timing,
@@ -2199,6 +2242,486 @@ def serve_small_phase(torch, rt, fa, serve_mod, transformer, cfg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# training: the flash Function's gradient, card vs CPU, full width
+# ---------------------------------------------------------------------------
+
+def step_device_ms(torch, fn):
+    """One call of ``fn`` queued behind a sleep kernel (``device_ms``'s
+    method, one try): (device ms, None), or (None, the reason) when the
+    call has more launches than the card's queue of pending launches
+    holds, so that the host waits for the device before it has queued the
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2.0 + 4.0 * host_ms) * 2e6))
+    start.record()
+    fn()
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    if queued:
+        return start.elapsed_time(end), None
+    return None, ("the call did not fit behind the sleep kernel (its "
+                  "launches exceed the queue of pending launches)")
+
+
+def grads_close(a, b, rtol) -> tuple[bool, float]:
+    """|a - b| <= rtol |b| + rtol max|b|; returns (ok, max|a - b| / max|b|)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    scale = max(float(b.abs().max()), 1e-30)
+    ok = bool(((a - b).abs() <= rtol * b.abs() + rtol * scale).all())
+    return ok, float((a - b).abs().max()) / scale
+
+
+def agree_share(a, b, rtol) -> tuple[float, float]:
+    """Share of coordinates with |a - b| <= rtol max|b|, and max|a - b|."""
+    a, b = a.float().cpu(), b.float().cpu()
+    diff = (a - b).abs()
+    tol = rtol * max(float(b.abs().max()), 1e-30)
+    return float((diff <= tol).float().mean()), float(diff.max())
+
+
+def dp_config(privacy, norm: float, n: int, **kw):
+    """The gossip DP wire of the training phases: clip at twice the
+    replicas' initial norm (clipping seldom bites), noise std 1 % of the
+    RMS coordinate (sigma = 0.01 / (4 sqrt(n)): std = 2 sigma clip). The
+    noise scale is chosen so that training survives it, not for a useful
+    privacy budget: at full width its epsilon is ~1e14, which protects
+    nothing. It exercises the mechanism's work, which does not depend on
+    sigma."""
+    return privacy.DPConfig(clip=2.0 * norm, sigma=0.01 / (4 * math.sqrt(n)),
+                            per_link=True, **kw)
+
+
+def params_norm(torch, params) -> float:
+    return math.sqrt(sum(float(torch.sum(p.float() ** 2))
+                         for p in params.values()))
+
+
+def attn_grad_phase(torch, fa) -> dict:
+    """The flash Function at the training shape (B=2, S=1,024, 32/8 heads,
+    hd 128, causal): dq, dk, dv on the card against autograd of the plain
+    version on the card, in bf16 (forward ``flash_mma``) and fp32
+    (``flash_tf32``); times of the forward (the kernel), the backward
+    (``flash_attention_backward``), the plain version's forward + backward
+    and SDPA's forward + backward (the library yardstick)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, h, kvh, hd, chunk = 2, 1024, 32, 8, 128, 256
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").repeat(b, 1)
+    kw = dict(mode="causal", window=0)
+    out_rows = {}
+    for dtype, tol, route in ((torch.bfloat16, ATTN_GRAD_TOL, "flash_mma"),
+                              (torch.float32, ATTN_GRAD_TOL_FP32,
+                               "flash_tf32")):
+        q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                   for sh in ((b, s, h, hd), (b, s, kvh, hd),
+                              (b, s, kvh, hd)))
+        dout = torch.randn((b, s, h, hd), generator=gen, device="cuda"
+                           ).to(dtype)
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        before = dict(fa.LAUNCHES)
+        out = fa.flash_attention(qr, kr, vr, pos, pos, grad_chunk=chunk,
+                                 **kw)
+        grads = torch.autograd.grad(out, (qr, kr, vr), dout)
+        launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES
+                    if fa.LAUNCHES[n] != before[n]}
+        if launched != {route: 1}:
+            fail(f"attn_grad {dtype}: launches {launched}, want one "
+                 f"{route} (the backward launches no kernel)")
+        qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+        ref_out = fa.flash_attention_plain(qp, kp, vp, pos, pos, **kw)
+        ref = torch.autograd.grad(ref_out, (qp, kp, vp), dout)
+        errs = {}
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            ok, rel = grads_close(g, r, tol)
+            errs[name] = {"max_abs_err": float((g.float() - r.float())
+                                               .abs().max()),
+                          "max_err_over_max_ref": rel}
+            if not ok or not math.isfinite(rel):
+                fail(f"attn_grad {dtype} {name}: the Function's gradient "
+                     f"disagrees with autograd of the plain version "
+                     f"(max err {rel} of max|ref|, tolerance {tol})")
+        row = {"dtype": str(dtype).replace("torch.", ""), "route": route,
+               "tolerance": f"|g - ref| <= {tol} |ref| + {tol} max|ref|",
+               "errors": errs}
+        if dtype == torch.bfloat16:
+            qd, kd, vd = q, k, v
+            fwd = lambda: fa.flash_attention(qd, kd, vd, pos, pos, **kw)
+            bwd = lambda: fa.flash_attention_backward(
+                qd, kd, vd, pos, pos, out.detach(), dout, kv_chunk=chunk,
+                **kw)
+
+            def plain_fb():
+                o = fa.flash_attention_plain(qp, kp, vp, pos, pos, **kw)
+                torch.autograd.grad(o, (qp, kp, vp), dout)
+
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                          for t in (q, k, v))
+            dt = dout.transpose(1, 2)
+
+            def sdpa_fb():
+                o = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   enable_gqa=True)
+                torch.autograd.grad(o, (qt, kt, vt), dt)
+
+            with torch.no_grad():
+                fwd_ms = cuda_ms(torch, fwd, 5)
+                fwd_dev = device_ms(torch, fwd, 5)
+                bwd_ms = cuda_ms(torch, bwd, 3)
+                bwd_dev, why = step_device_ms(torch, bwd)
+            pairs = b * s * (s + 1) // 2
+            item = q.element_size()
+            nbytes = item * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                             + 2 * k.numel()) + 4 * 2 * pos.numel()
+            # the backward's least work: S recomputed, dP, dV, dQ, dK
+            bwd_bound = bound(nbytes, 5 * 2 * hd * pairs * h, BF16_TC_FLOPS)
+            row.update({
+                "forward_ms": fwd_ms, "forward_device_ms": fwd_dev,
+                "backward_ms": bwd_ms, "backward_device_ms": bwd_dev,
+                "backward_device_ms_note": why,
+                "backward_bound_ms": bwd_bound[0],
+                "backward_bound_by": bwd_bound[1],
+                "plain_fwd_bwd_ms": cuda_ms(torch, plain_fb, 2),
+                "sdpa_fwd_bwd_ms": cuda_ms(torch, sdpa_fb, 5),
+                "sdpa": "scaled_dot_product_attention(is_causal, "
+                        "enable_gqa), forward + autograd backward"})
+        out_rows[row["dtype"]] = row
+        del q, k, v, qr, kr, vr, qp, kp, vp, out, ref_out, grads, ref
+        torch.cuda.empty_cache()
+    res = {"phase": "attn_grad", "shape": "B=2, S=1024, 32/8 heads, hd 128, "
+           "causal", "grad_chunk": chunk, **out_rows}
+    emit(res)
+    return res
+
+
+def train_small_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
+                      gossip_mod, privacy) -> dict:
+    """Qwen3-4B's smoke variant (fp32: the forward takes ``flash_tf32``),
+    the card against the CPU from the same weights: the loss and every
+    gradient leaf; 3 AdamW train steps; 3 gossip rounds at K=4 on ring(4),
+    plain, robust trim, and DP on the int8 wire."""
+    from repro_torch.models.blocks import DEFAULT_CTX
+    cfg = rt.smoke_variant(rt.get_config("qwen3_4b"))
+    hp = steps_mod.TrainHParams()
+    pipe = data_mod.TokenBatches(cfg.vocab_size, 2, 64, seed=0)
+    state = steps_mod.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), hp,
+        device="cuda")
+    to_cpu = lambda tree: {n: t.to("cpu", copy=True)
+                           for n, t in tree.items()}
+    cpu_state = lambda st: steps_mod.TrainState(
+        to_cpu(st.params), {k: to_cpu(v) for k, v in st.opt_state.items()},
+        st.step.to("cpu", copy=True))
+    out = {"phase": "train_small", "model": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "rtol": TRAIN_RTOL,
+           "agree_share_min": AGREE_SHARE}
+    # the loss and its gradients
+    grads, losses, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe(0).items()}
+        req = {n: p.detach().to(dev).clone().requires_grad_()
+               for n, p in state.params.items()}
+        fa.reset_launches()
+        loss, _ = steps_mod.loss_fn(cfg, req, batch, DEFAULT_CTX, 0.01)
+        loss.backward()
+        launches[dev] = dict(fa.LAUNCHES)
+        grads[dev] = {n: p.grad for n, p in req.items()}
+        losses[dev] = float(loss.detach())
+    want = {n: 0 for n in fa.LAUNCHES}
+    if launches["cpu"] != want or launches["cuda"] != dict(
+            want, flash_tf32=cfg.num_layers):
+        fail(f"train_small: launches {launches}, want one flash_tf32 per "
+             "layer on the card and none on the CPU")
+    worst = 0.0
+    for n in grads["cpu"]:
+        ok, rel = grads_close(grads["cuda"][n], grads["cpu"][n], TRAIN_RTOL)
+        worst = max(worst, rel)
+        if not ok:
+            fail(f"train_small: gradient {n} card vs CPU: max err {rel} of "
+                 f"max|g| (rtol {TRAIN_RTOL})")
+    if not abs(losses["cuda"] - losses["cpu"]) <= TRAIN_RTOL * abs(
+            losses["cpu"]):
+        fail(f"train_small: loss {losses}")
+    out["loss"] = losses
+    out["grad_max_err_over_max"] = worst
+    out["launches_cuda"] = launches["cuda"]
+    # 3 AdamW steps
+    st_cpu = cpu_state(state)
+    a = train_mod.train(cfg, hp, pipe, 3, device="cuda", state=state)
+    c = train_mod.train(cfg, hp, pipe, 3, device="cpu", state=st_cpu)
+    # AdamW moves a coordinate by about lr a step: 2 lr a step bounds a
+    # flipped one
+    bound3 = 2 * hp.lr * 3
+    out["steps"] = compare_train(torch, "train_small steps",
+                                 a.state.params, c.state.params,
+                                 [m["loss"] for m in a.metrics],
+                                 [m["loss"] for m in c.metrics], bound3)
+    # gossip at K=4: plain, trim, DP on int8
+    norm = params_norm(torch, a.state.params)
+    n = sum(p.numel() for p in a.state.params.values())
+    for name, gkw, dp in (
+            ("gossip", {}, None), ("gossip_trim", {"robust": "trim"}, None),
+            ("gossip_dp_int8", {"wire": "int8"},
+             dp_config(privacy, norm, n))):
+        gcfg = gossip_mod.GossipConfig(num_nodes=4, topology="ring", **gkw)
+        states = gossip_mod.replicate_state(a.state, 4)
+        start = {"cuda": states, "cpu": cpu_state(states)}  # before any run
+        runs = {dev: train_mod.gossip_train(cfg, hp, pipe, gcfg, 3,
+                                            device=dev, dp=dp, states=st)
+                for dev, st in start.items()}
+        g, h = runs["cuda"], runs["cpu"]
+        row = compare_train(
+            torch, f"train_small {name}", g.states.params, h.states.params,
+            [m["loss"] for m in g.metrics], [m["loss"] for m in h.metrics],
+            None if dp else 2 * bound3)
+        row["consensus"] = [[float(x) for x in r.consensus]
+                            for r in (g, h)]
+        out[name] = row
+    emit(out)
+    return out
+
+
+def compare_train(torch, name, params, params_ref, losses, losses_ref,
+                  max_diff: float | None) -> dict:
+    """Card (``params``, ``losses``) against CPU: losses within
+    TRAIN_RTOL; at least AGREE_SHARE of all coordinates within TRAIN_RTOL
+    max|p| of their leaf (a first AdamW step moves a coordinate whose
+    gradient is at rounding level by about lr, whichever side of 0 it
+    rounds to; a stochastic-rounding decision may flip); every difference
+    at most ``max_diff`` where given; everything finite."""
+    la = torch.stack([torch.as_tensor(x).float().cpu() for x in losses])
+    lb = torch.stack([torch.as_tensor(x).float().cpu()
+                      for x in losses_ref])
+    if not bool(torch.isfinite(la).all()) or not torch.allclose(
+            la, lb, rtol=TRAIN_RTOL, atol=0.0):
+        fail(f"{name}: losses {la.tolist()} vs {lb.tolist()}")
+    agree, total, worst = 0, 0, 0.0
+    for n, p in params.items():
+        if not bool(torch.isfinite(p).all()):
+            fail(f"{name}: non-finite parameter {n}")
+        share, diff = agree_share(p, params_ref[n], TRAIN_RTOL)
+        agree += share * p.numel()
+        total += p.numel()
+        worst = max(worst, diff)
+    if agree / total < AGREE_SHARE or (max_diff is not None
+                                       and worst > max_diff):
+        fail(f"{name}: {agree / total} of the coordinates agree within "
+             f"{TRAIN_RTOL} max|p| (want {AGREE_SHARE}); max|diff| {worst}"
+             f" (bound {max_diff})")
+    return {"losses": la.tolist(), "losses_cpu": lb.tolist(),
+            "agree_share": agree / total, "max_abs_diff": worst,
+            "max_abs_diff_bound": max_diff}
+
+
+def model_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one train step (no recompute): 3 x the forward's
+    2 N_mm tokens (N_mm: the matrix-product weights, unembed included,
+    embed excluded) plus 4 hd H per admissible causal (query, key) pair
+    per layer."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv, ff, v, layers = (cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
+                            cfg.vocab_size, cfg.num_layers)
+    n_mm = d * v + layers * (2 * d * h * hd + 2 * d * kv * hd + 3 * d * ff)
+    pairs = b * s * (s + 1) // 2
+    return 3.0 * (2.0 * n_mm * b * s + layers * 4.0 * hd * h * pairs)
+
+
+def train_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
+                  layers: int = 8, steps: int = 6) -> dict:
+    """Qwen3-4B at full width, ``layers`` of 36 layers, through
+    ``launch.train.train`` (the all-reduce path): bf16 compute, fp32
+    masters and AdamW moments, remat full, B=4 x S=1,024 from
+    ``TokenBatches``. The flash counts are zeroed just before the run and
+    read just after; remat runs each layer's forward twice (the forward
+    and the recompute in the backward)."""
+    cfg = dataclasses.replace(rt.get_config("qwen3_4b"), num_layers=layers)
+    hp = steps_mod.TrainHParams()
+    b, s = 4, 1024
+    pipe = data_mod.TokenBatches(cfg.vocab_size, b, s, seed=0)
+    t0 = time.perf_counter()
+    state = steps_mod.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), hp,
+        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.values())
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    res = train_mod.train(cfg, hp, pipe, steps, device="cuda", state=state)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict({n: 0 for n in fa.LAUNCHES},
+                flash_mma=2 * layers * steps)
+    if launches != want:
+        fail(f"train_a: flash launches {launches}, want {want} (one "
+             "flash_mma per layer in the forward and one in the recompute)")
+    losses = [float(m["loss"]) for m in res.metrics]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] <             losses[0]:
+        fail(f"train_a: losses {losses} (want finite and falling)")
+    ms_step = float(statistics.median(res.step_ms[1:]))
+    flops = model_flops(cfg, b, s)
+    # one more step: the profiler's device ms by kernel, and the sleep
+    # kernel's device ms where the step fits the queue
+    batch = train_mod.to_device(pipe(steps), torch.device("cuda"))
+    step_fn = steps_mod.make_train_step(cfg, hp)
+    one = lambda: step_fn(res.state, batch)
+    dev_ms, why = step_device_ms(torch, one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(torch, one, host_ms, top=10)
+    out = {"phase": "train_a", "model": cfg.name, "layers": layers,
+           "cut": "depth 36 -> 8 layers (full width)", "d_model": cfg.d_model,
+           "heads": f"{cfg.num_heads}/{cfg.num_kv_heads}", "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "remat": cfg.remat_policy,
+           "optimizer": "AdamW, fp32 moments", "batch": b, "seq": s,
+           "steps": steps, "params": n_params, "init_s": init_s,
+           "loss_per_step": losses, "step_ms": res.step_ms,
+           "ms_per_step": ms_step, "ms_per_step_of": "median of steps 2-6",
+           "tokens_per_s": b * s / ms_step * 1e3,
+           "model_flops_per_step": flops,
+           "mfu_bf16_dense_peak": flops / (ms_step / 1e3) / BF16_TC_FLOPS,
+           "launches": launches,
+           "flash_mma_per_step": launches["flash_mma"] / steps,
+           "peak_memory_bytes": peak,
+           "sleep_kernel_device_ms": dev_ms, "sleep_kernel_note": why,
+           "profile_step": prof}
+    emit(out)
+    del res, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_gossip_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
+                       gossip_mod, privacy, name: str, layers: int, *,
+                       dp: bool = False) -> dict:
+    """Gossip data-parallelism at Qwen3-4B's width, ``layers`` layers,
+    K=4 replicas on ring(4), B=2 x S=1,024 per node, 4 rounds mixed every
+    round, through ``launch.train.gossip_train``: ms per round as the
+    local steps and the mix, the consensus distance per round, peak
+    memory. ``dp``: the DP wire (per-link noise, ``dp_config``) on the
+    int8 codec, with the draws' and the codec's ms per gossip step and
+    the final epsilon against the accountant's closed form."""
+    from repro_torch.core import quant, streams
+    cfg = dataclasses.replace(rt.get_config("qwen3_4b"), num_layers=layers)
+    hp = steps_mod.TrainHParams()
+    k, rounds = 4, 4
+    pipe = data_mod.TokenBatches(cfg.vocab_size, 2, 1024, seed=0)
+    gcfg = gossip_mod.GossipConfig(num_nodes=k, topology="ring",
+                                   wire="int8" if dp else "fp32")
+    state0 = steps_mod.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), hp,
+        device="cuda")
+    n = sum(p.numel() for p in state0.params.values())
+    dpc = dp_config(privacy, params_norm(torch, state0.params), n) if dp \
+        else None
+    states = gossip_mod.replicate_state(state0, k)
+    del state0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    res = train_mod.gossip_train(cfg, hp, pipe, gcfg, rounds, device="cuda",
+                                 dp=dpc, states=states)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict({m: 0 for m in fa.LAUNCHES},
+                flash_mma=2 * layers * k * rounds)
+    if launches != want:
+        fail(f"{name}: flash launches {launches}, want {want}")
+    cons = [float(c) for c in res.consensus]
+    losses = [m["loss"].tolist() for m in res.metrics]
+    if not all(math.isfinite(x) for x in cons + sum(losses, [])):
+        fail(f"{name}: non-finite loss or consensus ({losses}, {cons})")
+    out = {"phase": name, "model": cfg.name, "layers": layers,
+           "cut": f"depth 36 -> {layers} layers (full width)",
+           "replicas": k, "graph": "ring(4)", "batch_per_node": 2,
+           "seq": 1024, "rounds": rounds, "mix_every": 1,
+           "wire": gcfg.wire, "params_per_replica": n,
+           "local_ms_per_round": res.local_ms, "mix_ms_per_round":
+           res.mix_ms, "ms_per_round": [a + b for a, b in
+                                        zip(res.local_ms, res.mix_ms)],
+           "consensus_distance": cons, "loss_per_round": losses,
+           "launches": launches, "peak_memory_bytes": peak}
+    if dp:
+        graph = gcfg.graph()
+        mixed = rounds
+        eps = float(privacy.epsilon_schedule(dpc, graph, 1, [mixed])[-1])
+        releases = mixed * dpc.releases_per_mix_round(graph, 1)
+        rho = releases / (2.0 * dpc.sigma ** 2)
+        closed = rho + 2.0 * math.sqrt(rho * math.log(1.0 / dpc.delta))
+        if not abs(eps - closed) <= 1e-12 * closed:
+            fail(f"{name}: epsilon {eps} != the closed form {closed}")
+        params = res.states.params
+        links = privacy.graph_links(gcfg.weights())
+        key = dpc.round_key(rounds)
+        buf = torch.empty((max(p[0].numel() for p in params.values()),),
+                          dtype=torch.float32, device="cuda")
+
+        def draws():
+            for i, p in enumerate(params.values()):
+                for (r, l) in links:
+                    streams.normal(streams.fold(key, 0, i, r, l),
+                                   p[0].numel(), "cuda",
+                                   out=buf[:p[0].numel()])
+
+        def codec():
+            wkey = streams.fold(key, 0, quant._WIRE_STREAM)
+            for i, p in enumerate(params.values()):
+                quant.wire_view_leaf_(p, "int8", quant.leaf_key(wkey, i))
+
+        w = torch.tensor(gcfg.weights(), dtype=torch.float32, device="cuda")
+        mixer = gossip_mod._param_mixer(gcfg, None, None, None, dpc)
+        mix = lambda: mixer(w, params, rounds)
+        draw_ms = cuda_ms(torch, draws, 1)
+        codec_ms = cuda_ms(torch, codec, 1)
+        mix_ms = cuda_ms(torch, mix, 1)
+        uniforms = 2 * (-(-sum(p[0].numel() for p in params.values())
+                          // 2)) * len(links)
+        out.update({
+            "dp": {"clip": dpc.clip, "sigma": dpc.sigma,
+                   "delta": dpc.delta, "per_link": True,
+                   "releases": releases, "epsilon": eps,
+                   "epsilon_closed_form": closed},
+            "draws_ms_per_gossip_step": draw_ms,
+            "draws_normals_per_gossip_step": uniforms,
+            "codec_ms_per_gossip_step": codec_ms,
+            "dp_mix_ms_per_gossip_step": mix_ms,
+            "timing_note": "CUDA events around one warmed call (host "
+                           "launches included; each op is >= tens of MB)"})
+    emit(out)
+    del res, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def gossip_phase_or_cut(torch, *args, name: str, layers: int, **kw) -> dict:
+    """``train_gossip_phase``, at one layer if ``layers`` runs out of
+    device memory (a ``<name>_cut`` row says so)."""
+    try:
+        return train_gossip_phase(torch, *args, name=name, layers=layers,
+                                  **kw)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        emit({"phase": f"{name}_cut", "layers": layers, "cut_to": 1,
+              "reason": "out of device memory"})
+        return train_gossip_phase(torch, *args, name=name, layers=1, **kw)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2224,7 +2747,10 @@ def main() -> int:
     from repro_torch.kernels import build, cd_glm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import attention, transformer
+    from repro_torch.optim import gossip as gossip_mod, privacy
+    from repro_torch.train import data as data_mod, steps as steps_mod
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -2312,6 +2838,12 @@ def main() -> int:
           "max_abs_v": float(b.v_stack.abs().max()),
           "rejected_edges_trim_clean": sum(
               atk_runs["run_atk_trim_clean"]["rejected_edges_per_round"])})
+    # trim on a clean run rejects nothing, so it is the linear mix: the
+    # same product on the same values, bitwise
+    if not (torch.equal(a.v_stack, b.v_stack)
+            and torch.equal(a.x_parts, b.x_parts)):
+        fail("run_atk_trim_clean: the final state is not bitwise "
+             "run_atk_clean's")
     side = atk_runs["run_atk_trim"]["side"]
     gate_step_check(torch, mixing, side["w"], side["v"], side["v_send"])
     for run in atk_runs.values():
@@ -2357,6 +2889,21 @@ def main() -> int:
                                     dtype="float32")
     small = serve_small_phase(torch, rt, fa, serve_mod, transformer,
                               small_cfg)
+    torch.cuda.empty_cache()
+
+    # training: the flash Function's gradient, card vs CPU at the smoke
+    # width, then Qwen3-4B at full width through launch.train
+    attn_grad = attn_grad_phase(torch, fa)
+    train_small = train_small_phase(torch, rt, fa, train_mod, steps_mod,
+                                    data_mod, gossip_mod, privacy)
+    train_a = train_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod)
+    gossip_args = (rt, fa, train_mod, steps_mod, data_mod, gossip_mod,
+                   privacy)
+    train_gossip = gossip_phase_or_cut(torch, *gossip_args,
+                                       name="train_gossip", layers=2)
+    train_gossip_dp = gossip_phase_or_cut(torch, *gossip_args,
+                                          name="train_gossip_dp", layers=2,
+                                          dp=True)
 
     src = "src/repro_torch/kernels/csrc/cd_glm.cu"
     kernels = []
@@ -2411,7 +2958,15 @@ def main() -> int:
         "max_abs_err": err_of("mma", "bfloat16"),
         **timing(by_case[("prefill", "bfloat16")]),
         "shape": "prefill, bf16 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
-                 "hd 128)"})
+                 "hd 128)",
+        "launches_train_a": train_a["launches"]["flash_mma"],
+        "launches_train_gossip": train_gossip["launches"]["flash_mma"],
+        "launches_train_gossip_dp":
+            train_gossip_dp["launches"]["flash_mma"],
+        "training": {key: attn_grad["bfloat16"][key] for key in (
+            "forward_ms", "forward_device_ms", "backward_ms",
+            "backward_device_ms", "backward_bound_ms", "backward_bound_by",
+            "plain_fwd_bwd_ms", "sdpa_fwd_bwd_ms", "errors")}})
     kernels.append({
         "name": "flash_split", "route": "cuda", "source": flash_src,
         "replaces": flash_replaces,
@@ -2439,6 +2994,7 @@ def main() -> int:
         "replaces": flash_replaces,
         "launches": small["launches"]["flash_tf32"],
         "launches_in": "serve_small (fp32: its route at prefill)",
+        "launches_train_small": train_small["launches_cuda"]["flash_tf32"],
         "max_abs_err": err_of("tf32", "float32"),
         **timing(prefill32),
         "bound_peak": "3 x FLOPs at the TF32 tensor-core peak",
@@ -2446,6 +3002,9 @@ def main() -> int:
         "shape": "prefill, fp32 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
                  "hd 128)"})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if not next(k for k in kernels
+                if k["name"] == "flash_mma")["launches_train_a"] > 0:
+        idle.append("flash_mma (train_a)")
     if idle:
         fail(f"kernels not launched on their main path: {idle}")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

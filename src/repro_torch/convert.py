@@ -12,7 +12,10 @@ For the model zoo: ``model_params_from_numpy`` takes the reference's
 parameter pytree as numpy arrays (layer-stacked, as ``_stack_init`` builds
 it), ``load_checkpoint`` reads an npz written by the reference's
 ``train.checkpoint.save`` (leaves keyed by ``jax.tree_util.keystr`` paths,
-parsed here as strings), and ``cache_to_numpy`` hands a KV cache back.
+parsed here as strings), and ``cache_to_numpy`` hands a KV cache back. ``train_state_from_numpy`` /
+``train_state_to_numpy`` carry a training state (fp32 masters, the
+optimizer's moments, the step) across in the reference's layout, single
+or with a leading (K,) replica axis (gossip).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.core.cola import ColaState
 from repro_torch.core.problems import PROBLEMS, Problem
 from repro_torch.device import resolve
 from repro_torch.models import transformer
+from repro_torch.train.steps import TrainState
 
 
 def problem_from_numpy(name: str, x, y, lam: float, *, device,
@@ -183,3 +187,82 @@ def cache_to_numpy(cache: dict) -> dict:
     numpy has no bf16 — and pos as int32)."""
     return {key: (t.float() if t.is_floating_point() else t).cpu().numpy()
             for key, t in cache.items()}
+
+
+def _nested_to_flat(tree, prefix=()) -> dict:
+    """A nested dict of arrays -> {dotted name: array}."""
+    return {".".join(map(str, path)): leaf
+            for path, leaf in _tree_leaves(tree, prefix)}
+
+
+def _flat_to_nested(flat: dict) -> dict:
+    tree: dict = {}
+    for name, leaf in flat.items():
+        node = tree
+        keys = name.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return tree
+
+
+def _field(tree, name):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def params_from_numpy(cfg, tree, *, device, dtype=torch.float32) -> dict:
+    """The training layout (``transformer.param_paths``) from the
+    reference's parameter tree as numpy, each leaf copied to ``device`` in
+    ``dtype``; a leading replica axis (K, ...) is kept. A missing, extra
+    or misshapen leaf raises."""
+    dev = resolve(device)
+    want = transformer.stack_params(
+        cfg, transformer.init_params(cfg, None, "meta", dtype=dtype))
+    flat = _nested_to_flat(tree)
+    if set(flat) != set(want):
+        raise ValueError(f"parameter tree leaves {sorted(flat)} != the "
+                         f"model's {sorted(want)}")
+    out = {}
+    for name, meta in want.items():
+        arr = np.asarray(flat[name])
+        if tuple(arr.shape[arr.ndim - meta.dim():]) != tuple(meta.shape) \
+                or arr.ndim - meta.dim() not in (0, 1):
+            raise ValueError(f"{name}: shape {arr.shape} is neither "
+                             f"{tuple(meta.shape)} nor (K,) + it")
+        out[name] = torch.tensor(np.asarray(arr, np.float32),
+                                 device=dev).to(dtype)
+    return out
+
+
+def train_state_from_numpy(cfg, tree, *, device) -> TrainState:
+    """A ``TrainState`` from the reference's (``jax.tree.map(np.asarray,
+    state)``, or a dict with ``params``, ``opt_state`` and ``step``):
+    masters in ``cfg.param_dtype``, each moment in its stored dtype (fp32
+    or bf16, as numpy holds it), the step as int32."""
+    dev = resolve(device)
+    params = params_from_numpy(cfg, _field(tree, "params"), device=dev,
+                               dtype=getattr(torch, cfg.param_dtype))
+    opt_state = {}
+    for key, sub in _field(tree, "opt_state").items():
+        dtypes = {name: np.asarray(a).dtype
+                  for name, a in _nested_to_flat(sub).items()}
+        moments = params_from_numpy(cfg, sub, device=dev)
+        opt_state[key] = {
+            name: (t.to(torch.bfloat16) if dtypes[name].name == "bfloat16"
+                   else t) for name, t in moments.items()}
+    step = torch.tensor(np.asarray(_field(tree, "step")), dtype=torch.int32,
+                        device=dev)
+    return TrainState(params=params, opt_state=opt_state, step=step)
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """{"params", "opt_state", "step"} as nested dicts of numpy arrays in
+    the reference's layout (bf16 moments as fp32: numpy has no bf16)."""
+    arr = lambda t: (t.float() if t.dtype == torch.bfloat16 else t
+                     ).detach().cpu().numpy()
+    nested = lambda flat: _flat_to_nested({n: arr(t) for n, t in
+                                           flat.items()})
+    return {"params": nested(state.params),
+            "opt_state": {key: nested(sub)
+                          for key, sub in state.opt_state.items()},
+            "step": state.step.cpu().numpy()}

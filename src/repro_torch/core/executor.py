@@ -55,6 +55,8 @@ class BlockRunResult(NamedTuple):
 def _leaves(state):
     if isinstance(state, torch.Tensor):
         return [state]
+    if isinstance(state, dict):
+        state = state.values()
     return [x for s in state for x in _leaves(s)] if state is not None else []
 
 
@@ -122,9 +124,10 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
         and merged over its schedule slice (streamed entries win) before
         the step function and the recorder see it.
       in_place: ``step_fn(state, context, sched_t, stopped)`` updates the
-        state in place and returns it; ``stopped`` is the 0-d bool stop
-        flag (None when no stop is armed), and the step must leave the
-        state unchanged where it is set. The engine then selects nothing.
+        state in place and returns it (with its aux under ``with_aux``);
+        ``stopped`` is the 0-d bool stop flag (None when no stop is
+        armed), and the step must leave the state unchanged where it is
+        set. The engine then selects nothing.
       with_aux: ``step_fn`` returns ``(state, aux)``; each round's ``aux``
         tensor (zeros once the stop flag is set, as the reference's
         skipped rounds give) lands in ``BlockRunResult.aux``, one row per
@@ -180,19 +183,19 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
             if stream is not None:
                 sched_t.update(stream(t))
             if in_place:
-                state = step_fn(state, context, sched_t,
-                                stopped if has_stop else None)
+                new_state = step_fn(state, context, sched_t,
+                                    stopped if has_stop else None)
             else:
                 new_state = step_fn(state, context, sched_t)
-                if with_aux:
-                    new_state, aux = new_state
-                    if aux_buf is None:
-                        aux_buf = torch.zeros((t_total,) + tuple(aux.shape),
-                                              dtype=aux.dtype, device=device)
-                    aux_buf[t] = (torch.where(stopped, 0, aux) if has_stop
-                                  else aux)
-                state = (_select(stopped, state, new_state) if has_stop
-                         else new_state)
+            if with_aux:
+                new_state, aux = new_state
+                if aux_buf is None:
+                    aux_buf = torch.zeros((t_total,) + tuple(aux.shape),
+                                          dtype=aux.dtype, device=device)
+                aux_buf[t] = (torch.where(stopped, 0, aux) if has_stop
+                              else aux)
+            state = (new_state if in_place or not has_stop
+                     else _select(stopped, state, new_state))
             if has_cadence:
                 row = record_at(state, sched_t).to(torch.float32)
                 due = (nxt <= t) | (t == t_total - 1)

@@ -145,12 +145,27 @@ class _Neighborhood(NamedTuple):
 
     def weighted_sum(self, w: torch.Tensor) -> torch.Tensor:
         """(R, d) sum_k w[r, k] * slot value (w zero outside the support):
-        a (R, K) x (K, d) product, the own slot apart under an override."""
+        a (R, K) x (K, d) product, the own slot apart under an override.
+
+        The product runs on the buffer with its non-finite entries zeroed,
+        so a slot outside a row's support never reaches the row (0 * inf
+        would make it NaN). Where a row's support holds a non-finite entry
+        the output is the product over the raw buffer there: non-finite,
+        as the reference's masked sum is (NaN where the reference may give
+        an infinity, when another non-finite entry lies outside the
+        support). A finite buffer's product is the same call on the same
+        values, so its bits do not change."""
+        support = self.nb_mask if self.override else self.mask
+        if self.override:
+            w_self = torch.sum(torch.where(self.self_hot, w, 0.0), dim=1)
+            w = torch.where(self.self_hot, 0.0, w)
+        bad = ~torch.isfinite(self.flat)
+        out = w @ self.flat.masked_fill(bad, 0.0)
+        hit = (support.to(out.dtype) @ bad.to(out.dtype)) > 0
+        out = torch.where(hit, w @ self.flat, out)
         if not self.override:
-            return w @ self.flat
-        w_self = torch.sum(torch.where(self.self_hot, w, 0.0), dim=1)
-        return (torch.where(self.self_hot, 0.0, w) @ self.flat
-                + w_self[:, None] * self.self_vals)
+            return out
+        return out + w_self[:, None] * self.self_vals
 
 
 def _neighborhood(w_rows, buf, row_ids, self_override) -> _Neighborhood:

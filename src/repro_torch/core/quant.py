@@ -127,12 +127,21 @@ def quantize(x: torch.Tensor, wire: str, u: torch.Tensor | None = None):
     if w == "fp32":
         return x, torch.ones(x.shape[:-1] + (1,), dtype=torch.float32,
                              device=x.device)
-    qmax = wire_qmax(w)
-    absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = _absmax_scale(torch.amax(torch.abs(x), dim=-1, keepdim=True),
+                          w)
+    return _to_grid(x, scale, w, u), scale
+
+
+def _absmax_scale(absmax: torch.Tensor, w: str) -> torch.Tensor:
     # a multiply by the fp32 reciprocal, as the reference spells it: a
     # division by qmax rounds differently
-    inv = float(np.float32(1.0 / qmax))
-    scale = torch.where(absmax > 0, absmax * inv, torch.ones_like(absmax))
+    inv = float(np.float32(1.0 / wire_qmax(w)))
+    return torch.where(absmax > 0, absmax * inv, torch.ones_like(absmax))
+
+
+def _to_grid(x, scale, w: str, u):
+    """The payload of fp32 ``x`` under ``scale`` (elementwise)."""
+    qmax = wire_qmax(w)
     y = x / scale
     if w == "int8":
         y = _sr_int_grid(y, u) if u is not None else torch.round(y)
@@ -141,7 +150,7 @@ def quantize(x: torch.Tensor, wire: str, u: torch.Tensor | None = None):
         if u is not None:
             y = _sr_f8_grid(y, u, _F8[w][2])
         q = torch.clamp(y, -qmax, qmax).to(wire_dtype(w))
-    return q, scale
+    return q
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -191,6 +200,69 @@ def ef_init(v_stack: torch.Tensor, wire: str):
     if not is_quantized(wire):
         return None
     return torch.zeros_like(v_stack)
+
+
+# --- pytree wire (gossip-SGD path) -----------------------------------------
+
+# elements per chunk of ``wire_view_leaf_``: bounds the codec's and the
+# draws' temporaries at full width
+LEAF_CHUNK = 1 << 26
+
+
+def wire_view_leaf_(leaf: torch.Tensor, wire: str, key: int | None = None,
+                    u: torch.Tensor | None = None, keep=None
+                    ) -> torch.Tensor:
+    """Quantize-dequantize one contiguous (K, ...)-stacked leaf IN PLACE
+    as (K, n) rows, one absmax scale per node row, in chunks of
+    ``LEAF_CHUNK`` elements (elementwise: the bits of one pass).
+    Stochastic rounding with the uniforms ``u`` ((K, n), fed in) or the
+    port's draws under ``key`` (row r, column c at counter r * n + c);
+    round-to-nearest with neither. ``keep`` (0-d bool): where False the
+    leaf keeps its values."""
+    w = canonical_wire(wire)
+    rows = leaf.view(leaf.shape[0], -1)
+    n = rows.shape[1]
+    for r in range(rows.shape[0]):
+        row = rows[r]
+        scale = _absmax_scale(torch.amax(torch.abs(row.float())), w)
+        for c0 in range(0, n, LEAF_CHUNK):
+            c1 = min(n, c0 + LEAF_CHUNK)
+            x = row[c0:c1].float()
+            uc = (u.reshape(rows.shape)[r, c0:c1] if u is not None
+                  else None if key is None
+                  else streams.uniform(key, (c1 - c0,), leaf.device,
+                                       offset=r * n + c0))
+            deq = dequantize(_to_grid(x, scale, w, uc), scale).to(leaf.dtype)
+            row[c0:c1] = deq if keep is None else torch.where(
+                keep, deq, row[c0:c1])
+    return leaf
+
+
+def leaf_key(key: int, leaf_index: int) -> int:
+    """The SR key of pytree leaf i under a step's key."""
+    return streams.fold(key, leaf_index)
+
+
+def wire_view_pytree(params: dict, wire: str, key: int | None = None,
+                     uniforms=None) -> dict:
+    """Quantize-dequantize every leaf of a (K, ...)-stacked flat dict (a
+    new dict; stateless: no error feedback, the gossip-SGD mixer
+    re-quantizes fresh values every mix round). Each leaf is flattened to
+    (K, -1) rows with per-node absmax scales. Stochastic rounding takes
+    ``uniforms[i]`` for leaf i (fed in, e.g. the reference's) or, with an
+    int ``key``, the port's own draws under ``leaf_key(key, i)``, the same
+    bits on the CPU and the card; round-to-nearest with neither.
+    ``wire='fp32'`` is the identity."""
+    if not is_quantized(wire):
+        return params
+    out = {}
+    for i, (name, leaf) in enumerate(params.items()):
+        if uniforms is not None:
+            kw = {"u": torch.as_tensor(uniforms[i]).to(leaf.device)}
+        else:
+            kw = {"key": None if key is None else leaf_key(key, i)}
+        out[name] = wire_view_leaf_(leaf.contiguous().clone(), wire, **kw)
+    return out
 
 
 def payload_bytes(d: int, wire: str, rows: int = 1) -> int:

@@ -62,20 +62,52 @@ def fold(key: int, *values: int) -> int:
     return key
 
 
-def bits(key: int, shape, device) -> torch.Tensor:
+def bits(key: int, shape, device, offset: int = 0) -> torch.Tensor:
     """int64 tensor of ``shape`` holding 32-bit hashes of the counters
-    0..numel-1 (row-major) under ``key``. Distinct counters below 2**32
-    give distinct values."""
+    offset..offset+numel-1 (row-major) under ``key``. Distinct counters
+    below 2**32 give distinct values; a range split at any offset gives
+    the bits of the whole range."""
     n = math.prod(shape)
     key = int(key) & M32
-    c = torch.arange(n, dtype=torch.int64, device=device)
+    c = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     h = hash32((c + key) & M32)
     hi = fold(key, _C_ROUND2)
-    h = hash32(h ^ (hi ^ (c >> 32)) if n > M32 else h ^ hi)
+    h = hash32(h ^ (hi ^ (c >> 32)) if offset + n > M32 else h ^ hi)
     return h.reshape(tuple(shape))
 
 
-def uniform(key: int, shape, device) -> torch.Tensor:
+def uniform(key: int, shape, device, offset: int = 0) -> torch.Tensor:
     """fp32 uniforms in [0, 1) on the 2**-24 grid: the top 24 bits of
-    ``bits(key, shape, device)``."""
-    return (bits(key, shape, device) >> 8).to(torch.float32) * 2.0 ** -24
+    ``bits(key, shape, device, offset)``."""
+    return (bits(key, shape, device, offset) >> 8).to(torch.float32) \
+        * 2.0 ** -24
+
+
+# pairs of uniforms per chunk of ``normal``: bounds the hash's int64
+# temporaries to a few hundred MB whatever the size asked for
+NORMAL_CHUNK_PAIRS = 1 << 25
+
+
+def normal(key: int, n: int, device, out: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """n standard normals (fp32) by Box-Muller over the uniforms of
+    ``key``: pair p takes counters 2p and 2p + 1 (u1 = 1 - u in (0, 1],
+    u2 = u) and gives elements 2p (r cos) and 2p + 1 (r sin), so both
+    outputs are kept. Drawn in chunks of ``NORMAL_CHUNK_PAIRS`` pairs
+    into ``out`` (a contiguous fp32 tensor of n elements, flattened) or a
+    new (n,) tensor. The uniforms are bitwise the same on every device;
+    log, sqrt, cos and sin round within a few ulps of each other on the
+    CPU and the card."""
+    if out is None:
+        out = torch.empty((n,), dtype=torch.float32, device=device)
+    flat = out.view(-1)
+    pairs = -(-n // 2)
+    for p0 in range(0, pairs, NORMAL_CHUNK_PAIRS):
+        m = min(NORMAL_CHUNK_PAIRS, pairs - p0)
+        u = uniform(key, (m, 2), device, offset=2 * p0)
+        r = torch.sqrt(-2.0 * torch.log(1.0 - u[:, 0]))
+        theta = (2.0 * math.pi) * u[:, 1]
+        z = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=1)
+        stop = min(n, 2 * (p0 + m))
+        flat[2 * p0:stop] = z.view(-1)[:stop - 2 * p0]
+    return out

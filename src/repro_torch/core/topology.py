@@ -114,6 +114,25 @@ def star(k: int) -> Topology:
     return Topology("star", adj)
 
 
+def _square_factors(k: int) -> tuple[int, int]:
+    r = int(np.sqrt(k))
+    while k % r:
+        r -= 1
+    return r, k // r
+
+
+# name -> graph over K nodes (gossip data-parallelism's ``topology=``)
+TOPOLOGIES = {
+    "ring": ring,
+    "cycle2": lambda k: connected_cycle(k, 2),
+    "cycle3": lambda k: connected_cycle(k, 3),
+    "grid": lambda k: grid_2d(*_square_factors(k)),
+    "torus": lambda k: torus_2d(*_square_factors(k)),
+    "complete": complete,
+    "star": star,
+}
+
+
 def _metropolis(adj: np.ndarray) -> np.ndarray:
     k = adj.shape[0]
     deg = adj.sum(axis=1).astype(np.float64)

@@ -43,3 +43,19 @@ def classification(n_samples: int, n_features: int, *, seed: int = 0,
     p = 1.0 / (1.0 + np.exp(-logits))
     y = np.where(rng.random(n_samples) < p, 1.0, -1.0).astype(dtype)
     return x, y, w
+
+
+def token_stream(num_tokens: int, vocab_size: int, *, seed: int = 0):
+    """Synthetic LM token stream with Zipfian unigram statistics plus a
+    short-range bigram structure (with probability 0.25 a token repeats
+    the previous one + 1, mod V), so models have something learnable.
+    Draw for draw the reference's stream."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    base = rng.choice(vocab_size, size=num_tokens, p=probs)
+    rep = rng.random(num_tokens) < 0.25
+    shifted = np.roll(base, 1) + 1
+    out = np.where(rep, shifted % vocab_size, base)
+    return out.astype(np.int32)

@@ -37,6 +37,19 @@ A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises (a failed build or a refused launch never
 falls back). ``LAUNCHES`` counts kernel launches per kernel (never
 plain-version calls).
+
+Gradients. Where autograd needs one (grad enabled and q, k or v requiring
+it), ``flash_attention`` goes through ``FlashAttention``, an autograd
+Function: its forward is the same route (the kernel on the card, the plain
+version on the CPU), and its backward, ``flash_attention_backward``,
+computes dq, dk and dv in PyTorch ops over chunks of ``grad_chunk`` keys.
+It recomputes the scores and each row's log-sum-exp in fp32 with the same
+masks (an empty slot or a fully masked row gives no gradient) and returns
+q, k and v's dtypes. The reference has no backward kernel: it trains
+through the jnp ``chunked_attention`` and lets XLA differentiate it. So
+this backward is the counterpart of that XLA gradient, as the projections
+are left to cuBLAS; it is not the plain version of a kernel. Serving
+(``torch.no_grad``) never enters the Function.
 """
 from __future__ import annotations
 
@@ -388,7 +401,7 @@ def _sources(k, v, q_pos, kv_pos, k2, v2, kv_pos2):
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, mode: str, window: int = 0,
                     compute_dtype: str = "float32", k2=None, v2=None,
-                    kv_pos2=None) -> torch.Tensor:
+                    kv_pos2=None, grad_chunk: int = 512) -> torch.Tensor:
     """GQA flash attention.
 
     Args:
@@ -400,15 +413,31 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, mode: str, window: int = 0,
       compute_dtype: must be "float32" (the math of both products).
       k2, v2, kv_pos2: an optional second source (B, Skv2, KV, hd) and
         (B, Skv2); the keys are then [k ; k2], read in place.
+      grad_chunk: keys per chunk of the backward (``FlashAttention``).
 
     On the card the route is ``select_route(dtype, Sq, G)``; the split
     route uses ``default_splits`` splits and launches the split kernel and
-    the combine kernel in one call.
+    the combine kernel in one call. Where a gradient is needed the call
+    goes through ``FlashAttention`` (one source only).
 
     Returns (B, Sq, H, hd) in q's dtype.
     """
     _check(q, k, v, q_pos, kv_pos, mode, window, compute_dtype, k2, v2,
            kv_pos2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if k2 is not None:
+            raise ValueError("flash_attention: a gradient is computed for "
+                             "one key source only (k2 is the decode path)")
+        return FlashAttention.apply(q, k, v, q_pos, kv_pos, mode, window,
+                                    grad_chunk)
+    return _forward(q, k, v, q_pos, kv_pos, mode, window, k2, v2, kv_pos2)
+
+
+def _forward(q, k, v, q_pos, kv_pos, mode, window, k2=None, v2=None,
+             kv_pos2=None) -> torch.Tensor:
+    """The forward route: the plain version on the CPU, the kernels on the
+    card (inputs already checked)."""
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, kv_pos, mode=mode,
@@ -432,3 +461,80 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, mode: str, window: int = 0,
     else:
         _launch(route, q, kv, pos, out, mode, window)
     return out
+
+
+# ---------------------------------------------------------------------------
+# gradient
+# ---------------------------------------------------------------------------
+
+class FlashAttention(torch.autograd.Function):
+    """Autograd of ``flash_attention`` (one key source): the forward is the
+    kernel route (the plain version on the CPU), the backward
+    ``flash_attention_backward``. Saves q, k, v, the positions and the
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, mode, window, grad_chunk):
+        out = _forward(q, k, v, q_pos, kv_pos, mode, window)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out)
+        ctx.mode, ctx.window, ctx.grad_chunk = mode, window, grad_chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, q_pos, kv_pos, out, dout.contiguous(), mode=ctx.mode,
+            window=ctx.window, kv_chunk=ctx.grad_chunk)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_backward(q, k, v, q_pos, kv_pos, out, dout, *,
+                             mode: str, window: int = 0,
+                             kv_chunk: int = 512):
+    """dq, dk, dv of ``flash_attention`` at ``dout``, in fp32 PyTorch ops
+    over chunks of ``kv_chunk`` keys, two passes: the row log-sum-exp
+    first, then per chunk P = exp(S - lse) (0 where masked),
+    dV = P^T dO, dS = P (dO V^T - rowsum(dO * O)), dQ = dS K, dK = dS^T Q
+    (the 1/sqrt(hd) scale on both). Returns q, k and v's dtypes."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    qg = q.reshape(b, sq, kvh, g, hd).float() * scale
+    chunks = [slice(s, min(s + kv_chunk, skv)) for s in range(0, skv,
+                                                               kv_chunk)]
+
+    def scores(sl):
+        mask = _mode_mask(mode, q_pos, kv_pos[:, sl], window)[:, :, None,
+                                                              None, :]
+        s = torch.einsum("bqkgh,bckh->bqkgc", qg, k[:, sl].float())
+        return torch.where(mask, s, NEG_INF), mask
+
+    m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    for sl in chunks:
+        s, mask = scores(sl)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * torch.exp(m - m_new) + torch.sum(p, dim=-1)
+        m = m_new
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)), 0.0)
+    do = dout.reshape(b, sq, kvh, g, hd).float()
+    delta = torch.sum(do * out.reshape(b, sq, kvh, g, hd).float(), dim=-1)
+    dqg = torch.zeros_like(qg)
+    dk = torch.empty((b, skv, kvh, hd), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.empty_like(dk)
+    for sl in chunks:
+        s, mask = scores(sl)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        vc = v[:, sl].float()
+        dv[:, sl] = torch.einsum("bqkgc,bqkgh->bckh", p, do)
+        ds = p * (torch.einsum("bqkgh,bckh->bqkgc", do, vc)
+                  - delta[..., None])
+        dqg += torch.einsum("bqkgc,bckh->bqkgh", ds, k[:, sl].float())
+        dk[:, sl] = torch.einsum("bqkgc,bqkgh->bckh", ds, qg)
+    dq = (dqg * scale).reshape(b, sq, h, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -6,7 +6,8 @@ Every block shares the signature
     apply(cfg, params, x, positions, cache, ctx) -> (y, new_cache, aux)
 where ``cache=None`` selects the cache-free path (full-sequence forward)
 and ``positions`` are absolute token positions (B, S) int32. Parameters are
-``nn.Module``s whose tensors carry the reference's names and layouts.
+``nn.Module``s whose tensors carry the reference's names and layouts (or,
+in training, ``transformer.bind``'s attribute tree of the same names).
 
 Not ported yet (ROADMAP queue 1 item 17): MoE layers and groups, xLSTM
 pairs, the Zamba2 hybrid group, encoder and cross-attention layers.
@@ -56,7 +57,8 @@ def _attention(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *, mode: str,
     one. ``fresh`` may pass a second K/V source (``k2, v2, kv_pos2``)."""
     return flash_attention(q, k, v, q_pos, kv_pos, mode=mode,
                            window=cfg.window,
-                           compute_dtype=cfg.attn_compute_dtype, **fresh)
+                           compute_dtype=cfg.attn_compute_dtype,
+                           grad_chunk=cfg.scan_chunk, **fresh)
 
 
 def _param(generator, shape, dtype, device, *, zeros: bool = False):

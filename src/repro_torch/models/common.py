@@ -1,7 +1,6 @@
 """Shared neural building blocks: norms, rotary embeddings, initializers.
 
-Counterpart of ``repro.models.common``. ``softmax_cross_entropy`` comes with
-the training path (ROADMAP queue 1 item 17).
+Counterpart of ``repro.models.common``.
 """
 from __future__ import annotations
 
@@ -71,3 +70,18 @@ def dense_init(generator: torch.Generator, shape: tuple[int, ...], dtype,
 def embed_init(generator: torch.Generator, shape: tuple[int, ...], dtype,
                device) -> torch.Tensor:
     return _truncated_normal(generator, shape, device).to(dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy. logits (B, S, V), cast to fp32; labels
+    (B, S) int; ``mask`` (B, S) weights the positions, with
+    ``max(sum(mask), 1)`` in the denominator."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,0 +1,11 @@
+"""Training of the model zoo's dense family (counterpart of
+``repro.train``): train and serving steps, the token pipeline and
+checkpoints."""
+from repro_torch.train.steps import (  # noqa: F401
+    TrainHParams,
+    TrainState,
+    init_train_state,
+    make_decode_step,
+    make_prefill_step,
+    make_train_step,
+)

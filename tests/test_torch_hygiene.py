@@ -20,7 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
     ROOT / "examples" / "torch_elastic_lasso.py",
-    ROOT / "examples" / "torch_attack_smoke.py"]
+    ROOT / "examples" / "torch_attack_smoke.py",
+    ROOT / "examples" / "torch_gate_cost.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -49,6 +50,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "import repro_torch.core.baselines; "
             "import repro_torch.core.quant, repro_torch.core.schedule, "
             "repro_torch.core.streams; import repro_torch.attack; "
+            "import repro_torch.launch.train, repro_torch.optim.gossip, "
+            "repro_torch.optim.privacy, repro_torch.train.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -102,3 +105,25 @@ def test_entry_points_raise_without_a_card():
         serve.main(["--arch", "qwen3_4b", "--smoke"])
     res = serve.serve(api, params, prompt, 2, device="cpu")
     assert res.logits.device.type == "cpu"
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import gossip
+    from repro_torch.train import steps
+    from repro_torch.train.data import TokenBatches
+    hp = steps.TrainHParams()
+    pipe = TokenBatches(cfg.vocab_size, 1, 8, corpus_tokens=1 << 10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_mod.main(["--arch", "qwen3_4b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_mod.main(["--arch", "qwen3_4b", "--smoke", "--steps", "1",
+                        "--gossip", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.init_train_state(cfg, None, hp)
+    gcfg = gossip.GossipConfig(num_nodes=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_mod.train(cfg, hp, pipe, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_mod.gossip_train(cfg, hp, pipe, gcfg, 1)
+    res = train_mod.gossip_train(cfg, hp, pipe, gcfg, 1, device="cpu")
+    assert res.states.params["embed"].device.type == "cpu"
+    assert res.states.params["embed"].shape[0] == 2

@@ -239,3 +239,35 @@ def test_robust_mix_rejects_unknown_mode():
             a, b, torch.arange(K), m)):
         with pytest.raises(ValueError, match="unknown robust mode"):
             fn(w, buf, "winsorize")
+
+
+@pytest.mark.parametrize("graph", ["ring8", "torus4x4"])
+@pytest.mark.parametrize("mode", MODES)
+def test_non_finite_payload_reaches_only_its_neighborhood(mode, graph):
+    """One ``inf`` in node 4's payload: the reference gives non-finite
+    outputs only in the rows whose support holds node 4, and the port
+    gives the same rows, the same NaN / inf pattern in them and the same
+    finite values elsewhere (rtol 1e-5, atol 1e-6 * max|finite|). A slot
+    outside a row's support never enters the row's weighted sum."""
+    g = jtopo.ring(8) if graph == "ring8" else jtopo.torus_2d(4, 4)
+    k = g.adjacency.shape[0]
+    w = jtopo.metropolis_weights(g).astype(np.float32)
+    rng = np.random.default_rng(7)
+    common = rng.standard_normal(D)
+    buf = (common + 0.3 * rng.standard_normal((k, D))).astype(np.float32)
+    buf[4, 2] = np.inf
+    want = np.asarray(jmix.robust_mix_dense(jnp.asarray(w), jnp.asarray(buf),
+                                            mode))
+    got = tmix.robust_mix_dense(torch.as_tensor(w), torch.as_tensor(buf),
+                                mode).numpy()
+    support4 = np.nonzero((w[:, 4] != 0))[0]
+    bad_rows = np.nonzero(~np.isfinite(want).all(axis=1))[0]
+    np.testing.assert_array_equal(bad_rows, support4)
+    np.testing.assert_array_equal(
+        np.nonzero(~np.isfinite(got).all(axis=1))[0], bad_rows)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
+                               atol=1e-6 * np.abs(want[fin]).max())
