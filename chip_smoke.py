@@ -87,6 +87,19 @@ line:
    count.
 7j. baselines_robust — DGD and DIGing with trim on the baselines' data,
    ms per round beside the plain runs'.
+7k. topo_plan — the topology compiler's executors without ranks at
+   (16, 400,000) fp32, per graph family (ring, cycle2, torus2d, expander,
+   hypercube, complete): ``plan_mix_dense`` against ``dense_mix`` at rtol
+   1e-6, ``block_mix_dense`` over 4 ranks bitwise; colors, budget bytes
+   and device ms of each beside ``dense_mix``'s.
+7l. dist1_a / dist1_d — ``run_dist_cola`` in an NCCL group of one rank
+   (made here, destroyed at the end; no other backend is tried) on run_a's
+   and on run_d's (freeze) and run_e's (reset) configurations, through
+   ``comm="plan"`` (the block plan at one rank) and ``comm="dense"``: the
+   Gram kernel once per executed round, the state and the history held to
+   the ``run_cola`` run bitwise (or rtol 1e-6, said in the row); ms per
+   round of the distributed round body beside run_a's, device ms, idle
+   share, the collectives' device ms and calls.
 8. serve_a — Qwen3-4B at full width and depth in bf16 through
    ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
 9. serve_b — H2O-Danube3-4B at full width, 4 layers: 2 prompts of 4,608
@@ -502,19 +515,23 @@ def regression_on_device(torch, n_samples, n_features, *, seed, noise=0.1,
     return x, y
 
 
-def round_profile(torch, prob, graph, cfg, rounds: int) -> dict:
+def round_profile(torch, prob, graph, cfg, rounds: int,
+                  make_body=None) -> dict:
     """The round body alone: host-clock ms per round (synchronised), device
     ms per round (``device_ms``: rounds queued behind a sleep kernel) and
     the device's idle share of the round, then a ``torch.profiler`` window
     over the same rounds for device ms by kernel; ``profiler_coverage`` is
     the profiler's device total over the queued one. On a quantized wire
     the body runs as the drivers run it: EF state armed, each round with
-    its own draws of the port's stream (seed 0), the draws included."""
+    its own draws of the port's stream (seed 0), the draws included.
+    ``make_body(prob, part)``: another round body taking the same
+    arguments (the distributed runtime's at world size 1)."""
     from repro_torch.core import cola, partition, quant, topology
     part = partition.make_partition(prob.n, graph.num_nodes)
     env = cola.build_env(prob, part)
     state = cola.init_state(prob, part)
-    body = cola.make_round(prob, part, cfg)
+    body = (make_body(prob, part) if make_body is not None
+            else cola.make_round(prob, part, cfg))
     w = torch.as_tensor(topology.metropolis_weights(graph),
                         dtype=torch.float32, device="cuda")
     active = torch.ones((graph.num_nodes,), device="cuda")
@@ -826,16 +843,19 @@ def timed_rounds(torch, one, rounds: int, device_reps: int | None = None
             "device_idle_share": 1.0 - dev_ms / host_ms}
 
 
-def churn_profile(torch, prob, graph, cfg, sched) -> dict:
+def churn_profile(torch, prob, graph, cfg, sched, make_body=None,
+                  reset_total=None) -> dict:
     """The churned rounds as the drivers run them (the leaver reset, then
     the round body with the round's W_t, active mask and budgets), cycling
     through ``sched``: ``timed_rounds`` over all of them, each round alone
     (synchronised) split by whether it reset leavers, and the device ms of
-    the reset and of the body alone."""
+    the reset and of the body alone. ``make_body`` / ``reset_total``: the
+    distributed runtime's round body and the reset's cross-rank sum."""
     from repro_torch.core import cola, partition
     part = partition.make_partition(prob.n, graph.num_nodes)
     env = cola.build_env(prob, part)
-    body = cola.make_round(prob, part, cfg)
+    body = (make_body(prob, part) if make_body is not None
+            else cola.make_round(prob, part, cfg))
     rounds = sched["w"].shape[0]
     on_card = lambda key: [torch.as_tensor(a, device="cuda")
                            for a in sched[key]]
@@ -850,7 +870,8 @@ def churn_profile(torch, prob, graph, cfg, sched) -> dict:
         nonlocal state, t_next
         t = t_next % rounds
         if reset_any[t]:
-            state = cola._reset_leavers(state, env, leavers[t])
+            state = cola._reset_leavers(state, env, leavers[t],
+                                        total_fn=reset_total)
         state = body(state, env, w[t], active[t], budgets[t])
         t_next += 1
 
@@ -884,10 +905,19 @@ def churn_profile(torch, prob, graph, cfg, sched) -> dict:
     if leavers is not None:
         t_reset = next(t for t in range(rounds) if reset_any[t])
         out["reset_device_ms"] = device_ms(
-            torch, lambda: cola._reset_leavers(state, env, leavers[t_reset]),
-            5)
+            torch, lambda: cola._reset_leavers(state, env, leavers[t_reset],
+                                               total_fn=reset_total), 5)
     del env
     return out
+
+
+def churn_inputs(rounds: int = 20):
+    """run_d's graph, config and (T, K) schedules: p_stay 0.8 (seed 0),
+    straggler budgets (seed 1)."""
+    from repro_torch.core import cola, topology
+    return (topology.connected_cycle(NODES, 2), cola.ColaConfig(kappa=1.0),
+            stay_masks(rounds, NODES, 0.8, seed=0),
+            straggler_budgets(rounds, NODES, EPS_FEATURES // NODES))
 
 
 def churn_run(torch, rt, cd_glm, name, prob, *, leave_mode: str,
@@ -897,11 +927,7 @@ def churn_run(torch, rt, cd_glm, name, prob, *, leave_mode: str,
     the Gram kernel once per executed round, no residual launch, finite
     rows and at least one round with a node dropped (and, under reset, at
     least one reset)."""
-    from repro_torch.core import topology
-    graph = topology.connected_cycle(NODES, 2)
-    cfg = rt.ColaConfig(kappa=1.0)
-    active = stay_masks(rounds, NODES, 0.8, seed=0)
-    budgets = straggler_budgets(rounds, NODES, EPS_FEATURES // NODES)
+    graph, cfg, active, budgets = churn_inputs(rounds)
     sched = churn_schedule(graph, active, budgets, leave_mode)
     dropped = int((sched["active"] < 1).any(axis=1).sum())
     resets = int(sched["reset_any"].sum()) if "reset_any" in sched else 0
@@ -913,7 +939,7 @@ def churn_run(torch, rt, cd_glm, name, prob, *, leave_mode: str,
                    kernel="cd_gram", other="cd_residual",
                    profile=lambda: churn_profile(torch, prob, graph, cfg,
                                                  sched),
-                   check_gap=leave_mode == "freeze",
+                   check_gap=leave_mode == "freeze", keep_state=True,
                    recorder="gap+certificate", eps=1e-3, record_every=1,
                    executor="block", block_size=8, active_schedule=active,
                    budget_schedule=budgets, leave_mode=leave_mode)
@@ -2722,6 +2748,193 @@ def gossip_phase_or_cut(torch, *args, name: str, layers: int, **kw) -> dict:
         return train_gossip_phase(torch, *args, name=name, layers=1, **kw)
 
 
+# ---------------------------------------------------------------------------
+# the topology compiler and the distributed runtime (world size 1, NCCL)
+# ---------------------------------------------------------------------------
+
+TOPO_GRAPHS = ("ring", "cycle2", "torus2d", "expander", "hypercube",
+               "complete")
+# the per-node plan executor against dense_mix: rtol, with an atol of
+# PLAN_RTOL x max|dense| (the colors sum W_kl v_l in another order than
+# the product, and entries near 0 cancel)
+PLAN_RTOL = 1e-6
+# a distributed run against run_cola on the card where bitwise does not
+# hold: rtol, atol DIST_RTOL x max(1, max|value|)
+DIST_RTOL = 1e-6
+
+
+def init_nccl_group(torch) -> None:
+    """The process group of the distributed phases: NCCL, one rank on the
+    card, through a free localhost port. No other backend is tried."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=300),
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+
+
+def topo_plan_phase(torch, topology, mixing, topo, k: int = NODES,
+                    d: int = EPS_SAMPLES, m: int = 4) -> list:
+    """The compiler's executors without ranks at (K, d) fp32 on the card,
+    per graph family: ``plan_mix_dense`` (one gather per color) against
+    ``dense_mix`` at rtol PLAN_RTOL, ``block_mix_dense`` at M ranks held
+    to it bitwise; colors, ``comm_budget`` bytes, device ms of each."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    v = torch.randn((k, d), generator=gen, device="cuda")
+    rows = []
+    for name in TOPO_GRAPHS:
+        graph = topo.build(name, k)
+        w_np = topology.metropolis_weights(graph).astype(np.float32)
+        w = torch.as_tensor(w_np, device="cuda")
+        plan = topo.compile_plan(graph)
+        block = topo.compile_block_plan(graph, m)
+        diag, coefs = (torch.as_tensor(a, device="cuda")
+                       for a in topo.plan_coefficients(plan, w_np))
+        dense = mixing.dense_mix(w, v)
+        per_node = topo.plan_mix_dense(plan, diag, coefs, v)
+        blocks = topo.block_mix_dense(block, w, v)
+        err = float((per_node - dense).abs().max())
+        scale = float(dense.abs().max())
+        if not torch.allclose(per_node, dense, rtol=PLAN_RTOL,
+                              atol=PLAN_RTOL * scale):
+            fail(f"topo_plan {name}: plan_mix_dense is {err} from "
+                 f"dense_mix (rtol {PLAN_RTOL}, atol {PLAN_RTOL} x {scale})")
+        if not torch.equal(blocks, dense):
+            fail(f"topo_plan {name}: block_mix_dense at M={m} is not "
+                 f"bitwise dense_mix (max diff "
+                 f"{float((blocks - dense).abs().max())})")
+        row = {"phase": "topo_plan", "graph": name, "K": k, "d": d,
+               "colors": plan.num_colors,
+               "budget_bytes": topo.comm_budget(plan, d)["bytes_per_device"],
+               "block_M": m, "block_colors": block.num_colors,
+               "block_budget_bytes":
+                   topo.comm_budget(block, d)["bytes_per_device"],
+               "plan_max_abs_err": err, "plan_rtol": PLAN_RTOL,
+               "block_bitwise": True,
+               "dense_mix_device_ms": device_ms(
+                   torch, lambda: mixing.dense_mix(w, v), 10),
+               "plan_mix_device_ms": device_ms(
+                   torch, lambda: topo.plan_mix_dense(plan, diag, coefs, v),
+                   10),
+               "block_mix_device_ms": device_ms(
+                   torch, lambda: topo.block_mix_dense(block, w, v,
+                                                       check=False), 10)}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def dist_body(axis, comm: str, graph, cfg, *, churn: bool):
+    """``make_body`` for the profiles: the distributed runtime's round body
+    (its mixers over ``axis``) for this graph and comm."""
+    from repro_torch.core import cola, topology
+    from repro_torch.dist import runtime
+
+    def make(prob, part):
+        ln = graph.num_nodes // axis.size
+        comm_r, plan = runtime._resolve_comm(
+            comm, graph, topology.metropolis_weights(graph), local_nodes=ln,
+            m=axis.size, churn=churn, conn=1)
+        mix_fn, grad_mix_fn = runtime._dist_mixers(axis, ln, 1, comm_r,
+                                                   cfg.gossip_steps, plan)
+        return cola._round_body(prob, part, cfg, mix_fn=mix_fn,
+                                grad_mix_fn=grad_mix_fn)
+
+    return make
+
+
+def collective_device_ms(torch, axis, k: int, d: int) -> dict:
+    """Device ms of the collectives the runtime makes at (K, d) on one
+    rank: the dense path's all-gather of the (K, d) stack, the
+    certificate's psum of the (2, d) Lemma-1 sums, a scalar pmax and the
+    gap row's broadcast."""
+    v = torch.ones((k, d), device="cuda")
+    sums = torch.ones((2, d), device="cuda")
+    one = torch.ones((), device="cuda")
+    row = torch.ones((5,), device="cuda")
+    return {"all_gather_stack": device_ms(torch,
+                                          lambda: axis.all_gather(v), 10),
+            "psum_2xd": device_ms(torch, lambda: axis.psum(sums), 10),
+            "pmax_scalar": device_ms(torch, lambda: axis.pmax(one), 10),
+            "broadcast_row": device_ms(torch, lambda: axis.broadcast(row),
+                                       10)}
+
+
+def dist1_run(torch, cd_glm, dist_mod, axis, name, prob, graph, cfg,
+              rounds, ref, *, profile, extra=None, **kw) -> dict:
+    """``run_dist_cola`` at world size 1 through ``comm="plan"`` (the block
+    plan at M = 1: no colors) and ``comm="dense"``, with the launch counts
+    zeroed before each run and read after: the Gram kernel once per
+    executed round, no residual launch. The state and the history are held
+    to ``ref`` (the same configuration's ``run_cola`` run on the card):
+    bitwise, or within DIST_RTOL where bitwise does not hold (the row says
+    which). ``profile(comm)`` gives the round's timing keys."""
+    import numpy as np
+    out = {}
+    want = ref["raw_history"]
+    for comm in ("plan", "dense"):
+        cd_glm.reset_launches()
+        axis.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = dist_mod.run_dist_cola(prob, graph, cfg, axis, rounds,
+                                     comm=comm, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cd_glm.LAUNCHES)
+        calls = dict(axis.counts)
+        h = res.history
+        executed = executed_rounds(h, rounds, kw["block_size"])
+        if launches["cd_gram"] != executed or launches["cd_residual"]:
+            fail(f"{name} ({comm}): launches {launches}, want cd_gram once "
+                 f"per executed round ({executed}) and no cd_residual")
+        if h["round"] != want["round"] or h["stop_round"] != \
+                want["stop_round"]:
+            fail(f"{name} ({comm}): rounds {h['round']} / stop "
+                 f"{h['stop_round']}, run_cola {want['round']} / "
+                 f"{want['stop_round']}")
+        state, ref_state = res.state, ref["state"]
+        bitwise = (torch.equal(state.x_parts, ref_state.x_parts)
+                   and torch.equal(state.v_stack, ref_state.v_stack)
+                   and h == want)
+        worst = {}
+        for key, a, b in (("x", state.x_parts, ref_state.x_parts),
+                          ("v", state.v_stack, ref_state.v_stack)):
+            worst[key] = float((a - b).abs().max())
+            if not torch.allclose(a, b, rtol=DIST_RTOL, atol=DIST_RTOL * max(
+                    1.0, float(b.abs().max()))):
+                fail(f"{name} ({comm}): {key} is {worst[key]} from run_cola")
+        for key, col in h.items():
+            if isinstance(col, list) and key != "round":
+                a, b = np.asarray(col), np.asarray(want[key])
+                worst[key] = float(np.max(np.abs(a - b), initial=0.0))
+                if not np.allclose(a, b, rtol=DIST_RTOL, atol=DIST_RTOL * max(
+                        1.0, float(np.max(np.abs(b), initial=0.0)))):
+                    fail(f"{name} ({comm}): history {key} {a.tolist()} vs "
+                         f"run_cola {b.tolist()}")
+        row = {"phase": name, **(extra or {}), "comm": comm,
+               "ranks": axis.size,
+               "backend": axis.backend, "nodes": graph.num_nodes,
+               "rounds": rounds, "stop_round": h["stop_round"],
+               "executed_rounds": executed, "launches": launches,
+               "collective_calls": calls, "bitwise_run_cola": bitwise,
+               "max_abs_diff": worst, "rtol_if_not_bitwise": DIST_RTOL,
+               "wall_s_incl_setup": wall,
+               "run_cola_wall_s_incl_setup": ref["wall_s_incl_setup"],
+               "run_cola_ms_per_round": ref["ms_per_round"],
+               "run_cola_device_ms_per_round": ref["device_ms_per_round"],
+               **profile(comm)}
+        emit(row)
+        out[comm] = row
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2740,7 +2953,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
 
     import repro_torch as rt
-    from repro_torch import attack
+    from repro_torch import attack, dist as dist_mod, topo
     from repro_torch.core import baselines as bl, metrics, mixing, quant, \
         schedule, subproblem, topology
     from repro_torch.data import synthetic
@@ -2785,7 +2998,7 @@ def main() -> int:
                      rt.ColaConfig(kappa=1.0), 20, kernel="cd_gram",
                      other="cd_residual", recorder="gap+certificate",
                      eps=1e-3, record_every=1, executor="block",
-                     block_size=8)
+                     block_size=8, keep_state=True)
     # run_a on the quantized wire: int8 with EF; fp8 with EF, pipelined,
     # held bitwise to the unpipelined fp8 run; client sampling over
     # complete(16)
@@ -2814,6 +3027,38 @@ def main() -> int:
     # the same lasso under churn on Fig. 4's graph: leavers freeze, reset
     run_d = churn_run(torch, rt, cd_glm, "run_d", lasso, leave_mode="freeze")
     run_e = churn_run(torch, rt, cd_glm, "run_e", lasso, leave_mode="reset")
+    # the topology compiler's executors; then run_a, run_d and run_e
+    # through the distributed runtime at world size 1 on NCCL, each held
+    # to its run_cola run above
+    init_nccl_group(torch)
+    axis = dist_mod.NodeAxis()
+    topo_plan_phase(torch, topology, mixing, topo)
+    coll = collective_device_ms(torch, axis, NODES, EPS_SAMPLES)
+    cfg_a = rt.ColaConfig(kappa=1.0)
+    dist1_a = dist1_run(
+        torch, cd_glm, dist_mod, axis, "dist1_a", lasso, ring, cfg_a, 20,
+        run_a, profile=lambda comm: dict(
+            round_profile(torch, lasso, ring, cfg_a, 3,
+                          make_body=dist_body(axis, comm, ring, cfg_a,
+                                              churn=False)),
+            collective_device_ms=coll),
+        recorder="gap+certificate", eps=1e-3, record_every=1, block_size=8)
+    graph_d, cfg_d, active_d, budgets_d = churn_inputs(20)
+    dist1_d = {}
+    for mode, ref in (("freeze", run_d), ("reset", run_e)):
+        sched_d = churn_schedule(graph_d, active_d, budgets_d, mode)
+        dist1_d[mode] = dist1_run(
+            torch, cd_glm, dist_mod, axis, "dist1_d", lasso, graph_d, cfg_d,
+            20, ref, extra={"leave_mode": mode, "graph": graph_d.name},
+            profile=lambda comm: churn_profile(
+                torch, lasso, graph_d, cfg_d, sched_d,
+                make_body=dist_body(axis, comm, graph_d, cfg_d, churn=True),
+                reset_total=lambda c: axis.psum(c.sum(dim=0))),
+            recorder="gap+certificate", eps=1e-3, record_every=1,
+            block_size=8, active_schedule=active_d,
+            budget_schedule=budgets_d, leave_mode=mode)
+    for run in (run_a, run_d, run_e):
+        run.pop("state", None)
     # the same lasso on the reference's attack graph, torus_2d(4, 4):
     # clean, attacked (undefended, with an eavesdropper), each defense,
     # trim on a clean run, and trim on the int8 wire with EF
@@ -2935,6 +3180,11 @@ def main() -> int:
         launches_run_cohort=run_cohort["launches"]["cd_gram"],
         **{f"launches_{name}": run["launches"]["cd_gram"]
            for name, run in atk_runs.items()},
+        launches_dist1_a={comm: row["launches"]["cd_gram"]
+                          for comm, row in dist1_a.items()},
+        launches_dist1_d={f"{mode}_{comm}": row["launches"]["cd_gram"]
+                          for mode, rows in dist1_d.items()
+                          for comm, row in rows.items()},
         n_k_2=gram_at(2),
         shape="K=16, n_k=125 (G resident), 125 steps",
         n_k_500=gram_at(500), n_k_1000=gram_at(1000),
@@ -3007,6 +3257,8 @@ def main() -> int:
         idle.append("flash_mma (train_a)")
     if idle:
         fail(f"kernels not launched on their main path: {idle}")
+    import torch.distributed
+    torch.distributed.destroy_process_group()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

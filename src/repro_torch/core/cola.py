@@ -193,10 +193,20 @@ def _apply_payload_attack(v: torch.Tensor, atk: dict | None) -> torch.Tensor:
     return v
 
 
-def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
-    """The one-round function of Algorithm 1, shared by both drivers:
+def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
+                mix_fn: Callable | None = None,
+                grad_mix_fn: Callable | None = None) -> Callable:
+    """The one-round function of Algorithm 1, shared by ``run_cola``'s two
+    executors and the distributed runtime (``repro_torch.dist.runtime``):
     ``one_round(state, env, w, active, budgets=None, draws=None,
-    draws_next=None, atk=None)``. On a quantized wire ``draws(step)``
+    draws_next=None, atk=None)``. ``mix_fn(w, v_send, v_self)`` applies
+    the B gossip steps on the fp32 wire (default: ``mix_power_wire`` on
+    the stacked state, or the robust aggregation under ``cfg.robust``;
+    ``v_self`` is None unless an attack corrupted the payloads), and
+    ``grad_mix_fn(w, grads)`` the one step of ``grad_mode="mixed"``
+    (default ``dense_mix``); the distributed runtime passes exchanges over
+    ranks, and ``w`` is then whatever its mixers read (the round's W, or a
+    plan's coefficients). On a quantized wire ``draws(step)``
     gives this round's (K, d) rounding uniforms of gossip step ``step``
     (None: round to nearest), and ``draws_next`` the next round's, which
     the pipelined body encodes with. ``atk`` holds the round's attack
@@ -223,6 +233,11 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
         return mixing.robust_mix_steps(
             w, v_send, robust, trim=cfg.robust_trim, clip=cfg.robust_clip,
             steps=cfg.gossip_steps, self_stack=v_self)
+
+    if mix_fn is not None:
+        mix = mix_fn
+    if grad_mix_fn is None:
+        grad_mix_fn = mixing.dense_mix
 
     def one_round(state: ColaState, env: ColaEnv, w: torch.Tensor,
                   active: torch.Tensor, budgets=None, draws=None,
@@ -263,7 +278,7 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig) -> Callable:
         grads = problem.grad_f(v_half)
         if cfg.grad_mode == "mixed":
             # App. E.1: the neighborhood-mixed gradient sum_l W_kl grad f(v_l)
-            grads = mixing.dense_mix(w, grads)
+            grads = grad_mix_fn(w, grads)
         # Step 5: Theta-approximate local solve (kappa * n_k CD steps;
         # per-node budgets model heterogeneous Theta_k, Definition 5).
         use_gram = (env.gram_parts is not None
@@ -514,18 +529,23 @@ def _cohort_round(problem: Problem, part: Partition, cfg: ColaConfig,
     return step_fn
 
 
-def _reset_leavers(state: ColaState, env: ColaEnv,
-                   leavers: torch.Tensor) -> ColaState:
+def _reset_leavers(state: ColaState, env: ColaEnv, leavers: torch.Tensor,
+                   total_fn: Callable | None = None) -> ColaState:
     """Fig.-6 model: zero x_[k] of the leaving nodes (``leavers``, (K,)
     bool on the state's device); every node subtracts
     sum_leavers A_[k] x_[k] from its estimate, so (1/K) sum_k v_k = A x
     still holds (Lemma 1). One bmm over all K blocks: a read of A. A
     leaver's EF residual describes payloads that no longer exist and is
-    zeroed too (a pipelined wire rejects reset, so ``buf`` is None)."""
+    zeroed too (a pipelined wire rejects reset, so ``buf`` is None).
+    ``total_fn(contrib)`` sums the (K, d) contributions over all K nodes
+    (default: over the stacked axis; the distributed runtime completes its
+    block's sum across ranks)."""
     leave = leavers.to(state.x_parts.dtype)
     contrib = torch.bmm(env.a_parts,
                         (state.x_parts * leave[:, None]).unsqueeze(-1))
-    total = contrib.squeeze(-1).sum(dim=0)                      # (d,)
+    if total_fn is None:
+        total_fn = lambda c: c.sum(dim=0)
+    total = total_fn(contrib.squeeze(-1))                       # (d,)
     x_new = torch.where(leavers[:, None], torch.zeros_like(state.x_parts),
                         state.x_parts)
     ef_new = (None if state.ef is None else

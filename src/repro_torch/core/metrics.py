@@ -198,14 +198,23 @@ class CertificateRecorder:
     def _row(self, state, grads, neigh_mean, grad_thresh,
              honest=None) -> torch.Tensor:
         v_stack, x_parts = state.v_stack, state.x_parts
-        local_gap = node_subproblem_gaps(self.problem, x_parts, v_stack,
-                                         self.a_parts, self.gp_parts,
-                                         self.masks, grads)
-        disagree = torch.linalg.vector_norm(grads - neigh_mean, dim=1)
+        local_gap, disagree = self.local_row_inputs(x_parts, v_stack, grads,
+                                                    neigh_mean)
         v_sum, ax_sum = self.invariant_sums(x_parts, v_stack, honest)
         resid = consensus_residual(v_sum, ax_sum, self.part.num_nodes)
         return self.summarize(local_gap, disagree, resid=resid,
                               grad_thresh=grad_thresh, honest=honest)
+
+    def local_row_inputs(self, x_parts, v_stack, grads, neigh_mean):
+        """(local_gap, disagreement) per node, shared by the stacked row
+        and the distributed runtime's (which passes its node block, with
+        the recorder's blocks swapped for its own, and a neighborhood mean
+        from its exchanges)."""
+        local_gap = node_subproblem_gaps(self.problem, x_parts, v_stack,
+                                         self.a_parts, self.gp_parts,
+                                         self.masks, grads)
+        disagree = torch.linalg.vector_norm(grads - neigh_mean, dim=1)
+        return local_gap, disagree
 
     def invariant_sums(self, x_parts, v_stack, honest=None):
         """[sum_k v_k, sum_k A_[k] x_[k]], the Lemma-1 residual's inputs;
@@ -218,12 +227,17 @@ class CertificateRecorder:
                 torch.bmm(self.a_parts, x_parts.unsqueeze(-1)).sum(dim=(0, 2)))
 
     def summarize(self, local_gap, disagree, *, resid,
-                  grad_thresh=None, honest=None) -> torch.Tensor:
+                  grad_thresh=None, honest=None, psum=None,
+                  pmax=None) -> torch.Tensor:
         """Assemble the scalar row from per-node quantities.
         ``grad_thresh`` overrides the static Eq.-10 threshold (the churn
         round's value). ``honest`` (attack-aware mode, 0/1 per node)
         restricts conditions (9) and (10) and their maxima to the honest
-        nodes; certifying then needs every HONEST node to meet both."""
+        nodes; certifying then needs every HONEST node to meet both.
+        ``psum`` / ``pmax`` (default: none) complete the counts and maxima
+        across ranks when the per-node inputs are one rank's block."""
+        psum = psum if psum is not None else (lambda t: t)
+        pmax = pmax if pmax is not None else (lambda t: t)
         dtype = local_gap.dtype
         if grad_thresh is None:
             grad_thresh = self.grad_thresh
@@ -236,16 +250,17 @@ class CertificateRecorder:
             cond9, cond10 = cond9 & ok, cond10 & ok
             local_gap = torch.where(ok, local_gap, 0.0)
             disagree = torch.where(ok, disagree, 0.0)
-            n_target = torch.sum(honest.to(dtype))
-        n9 = torch.sum(cond9.to(dtype))
-        n10 = torch.sum(cond10.to(dtype))
-        n_both = torch.sum((cond9 & cond10).to(dtype))
+            n_target = psum(torch.sum(honest.to(dtype)))
+        n9 = psum(torch.sum(cond9.to(dtype)))
+        n10 = psum(torch.sum(cond10.to(dtype)))
+        n_both = psum(torch.sum((cond9 & cond10).to(dtype)))
         resid = resid.to(dtype)
         certified = ((n_both == n_target)
                      & (resid <= self.cons_tol)).to(dtype)
         violated = ((resid > self.viol_tol)
                     | ~torch.isfinite(resid)).to(dtype)
-        return torch.stack([torch.max(local_gap), torch.max(disagree),
+        return torch.stack([pmax(torch.max(local_gap)),
+                            pmax(torch.max(disagree)),
                             n9, n10, certified, resid, violated])
 
     @property

@@ -8,11 +8,14 @@ over a quantized wire (``repro_torch.core.quant``), one encode per step.
 ``robust_mix_steps`` replaces the linear mix with a Byzantine-resilient
 aggregation (``ColaConfig.robust``: a gated trimmed mean, a gated median
 or per-neighbor clipping; see ``robust_neighborhood_mix``).
+``ring_mix_ppermute`` and ``dense_mix_shardmap`` are one gossip step for
+one node per rank of a ``repro_torch.dist.axis.NodeAxis``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant
@@ -78,6 +81,63 @@ def qmix_steps(w: torch.Tensor, v_stack: torch.Tensor, ef, steps: int,
             _, _, deq, ef = quant.encode(out, wire, u, ef)
         out = dense_mix(w, deq)
     return out, ef
+
+
+# ---------------------------------------------------------------------------
+# the node axis over torch.distributed ranks (``repro_torch.dist``)
+# ---------------------------------------------------------------------------
+
+def banded_weights(w: torch.Tensor, conn: int) -> torch.Tensor:
+    """The (2*conn+1,) band [w_-c .. w_0 .. w_+c] of a circulant W, read
+    off its row 0. Assumes the band; ``check_circulant_band`` checks it on
+    the host."""
+    k = w.shape[0]
+    cols = torch.arange(-conn, conn + 1, device=w.device) % k
+    return w[0, cols]
+
+
+def check_circulant_band(w, conn: int, atol: float = 1e-6) -> None:
+    """Raise ValueError unless ``w`` (host array) is circulant with
+    bandwidth <= ``conn``, so that the banded ring reproduces W exactly."""
+    w = np.asarray(w)
+    k = w.shape[0]
+    offs = np.arange(-conn, conn + 1)
+    band = w[0, offs % k]
+    rows = np.arange(k)
+    rebuilt = np.zeros_like(w)
+    rebuilt[rows[None, :], (rows[None, :] + offs[:, None]) % k] = \
+        band[:, None]
+    if not np.allclose(w, rebuilt, atol=atol):
+        raise ValueError(
+            f"W is not circulant-banded with connectivity {conn}: banded "
+            f"ppermute mixing would drop {np.abs(w - rebuilt).max():.3g} of "
+            "weight mass — use the dense mixing path for this graph")
+
+
+def ring_mix_ppermute(v_local: torch.Tensor, axis, weights: torch.Tensor,
+                      conn: int = 1) -> torch.Tensor:
+    """One banded circulant gossip step for this rank's node, one node per
+    rank of ``axis`` (a ``repro_torch.dist.axis.NodeAxis``): for each
+    offset, one exchange receiving from i - off and one from i + off.
+    ``weights``: the ``banded_weights`` band."""
+    k = axis.size
+    out = weights[conn] * v_local
+    for off in range(1, conn + 1):
+        from_minus = axis.permute(v_local,
+                                  [(i, (i + off) % k) for i in range(k)])
+        from_plus = axis.permute(v_local,
+                                 [((i + off) % k, i) for i in range(k)])
+        out = (out + weights[conn + off] * from_plus
+               + weights[conn - off] * from_minus)
+    return out
+
+
+def dense_mix_shardmap(v_local: torch.Tensor, axis,
+                       w: torch.Tensor) -> torch.Tensor:
+    """One gossip step of any W for this rank's node (one node per rank):
+    all-gather the (K, ...) stack, mix, keep this rank's row. K |v| bytes
+    per rank."""
+    return dense_mix(w, axis.all_gather(v_local[None]))[axis.index]
 
 
 # ---------------------------------------------------------------------------

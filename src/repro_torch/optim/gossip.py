@@ -15,8 +15,8 @@ runs its step, as the reference's ``vmap`` does, so the metrics rows are
 the reference's; a frozen node's step commits nothing (``commit=False``).
 The mix then replaces each leaf by its mixed value one leaf at a time, so
 a mix holds one mixed leaf beside the replicas, never a second copy of
-them all. Dense path only: the ppermute ring (``mesh=``/``axis=``) comes
-with the distributed runtime, ROADMAP queue 1 item 14; ``telemetry=`` with
+them all. Dense path only: the ppermute ring (``mesh=``/``axis=``) over
+ranks is ROADMAP queue 1 item 14.1; ``telemetry=`` comes with
 observability, item 15.
 """
 from __future__ import annotations
@@ -31,8 +31,8 @@ from repro_torch.core import executor as exec_engine, metrics as \
     metrics_lib, mixing, quant, topology as topo
 from repro_torch.optim import privacy
 
-RING_TODO = ("the ppermute ring (mesh=/axis=, ring_mix_pytree) comes with "
-             "the distributed runtime: ROADMAP queue 1 item 14")
+RING_TODO = ("the ppermute ring (mesh=/axis=, ring_mix_pytree) over "
+             "torch.distributed ranks: ROADMAP queue 1 item 14.1")
 TELEMETRY_TODO = ("telemetry= comes with observability: ROADMAP queue 1 "
                   "item 15")
 

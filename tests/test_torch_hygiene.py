@@ -21,7 +21,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
     ROOT / "examples" / "torch_elastic_lasso.py",
     ROOT / "examples" / "torch_attack_smoke.py",
-    ROOT / "examples" / "torch_gate_cost.py"]
+    ROOT / "examples" / "torch_gate_cost.py",
+    ROOT / "examples" / "torch_dist_cola.py",
+    ROOT / "examples" / "torch_nccl_probe.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -52,6 +54,7 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.core.streams; import repro_torch.attack; "
             "import repro_torch.launch.train, repro_torch.optim.gossip, "
             "repro_torch.optim.privacy, repro_torch.train.checkpoint; "
+            "import repro_torch.topo, repro_torch.dist; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
