@@ -100,6 +100,18 @@ line:
    the ``run_cola`` run bitwise (or rtol 1e-6, said in the row); ms per
    round of the distributed round body beside run_a's, device ms, idle
    share, the collectives' device ms and calls.
+7m. dist1_q8 / dist1_f8p / dist1_atk / dist1_rq8 — the same group of one
+   rank on the quantized wire, robust mixing and attacks: run_q8's int8 +
+   EF and run_f8p's fp8 + EF + pipeline on ring(16); run_atk_trim's,
+   run_atk_median's and run_atk_clip's attacked, defended runs on
+   torus_2d(4, 4); trim on the int8 wire with EF without an attack (the
+   composed lowering; its ``run_cola`` run is made in the phase). Both
+   comms; bitwise the ``run_cola`` run (clip: within rtol 1e-6), equal
+   violated and stop rounds; the Gram kernel once per executed round;
+   each row: the rank's ms per round beside the ``run_cola`` run's, and
+   one round's collective calls and bytes against the plan's
+   ``contract(wire=)`` (the int8 dense all-gather: 16 x 400,000 x 1 +
+   16 x 4 = 6,400,064 B).
 8. serve_a — Qwen3-4B at full width and depth in bf16 through
    ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
 9. serve_b — H2O-Danube3-4B at full width, 4 layers: 2 prompts of 4,608
@@ -516,7 +528,7 @@ def regression_on_device(torch, n_samples, n_features, *, seed, noise=0.1,
 
 
 def round_profile(torch, prob, graph, cfg, rounds: int,
-                  make_body=None) -> dict:
+                  make_body=None, atk=None, axis=None) -> dict:
     """The round body alone: host-clock ms per round (synchronised), device
     ms per round (``device_ms``: rounds queued behind a sleep kernel) and
     the device's idle share of the round, then a ``torch.profiler`` window
@@ -525,7 +537,10 @@ def round_profile(torch, prob, graph, cfg, rounds: int,
     the body runs as the drivers run it: EF state armed, each round with
     its own draws of the port's stream (seed 0), the draws included.
     ``make_body(prob, part)``: another round body taking the same
-    arguments (the distributed runtime's at world size 1)."""
+    arguments (the distributed runtime's at world size 1). ``atk``: the
+    attack entries every round runs with. ``axis``: a ``NodeAxis`` whose
+    counts are read over one more round (``round_collective_calls`` /
+    ``round_sent_bytes``)."""
     from repro_torch.core import cola, partition, quant, topology
     part = partition.make_partition(prob.n, graph.num_nodes)
     env = cola.build_env(prob, part)
@@ -543,11 +558,17 @@ def round_profile(torch, prob, graph, cfg, rounds: int,
 
     def one():
         nonlocal state, t_next
-        state = body(state, env, w, active, None,
+        state = body(state, env, w, active, None, atk=atk,
                      **cola._round_draws(draws, t_next))
         t_next += 1
 
     one()
+    coll = {}
+    if axis is not None:
+        axis.reset_counts()
+        one()
+        coll = {"round_collective_calls": dict(axis.counts),
+                "round_sent_bytes": dict(axis.sent_bytes)}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(rounds):
@@ -570,7 +591,7 @@ def round_profile(torch, prob, graph, cfg, rounds: int,
             "top_kernels": [{"name": r["name"],
                              "ms_per_round": r["ms"] / rounds,
                              "calls_per_round": r["calls"] / rounds}
-                            for r in prof["top_kernels"]]}
+                            for r in prof["top_kernels"]], **coll}
 
 
 def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
@@ -1265,7 +1286,7 @@ def wire_run(torch, rt, cd_glm, quant, mixing, name, prob, graph, wire,
         row["bitwise_vs_unpipelined"] = checks
         del twin
     emit(row)
-    del state
+    run["state"] = state
     return run
 
 
@@ -2832,19 +2853,16 @@ def topo_plan_phase(torch, topology, mixing, topo, k: int = NODES,
 
 def dist_body(axis, comm: str, graph, cfg, *, churn: bool):
     """``make_body`` for the profiles: the distributed runtime's round body
-    (its mixers over ``axis``) for this graph and comm."""
-    from repro_torch.core import cola, topology
+    for this graph and comm, built by ``runtime.dist_round_body`` as
+    ``run_dist_cola`` builds it (``make.plan``: the plan it compiled)."""
+    from repro_torch.core import topology
     from repro_torch.dist import runtime
 
     def make(prob, part):
-        ln = graph.num_nodes // axis.size
-        comm_r, plan = runtime._resolve_comm(
-            comm, graph, topology.metropolis_weights(graph), local_nodes=ln,
-            m=axis.size, churn=churn, conn=1)
-        mix_fn, grad_mix_fn = runtime._dist_mixers(axis, ln, 1, comm_r,
-                                                   cfg.gossip_steps, plan)
-        return cola._round_body(prob, part, cfg, mix_fn=mix_fn,
-                                grad_mix_fn=grad_mix_fn)
+        body, _, make.plan = runtime.dist_round_body(
+            prob, part, cfg, axis, graph, topology.metropolis_weights(graph),
+            comm=comm, churn=churn)
+        return body
 
     return make
 
@@ -2867,14 +2885,16 @@ def collective_device_ms(torch, axis, k: int, d: int) -> dict:
 
 
 def dist1_run(torch, cd_glm, dist_mod, axis, name, prob, graph, cfg,
-              rounds, ref, *, profile, extra=None, **kw) -> dict:
+              rounds, ref, *, profile, extra=None, bitwise=False,
+              **kw) -> dict:
     """``run_dist_cola`` at world size 1 through ``comm="plan"`` (the block
     plan at M = 1: no colors) and ``comm="dense"``, with the launch counts
     zeroed before each run and read after: the Gram kernel once per
     executed round, no residual launch. The state and the history are held
     to ``ref`` (the same configuration's ``run_cola`` run on the card):
     bitwise, or within DIST_RTOL where bitwise does not hold (the row says
-    which). ``profile(comm)`` gives the round's timing keys."""
+    which; ``bitwise`` requires it). ``profile(comm)`` gives the round's
+    timing keys."""
     import numpy as np
     out = {}
     want = ref["raw_history"]
@@ -2895,14 +2915,18 @@ def dist1_run(torch, cd_glm, dist_mod, axis, name, prob, graph, cfg,
             fail(f"{name} ({comm}): launches {launches}, want cd_gram once "
                  f"per executed round ({executed}) and no cd_residual")
         if h["round"] != want["round"] or h["stop_round"] != \
-                want["stop_round"]:
+                want["stop_round"] or h.get("violated_round") != \
+                want.get("violated_round"):
             fail(f"{name} ({comm}): rounds {h['round']} / stop "
-                 f"{h['stop_round']}, run_cola {want['round']} / "
-                 f"{want['stop_round']}")
+                 f"{h['stop_round']} / violated {h.get('violated_round')}, "
+                 f"run_cola {want['round']} / {want['stop_round']} / "
+                 f"{want.get('violated_round')}")
         state, ref_state = res.state, ref["state"]
-        bitwise = (torch.equal(state.x_parts, ref_state.x_parts)
-                   and torch.equal(state.v_stack, ref_state.v_stack)
-                   and h == want)
+        same = (torch.equal(state.x_parts, ref_state.x_parts)
+                and torch.equal(state.v_stack, ref_state.v_stack)
+                and h == want)
+        if bitwise and not same:
+            fail(f"{name} ({comm}): not bitwise the run_cola run")
         worst = {}
         for key, a, b in (("x", state.x_parts, ref_state.x_parts),
                           ("v", state.v_stack, ref_state.v_stack)):
@@ -2923,7 +2947,7 @@ def dist1_run(torch, cd_glm, dist_mod, axis, name, prob, graph, cfg,
                "backend": axis.backend, "nodes": graph.num_nodes,
                "rounds": rounds, "stop_round": h["stop_round"],
                "executed_rounds": executed, "launches": launches,
-               "collective_calls": calls, "bitwise_run_cola": bitwise,
+               "collective_calls": calls, "bitwise_run_cola": same,
                "max_abs_diff": worst, "rtol_if_not_bitwise": DIST_RTOL,
                "wall_s_incl_setup": wall,
                "run_cola_wall_s_incl_setup": ref["wall_s_incl_setup"],
@@ -2932,6 +2956,89 @@ def dist1_run(torch, cd_glm, dist_mod, axis, name, prob, graph, cfg,
                **profile(comm)}
         emit(row)
         out[comm] = row
+    return out
+
+
+def dist1_profile(torch, quant, axis, prob, graph, cfg, comm: str, *,
+                  atk=None) -> dict:
+    """``round_profile`` of the distributed round body at one rank (the
+    attacks' entries of an attacked round when ``atk``), with one round's
+    collective calls and bytes held to the plan's ``contract(wire=)``, or
+    on the dense comm of a quantized wire to the narrow payload and its
+    scales (``quant.payload_bytes``: 1 byte an element, 4 a row)."""
+    make = dist_body(axis, comm, graph, cfg, churn=False)
+    out = round_profile(torch, prob, graph, cfg, 3, make_body=make,
+                        atk=atk, axis=axis)
+    calls, sent = out["round_collective_calls"], out["round_sent_bytes"]
+    wire = cfg.wire if quant.is_quantized(cfg.wire) else None
+    if make.plan is not None:
+        contract = make.plan.contract(prob.d, wire=wire)
+        try:
+            contract.check(calls, sent)
+        except AssertionError as err:
+            fail(f"dist1 ({comm}, {cfg.wire}): {err}")
+        out["contract"] = contract.describe()
+        out["contract_permute_bytes"] = contract.max_collective_permute_bytes
+    elif wire is not None:
+        want = quant.payload_bytes(prob.d, wire, graph.num_nodes)
+        if sent.get("all-gather") != want or calls.get("all-gather") != 2:
+            fail(f"dist1 dense ({cfg.wire}): one round all-gathers "
+                 f"{calls.get('all-gather')} x, {sent.get('all-gather')} B; "
+                 f"want 2 x (payload and scales), {want} B")
+        out["wire_all_gather_bytes_want"] = want
+    out["fp32_stack_bytes"] = graph.num_nodes * prob.d * 4
+    return out
+
+
+def dist1_wire_phases(torch, rt, cd_glm, dist_mod, quant, attack, axis,
+                      lasso, ring, torus, refs: dict) -> dict:
+    """dist1_q8, dist1_f8p, dist1_atk and dist1_rq8 (see the module): each
+    configuration through ``run_dist_cola`` at one rank on both comms,
+    held to its ``run_cola`` run of ``refs`` (states kept) by
+    ``dist1_run``, timed by ``dist1_profile``."""
+    import numpy as np
+    kw = dict(recorder="gap+certificate", eps=1e-3, record_every=1,
+              block_size=8)
+    out = {}
+    for name, ref, cfg in (
+            ("dist1_q8", "run_q8", rt.ColaConfig(kappa=1.0, wire="int8")),
+            ("dist1_f8p", "run_f8p",
+             rt.ColaConfig(kappa=1.0, wire="fp8", pipeline=True))):
+        out[name] = dist1_run(
+            torch, cd_glm, dist_mod, axis, name, lasso, ring, cfg, 20,
+            refs[ref], bitwise=True,
+            extra={"wire": cfg.wire, "pipeline": cfg.pipeline,
+                   "error_feedback": True, "run_cola": ref},
+            profile=lambda comm, cfg=cfg: dist1_profile(
+                torch, quant, axis, lasso, ring, cfg, comm), **kw)
+    attacks = [attack.Byzantine(**FULL_BYZANTINE)]
+    sched, info = attack_schedule(torus, 20, attacks, lasso.d)
+    atk = {n: torch.as_tensor(np.array(sched["atk_" + n][10]), device="cuda")
+           for n in info.entry_names if n not in ("dishonest", "bias")}
+    out["dist1_atk"] = {}
+    for mode in ROBUST_MODES:
+        cfg = rt.ColaConfig(kappa=1.0, robust=mode)
+        ref = f"run_atk_{mode}"
+        out["dist1_atk"][mode] = dist1_run(
+            torch, cd_glm, dist_mod, axis, "dist1_atk", lasso, torus, cfg,
+            20, refs[ref], bitwise=mode != "clip",
+            extra={"robust": mode, "attack": FULL_BYZANTINE,
+                   "graph": torus.name, "run_cola": ref},
+            profile=lambda comm, cfg=cfg: dist1_profile(
+                torch, quant, axis, lasso, torus, cfg, comm, atk=atk),
+            attacks=attacks, **kw)
+    cfg = rt.ColaConfig(kappa=1.0, wire="int8", robust="trim")
+    ref = main_run(torch, rt, cd_glm, "dist1_rq8_run_cola", lasso, torus,
+                   cfg, 20, kernel="cd_gram", other="cd_residual",
+                   keep_state=True, executor="block",
+                   extra={"wire": "int8", "robust": "trim"}, **kw)
+    out["dist1_rq8"] = dist1_run(
+        torch, cd_glm, dist_mod, axis, "dist1_rq8", lasso, torus, cfg, 20,
+        ref, bitwise=True,
+        extra={"wire": "int8", "robust": "trim", "error_feedback": True,
+               "graph": torus.name, "run_cola": "dist1_rq8_run_cola"},
+        profile=lambda comm: dist1_profile(torch, quant, axis, lasso, torus,
+                                           cfg, comm), **kw)
     return out
 
 
@@ -3091,7 +3198,12 @@ def main() -> int:
              "run_atk_clean's")
     side = atk_runs["run_atk_trim"]["side"]
     gate_step_check(torch, mixing, side["w"], side["v"], side["v_send"])
-    for run in atk_runs.values():
+    # the wire, the defenses and the attacks through the distributed
+    # runtime at one rank, each held to its run_cola run above
+    dist1_wire_phases(torch, rt, cd_glm, dist_mod, quant, attack, axis,
+                      lasso, ring, torus,
+                      {"run_q8": run_q8, "run_f8p": run_f8p, **atk_runs})
+    for run in (run_q8, run_f8p, *atk_runs.values()):
         for key in ("state", "taps", "side"):
             run.pop(key, None)
     del a, b, side

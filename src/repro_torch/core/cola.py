@@ -149,21 +149,28 @@ class ColaEnv(NamedTuple):
 
 
 def build_env(problem: Problem, part: Partition, *,
-              with_gram: bool | None = None) -> ColaEnv:
+              with_gram: bool | None = None,
+              nodes: slice | None = None) -> ColaEnv:
     """Materialize the per-run tensors. ``with_gram=None`` builds the Gram
     blocks exactly when ``gram_pays`` picks the Gram kernel; the residual
     kernel's ``a_cols`` layout is built exactly when the Gram blocks are
     not. On the card the Gram blocks also get their column layout
-    (``gram_cols``), built here once per run."""
-    a_parts = part.split_matrix(problem.a)
+    (``gram_cols``), built here once per run. ``nodes``: build only that
+    node range's rows of every tensor (a rank's block over
+    ``repro_torch.dist``), from its own columns of A."""
+    a_parts = part.split_matrix(problem.a, nodes)
     if with_gram is None:
         with_gram = gram_pays(problem.d, part.block, a_parts.element_size())
     gram = block_gram(a_parts) if with_gram else None
     on_card = a_parts.device.type == "cuda"
+    # the rank's rows as tensors of their own (a view would keep the
+    # whole alive)
+    rows = (lambda t: t.contiguous()) if nodes is None else \
+        (lambda t: t[nodes].clone())
     return ColaEnv(
         a_parts=a_parts,
-        gp_parts=part.split_vector(problem.g_params()).contiguous(),
-        masks=part.mask(problem.a.dtype, device=problem.a.device),
+        gp_parts=rows(part.split_vector(problem.g_params())),
+        masks=rows(part.mask(problem.a.dtype, device=problem.a.device)),
         gram_parts=gram,
         a_cols=None if with_gram else block_cols(a_parts),
         gram_cols=gram_columns(gram) if with_gram and on_card else None,
@@ -195,7 +202,8 @@ def _apply_payload_attack(v: torch.Tensor, atk: dict | None) -> torch.Tensor:
 
 def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
                 mix_fn: Callable | None = None,
-                grad_mix_fn: Callable | None = None) -> Callable:
+                grad_mix_fn: Callable | None = None,
+                qmix_fn: Callable | None = None) -> Callable:
     """The one-round function of Algorithm 1, shared by ``run_cola``'s two
     executors and the distributed runtime (``repro_torch.dist.runtime``):
     ``one_round(state, env, w, active, budgets=None, draws=None,
@@ -209,8 +217,13 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
     plan's coefficients). On a quantized wire ``draws(step)``
     gives this round's (K, d) rounding uniforms of gossip step ``step``
     (None: round to nearest), and ``draws_next`` the next round's, which
-    the pipelined body encodes with. ``atk`` holds the round's attack
-    entries (``coef``, ``bias_coef``, ``bias``, ``work``; see
+    the pipelined body encodes with. ``qmix_fn(w, v, ef, draws, payload)
+    -> (mixed, ef_new)`` runs the B steps on the wire (default
+    ``mixing.qmix_steps``; ``payload`` is the pipelined ``state.buf``).
+    A caller's ``qmix_fn`` is a lowered wire (the distributed runtime's
+    exchanges, robust-aware under ``cfg.robust``): the composed branch of
+    the stacked body then gives way to it, as in the reference. ``atk``
+    holds the round's attack entries (``coef``, ``bias_coef``, ``bias``, ``work``; see
     ``repro_torch.attack``): the emitted payloads become ``coef * v +
     bias_coef * bias`` on the wire before the mix, while every node's own
     mixing term and state stay honest, and ``work`` masks dx (free
@@ -238,6 +251,10 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
         mix = mix_fn
     if grad_mix_fn is None:
         grad_mix_fn = mixing.dense_mix
+    lowered_qmix = qmix_fn is not None
+    if qmix_fn is None:
+        qmix_fn = lambda w, v, ef, draws, payload: mixing.qmix_steps(
+            w, v, ef, cfg.gossip_steps, cfg.wire, draws, payload=payload)
 
     def one_round(state: ColaState, env: ColaEnv, w: torch.Tensor,
                   active: torch.Tensor, budgets=None, draws=None,
@@ -246,7 +263,7 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
         # A payload attack exists only on the wire: receivers mix the lie,
         # each node's own term uses its honest state (v_self; None on the
         # honest path, which is then the unattacked program).
-        if quantized and (robust is not None or atk):
+        if quantized and not lowered_qmix and (robust is not None or atk):
             # a quantized wire composed with attacks or a defense (one
             # gossip step, no pipeline: _check_wire_config): the lie is
             # encoded like any payload, with the honest encode's draws;
@@ -267,9 +284,8 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
         elif quantized:
             # every step mixes the codec's view of every payload; a
             # pipelined run's first payload is state.buf
-            v_half, ef_new = mixing.qmix_steps(
-                w, state.v_stack, state.ef, cfg.gossip_steps, cfg.wire,
-                draws, payload=state.buf)
+            v_half, ef_new = qmix_fn(w, state.v_stack, state.ef, draws,
+                                     state.buf)
         else:
             v_send = _apply_payload_attack(state.v_stack, atk)
             v_half = mix(w, v_send,
@@ -423,9 +439,10 @@ def _materialize_schedule(graph, rounds, active_schedule, budget_schedule,
 
 
 def _check_wire_config(cfg: ColaConfig, *, attacks=None,
-                       leave_mode: str = "freeze") -> None:
+                       leave_mode: str = "freeze", dist: bool = False) -> None:
     """Reject the corners the quantized wire does not support, as the
-    reference does (each would change what crosses the wire)."""
+    reference does (each would change what crosses the wire); ``dist``:
+    the distributed runtime's corners too."""
     if not quant.is_quantized(cfg.wire):
         if cfg.pipeline:
             raise ValueError(
@@ -433,6 +450,11 @@ def _check_wire_config(cfg: ColaConfig, *, attacks=None,
                 "has no encode step to hoist (set wire='int8'/'fp8')")
         return
     composed = attacks is not None or cfg.robust is not None
+    if dist and attacks is not None:
+        raise NotImplementedError(
+            "attacks= with a quantized wire on the distributed runtime: "
+            "its wire lowerings have no attacked-encode path, as in the "
+            "reference (run_cola supports this composition)")
     if composed and cfg.pipeline:
         raise NotImplementedError(
             "cfg.pipeline with attacks=/cfg.robust on a quantized wire: "

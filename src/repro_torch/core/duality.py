@@ -52,25 +52,32 @@ def gap_report(problem, part: Partition, x_parts, v_stack) -> GapReport:
 
 
 def block_spectral_norms(a_parts, iters: int = 50, seed: int = 0,
-                         cache=None) -> torch.Tensor:
+                         cache=None, *, nodes: slice | None = None,
+                         num_nodes: int | None = None) -> torch.Tensor:
     """sigma_k = ||A_[k]||_2^2 (Eq. 7) for every node, by power iteration.
 
     ``cache`` short-circuits the iteration with a previously computed
-    ``(K,)`` result. The start vector comes from a ``torch.Generator``
-    seeded with ``seed``, so it differs from the reference's ``jax.random``
-    start: the two agree to the power iteration's accuracy, not bitwise.
+    ``(K,)`` result (K = ``num_nodes``, default the blocks' count). The
+    start vector comes from a ``torch.Generator`` seeded with ``seed``, so
+    it differs from the reference's ``jax.random`` start: the two agree to
+    the power iteration's accuracy, not bitwise. ``nodes``: ``a_parts``
+    holds only that range of the K nodes' blocks (a rank's); each starts
+    from its own rows of the K-node start vector.
     """
     k, d, n_k = a_parts.shape
     if cache is not None:
+        want = num_nodes if num_nodes is not None else k
         cache = torch.as_tensor(cache, dtype=a_parts.dtype,
                                 device=a_parts.device)
-        if tuple(cache.shape) != (k,):
+        if tuple(cache.shape) != (want,):
             raise ValueError(f"sigma_k cache has shape {tuple(cache.shape)}, "
-                             f"want ({k},)")
+                             f"want ({want},)")
         return cache
     gen = torch.Generator(device=a_parts.device).manual_seed(seed)
-    v = torch.randn((k, n_k, 1), generator=gen, dtype=a_parts.dtype,
-                    device=a_parts.device)
+    v = torch.randn((num_nodes or k, n_k, 1), generator=gen,
+                    dtype=a_parts.dtype, device=a_parts.device)
+    if nodes is not None:
+        v = v[nodes]
     a_t = a_parts.transpose(1, 2)
     for _ in range(iters):
         w = torch.bmm(a_t, torch.bmm(a_parts, v))

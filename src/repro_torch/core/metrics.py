@@ -389,7 +389,9 @@ def certificate_recorder(problem, part: Partition, env, neighbors,
     """Build a ``CertificateRecorder``, resolving every round-invariant input.
 
     Args:
-      env: the ``ColaEnv`` (supplies a_parts / gp_parts / masks).
+      env: the ``ColaEnv`` (supplies a_parts / gp_parts / masks; a rank's
+        block of them over ``repro_torch.dist``, with ``sigma_k`` then
+        given for all K nodes).
       neighbors: adjacency (or mixing matrix, or a Topology) whose support
         defines N_k.
       w: the mixing matrix for the contraction bound beta; defaults to
@@ -406,12 +408,13 @@ def certificate_recorder(problem, part: Partition, env, neighbors,
         w = np.asarray(neighbors, dtype=np.float64)
     l_bound = _l_bound(problem)
     k = part.num_nodes
-    sigma_k = block_spectral_norms(env.a_parts, cache=sigma_k)
+    sigma_k = block_spectral_norms(env.a_parts, cache=sigma_k, num_nodes=k)
     beta_ub = float(topo.beta(np.asarray(w)))
     mask = neighbor_mask(neighbors, k, dtype=env.a_parts.dtype,
                          device=env.a_parts.device)
     gap_thresh, grad_thresh = certificate_thresholds(
-        env.masks, sigma_k, beta_ub, l_bound, eps, k)
+        part.mask(env.masks.dtype, device=env.masks.device), sigma_k,
+        beta_ub, l_bound, eps, k)
     return CertificateRecorder(
         problem=problem, part=part, a_parts=env.a_parts,
         gp_parts=env.gp_parts, masks=env.masks, neigh_mask=mask,
@@ -539,10 +542,12 @@ def certificate_schedule(recorder, w_stack, actives,
 
 
 def make_recorder(kind, problem, part: Partition, env, graph, w,
-                  eps: float | None):
+                  eps: float | None, *, sigma_k=None):
     """Resolve a driver's ``recorder=`` argument ("gap", "certificate",
     "gap+certificate", or an already-built Recorder instance). In the
-    composed form only the certificate drives the stop."""
+    composed form only the certificate drives the stop. ``sigma_k``: the
+    certificate's (K,) spectral norms, computed elsewhere (over ranks,
+    where ``env`` is one rank's block)."""
     if not isinstance(kind, str):
         return kind
     if kind == "gap":
@@ -553,7 +558,7 @@ def make_recorder(kind, problem, part: Partition, env, graph, w,
                 f"recorder={kind!r} needs eps=: the Prop.-1 conditions "
                 "certify a specific accuracy")
         cert = certificate_recorder(problem, part, env, graph.adjacency,
-                                    eps, w=w)
+                                    eps, w=w, sigma_k=sigma_k)
         if kind == "certificate":
             return cert
         return ComposedRecorder((GapRecorder(problem, part, eps=None), cert))

@@ -98,9 +98,14 @@ def banded_weights(w: torch.Tensor, conn: int) -> torch.Tensor:
 
 def check_circulant_band(w, conn: int, atol: float = 1e-6) -> None:
     """Raise ValueError unless ``w`` (host array) is circulant with
-    bandwidth <= ``conn``, so that the banded ring reproduces W exactly."""
+    bandwidth <= ``conn``, so that the banded ring reproduces W exactly.
+    The band must not wrap onto itself (2 conn <= K): beyond that two
+    offsets reach the same neighbor and the ring would count it twice."""
     w = np.asarray(w)
     k = w.shape[0]
+    if 2 * conn > k:
+        raise ValueError(f"a band of connectivity {conn} wraps onto itself "
+                         f"on {k} nodes (2 conn > K)")
     offs = np.arange(-conn, conn + 1)
     band = w[0, offs % k]
     rows = np.arange(k)
@@ -118,17 +123,20 @@ def ring_mix_ppermute(v_local: torch.Tensor, axis, weights: torch.Tensor,
                       conn: int = 1) -> torch.Tensor:
     """One banded circulant gossip step for this rank's node, one node per
     rank of ``axis`` (a ``repro_torch.dist.axis.NodeAxis``): for each
-    offset, one exchange receiving from i - off and one from i + off.
-    ``weights``: the ``banded_weights`` band."""
+    offset, one exchange receiving from i - off and one from i + off, or
+    one alone where both reach the same other node (2 off = K, the
+    two-node ring: the reference counts that neighbor twice). ``weights``: the
+    ``banded_weights`` band."""
     k = axis.size
     out = weights[conn] * v_local
     for off in range(1, conn + 1):
         from_minus = axis.permute(v_local,
                                   [(i, (i + off) % k) for i in range(k)])
-        from_plus = axis.permute(v_local,
-                                 [((i + off) % k, i) for i in range(k)])
-        out = (out + weights[conn + off] * from_plus
-               + weights[conn - off] * from_minus)
+        if (2 * off) % k or off % k == 0:
+            from_plus = axis.permute(v_local,
+                                     [((i + off) % k, i) for i in range(k)])
+            out = out + weights[conn + off] * from_plus
+        out = out + weights[conn - off] * from_minus
     return out
 
 
@@ -194,9 +202,22 @@ class _Neighborhood(NamedTuple):
         return torch.where(self.self_hot, norm(self.self_vals)[:, None],
                            flat_n)
 
+    def rows_matmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``a @ b`` for the rows' (R, n) ``a``, computed at the stacked
+        (K, n) shape with the other rows zero when R < K: a BLAS picks its
+        algorithm by shape (one row takes a matrix-vector product that sums
+        in another order), so a rank's block of rows is bitwise those rows
+        of the stacked aggregation (``topo.plan.rows_product``)."""
+        k = self.flat.shape[0]
+        if a.shape[0] == k:
+            return a @ b
+        full = a.new_zeros((k,) + tuple(a.shape[1:]))
+        full[self.rows] = a
+        return (full @ b)[self.rows]
+
     def slot_dots(self, y: torch.Tensor) -> torch.Tensor:
         """(R, K) dot of each slot's value with the row's ``y`` (R, d)."""
-        dots = y @ self.flat.T
+        dots = self.rows_matmul(y, self.flat.T)
         if not self.override:
             return dots
         return torch.where(self.self_hot,
@@ -220,9 +241,9 @@ class _Neighborhood(NamedTuple):
             w_self = torch.sum(torch.where(self.self_hot, w, 0.0), dim=1)
             w = torch.where(self.self_hot, 0.0, w)
         bad = ~torch.isfinite(self.flat)
-        out = w @ self.flat.masked_fill(bad, 0.0)
-        hit = (support.to(out.dtype) @ bad.to(out.dtype)) > 0
-        out = torch.where(hit, w @ self.flat, out)
+        out = self.rows_matmul(w, self.flat.masked_fill(bad, 0.0))
+        hit = self.rows_matmul(support.to(out.dtype), bad.to(out.dtype)) > 0
+        out = torch.where(hit, self.rows_matmul(w, self.flat), out)
         if not self.override:
             return out
         return out + w_self[:, None] * self.self_vals

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,15 +35,23 @@ class Partition:
         flat = torch.arange(self.n_padded, device=device) < self.n
         return flat.reshape(self.num_nodes, self.block).to(dtype)
 
-    def split_matrix(self, a: torch.Tensor) -> torch.Tensor:
-        """(d, n) -> contiguous (K, d, block) column blocks."""
+    def split_matrix(self, a: torch.Tensor,
+                     nodes: slice | None = None) -> torch.Tensor:
+        """(d, n) -> contiguous (K, d, block) column blocks; ``nodes``: only
+        the blocks of that node range (a rank's, ``repro_torch.dist``),
+        read from their own columns."""
         d, n = a.shape
         if n != self.n:
             raise ValueError(f"matrix has {n} columns, partition has {self.n}")
+        r0, r1 = (0, self.num_nodes) if nodes is None else \
+            nodes.indices(self.num_nodes)[:2]
+        c0, c1 = r0 * self.block, r1 * self.block
+        cols = a[:, c0:min(c1, n)]
+        pad = c1 - c0 - cols.shape[1]
         # no padding, no pad copy: the blocks are then the one copy of A
         # (a full-size A is half the card)
-        a_pad = F.pad(a, (0, self.pad_width())) if self.pad_width() else a
-        return a_pad.reshape(d, self.num_nodes, self.block).movedim(1, 0) \
+        a_pad = F.pad(cols, (0, pad)) if pad else cols
+        return a_pad.reshape(d, r1 - r0, self.block).movedim(1, 0) \
             .contiguous()
 
     def split_vector(self, x: torch.Tensor) -> torch.Tensor:
@@ -58,4 +67,13 @@ class Partition:
 def make_partition(n: int, num_nodes: int) -> Partition:
     block = -(-n // num_nodes)  # ceil division
     return Partition(num_nodes=num_nodes, n=n, block=block)
+
+
+def shuffle_columns(a: np.ndarray, seed: int = 0
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Shuffle A's columns before partitioning (the paper shuffles and
+    distributes). Returns the shuffled matrix and the permutation, drawn
+    from ``numpy.random.default_rng(seed)`` as the reference draws it."""
+    perm = np.random.default_rng(seed).permutation(a.shape[1])
+    return a[:, perm], perm
 

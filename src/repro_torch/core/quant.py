@@ -272,12 +272,20 @@ def payload_bytes(d: int, wire: str, rows: int = 1) -> int:
     return rows * d * wire_itemsize(wire) + sidecar
 
 
-def wire_uniforms(seed: int, k: int, d: int,
-                  device) -> Callable[[int, int], torch.Tensor]:
+def wire_uniforms(seed: int, k: int, d: int, device,
+                  rows: slice | None = None
+                  ) -> Callable[[int, int], torch.Tensor]:
     """The port's own stochastic-rounding draws: ``draws(round, step)`` ->
     (K, d) fp32 uniforms, node k's row at counters k*d .. k*d + d-1 under
     the key fold(seed, round, step). A function of (seed, round, step,
-    node) alone, the same on the CPU and the card, no host sync."""
+    node) alone, the same on the CPU and the card, no host sync.
+
+    ``rows``: a node range ``start:stop`` of the K rows (a rank's block,
+    ``repro_torch.dist``): ``draws`` then gives those (stop - start, d)
+    rows only, drawn at their own counters, bitwise the same rows of the
+    (K, d) draw."""
     base = streams.fold(_WIRE_STREAM, seed)
+    r0, r1 = (0, k) if rows is None else rows.indices(k)[:2]
     return lambda t, step: streams.uniform(streams.fold(base, t, step),
-                                           (k, d), device)
+                                           (r1 - r0, d), device,
+                                           offset=r0 * d)

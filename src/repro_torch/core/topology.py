@@ -114,6 +114,11 @@ def star(k: int) -> Topology:
     return Topology("star", adj)
 
 
+def disconnected(k: int) -> Topology:
+    """No edges: W = I, spectral gap 0 (the degenerate case)."""
+    return Topology("disconnected", _empty_adj(k))
+
+
 def _square_factors(k: int) -> tuple[int, int]:
     r = int(np.sqrt(k))
     while k % r:
@@ -164,3 +169,9 @@ def reweight_for_active(topology: Topology, active: np.ndarray) -> np.ndarray:
     """Mixing matrix when only ``active`` nodes participate (§2): Metropolis
     weights on the induced subgraph; inactive nodes get W_kk = 1."""
     return _metropolis(topology.adjacency & active[:, None] & active[None, :])
+
+
+def ring_weights(k: int) -> np.ndarray:
+    """Ring Metropolis weights (1/3 left, self and right for K > 2); the
+    reference's ``self_weight``, which it never reads, is left out."""
+    return metropolis_weights(ring(k))

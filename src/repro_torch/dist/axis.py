@@ -12,6 +12,10 @@ CPU), so the lowering reads like the reference's:
 * ``psum``, ``pmax`` — all-reduces; ``all_gather`` — tiled on the node
   axis; ``broadcast`` — rank ``src``'s tensor on every rank.
 
+A 1-byte tensor (int8, float8) crosses ``permute`` and ``all_gather`` as
+its uint8 bits and is viewed back: no backend upcasts it (gloo takes no
+float8), so a quantized payload moves 1 byte an element.
+
 Every call adds one to ``counts[kind]`` and the bytes this rank sends to
 ``sent_bytes[kind]`` (kinds: "permute", "all-reduce", "all-gather",
 "broadcast"), on every rank, whether it is matched in that call or not:
@@ -26,6 +30,11 @@ import collections
 
 import torch
 import torch.distributed as dist
+
+
+def _as_bytes(x: torch.Tensor) -> bool:
+    """A 1-byte tensor that is not already uint8 (sent as its bits)."""
+    return x.element_size() == 1 and x.dtype != torch.uint8
 
 
 class NodeAxis:
@@ -65,6 +74,9 @@ class NodeAxis:
     def permute(self, x: torch.Tensor, pairs) -> torch.Tensor:
         """``lax.ppermute``: each (src, dst) pair sends src's ``x`` to dst;
         the result is what this rank receives, zeros if nothing."""
+        if _as_bytes(x):
+            return self.permute(x.contiguous().view(torch.uint8),
+                                pairs).view(x.dtype)
         srcs = [s for s, d in pairs if d == self.index]
         dsts = [d for s, d in pairs if s == self.index]
         if len(srcs) > 1 or len(dsts) > 1:
@@ -104,6 +116,9 @@ class NodeAxis:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` concatenated on dim 0, in rank order."""
+        if _as_bytes(x):
+            return self.all_gather(x.contiguous().view(torch.uint8)).view(
+                x.dtype)
         x = x.contiguous()
         self._count("all-gather", x.numel() * x.element_size())
         parts = [torch.empty_like(x) for _ in range(self.size)]

@@ -15,9 +15,16 @@ runs its step, as the reference's ``vmap`` does, so the metrics rows are
 the reference's; a frozen node's step commits nothing (``commit=False``).
 The mix then replaces each leaf by its mixed value one leaf at a time, so
 a mix holds one mixed leaf beside the replicas, never a second copy of
-them all. Dense path only: the ppermute ring (``mesh=``/``axis=``) over
-ranks is ROADMAP queue 1 item 14.1; ``telemetry=`` comes with
-observability, item 15.
+them all.
+
+With ``mesh=`` (a ``repro_torch.dist.NodeAxis``, or a process group) the
+K nodes are the K ranks of the group, one node per rank: each rank holds
+its node's (1, ...) rows of the states and batches, and the mix is the
+banded ring over the ranks (``ring_mix_pytree``: ``2 conn`` exchanges of
+each leaf per gossip step, ``mixing.ring_mix_ppermute``), which needs a
+circulant W of connectivity ``conn``. As in the reference, robust mixing,
+a quantized wire and DP run on the dense path only. ``telemetry=`` comes
+with observability, ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -31,8 +38,6 @@ from repro_torch.core import executor as exec_engine, metrics as \
     metrics_lib, mixing, quant, topology as topo
 from repro_torch.optim import privacy
 
-RING_TODO = ("the ppermute ring (mesh=/axis=, ring_mix_pytree) over "
-             "torch.distributed ranks: ROADMAP queue 1 item 14.1")
 TELEMETRY_TODO = ("telemetry= comes with observability: ROADMAP queue 1 "
                   "item 15")
 
@@ -109,8 +114,37 @@ def mix_pytree(w: torch.Tensor, stacked: dict, steps: int = 1) -> dict:
     return _mix_(w, _cloned(stacked), steps=steps)
 
 
-def ring_mix_pytree(*args, **kwargs):
-    raise NotImplementedError(RING_TODO)
+def ring_mix_pytree(stacked_local: dict, axis, band: torch.Tensor,
+                    conn: int, steps: int = 1) -> dict:
+    """The banded ring over the ranks of ``axis`` (a ``NodeAxis``, one
+    node per rank) applied ``steps`` times to every leaf of this rank's
+    (1, ...)-stacked flat dict: ``mixing.ring_mix_ppermute`` with the
+    ``band`` of ``mixing.banded_weights`` (a new dict)."""
+    out = {}
+    for name, p in stacked_local.items():
+        v = p[0]
+        for _ in range(steps):
+            v = mixing.ring_mix_ppermute(v, axis, band, conn)
+        out[name] = v[None].to(p.dtype)
+    return out
+
+
+def _ring_axis(gcfg: GossipConfig, mesh, axis, conn: int):
+    """The ``NodeAxis`` of the ring (``mesh``: a NodeAxis or a process
+    group; ``axis``: a NodeAxis; anything with ``permute`` serves as
+    one), checked: one node per rank and a circulant W of connectivity
+    ``conn``."""
+    from repro_torch.dist.axis import NodeAxis
+    node_axis = next((a for a in (mesh, axis) if hasattr(a, "permute")),
+                     None)
+    if node_axis is None:
+        node_axis = NodeAxis(mesh)
+    if node_axis.size != gcfg.num_nodes:
+        raise ValueError(
+            f"the gossip ring places one node per rank: {gcfg.num_nodes} "
+            f"nodes over {node_axis.size} ranks")
+    mixing.check_circulant_band(gcfg.weights(), conn)
+    return node_axis
 
 
 def robust_mix_pytree(w: torch.Tensor, stacked: dict, mode: str, *,
@@ -156,7 +190,17 @@ def _param_mixer(gcfg: GossipConfig, mesh, axis: str | None,
                 "neighborhood buffer of the robust aggregation cannot "
                 "represent")
     if mesh is not None or axis is not None:
-        raise NotImplementedError(RING_TODO)
+        ring, c = _ring_axis(gcfg, mesh, axis, conn or 1), conn or 1
+
+        def ring_mix_(w, params: dict, dp_round: int = 0, keep=None) -> dict:
+            mixed = ring_mix_pytree(params, ring, mixing.banded_weights(w, c),
+                                    c, gcfg.gossip_steps)
+            for name, p in params.items():
+                _put(p, mixed[name], keep)
+            return params
+
+        ring_mix_.axis = ring
+        return ring_mix_
     if dp is not None:   # the pairs that may carry noise: the graph's
         links = privacy.graph_links(topo.metropolis_weights(gcfg.graph()))
 
@@ -169,7 +213,14 @@ def _param_mixer(gcfg: GossipConfig, mesh, axis: str | None,
                      trim=gcfg.robust_trim, clip=gcfg.robust_clip,
                      wire=gcfg.wire, keep=keep)
 
+    mix_.axis = None
     return mix_
+
+
+def _node_active(active, ring):
+    """The active mask of the nodes this process holds: all K, or on the
+    ring over ranks its own node's entry, (1,)."""
+    return active if ring is None else active[ring.index:ring.index + 1]
 
 
 def _row(tree: Any, k: int):
@@ -220,11 +271,16 @@ def make_gossip_step(local_step: Callable, gcfg: GossipConfig, *,
     (K,) device tensors. The step also carries ``local_step`` and its
     mixer ``mix_(w, params, dp_round=0)``, for a driver that times the
     two apart.
+
+    With ``mesh=`` (the ring over the ranks, see the module) ``states``
+    and ``batches`` hold this rank's node, (1, ...); ``w`` and ``active``
+    stay whole, and the metrics are the node's (1,).
     """
     mix_ = _param_mixer(gcfg, mesh, axis, conn, dp)
 
     def step(states, batches, w, active, do_mix=True, dp_round=0):
-        metrics = _local_steps(local_step, states, batches, active, None)
+        metrics = _local_steps(local_step, states, batches,
+                               _node_active(active, mix_.axis), None)
         if do_mix:
             mix_(w, states.params, dp_round)
         return states, metrics
@@ -265,8 +321,19 @@ def make_gossip_block_runner(local_step: Callable, gcfg: GossipConfig, *,
     the round index, and the history gains ``dp_epsilon`` (cumulative
     epsilon at each recorded round) and a ``dp`` summary (final epsilon,
     rho, releases).
+
+    With ``mesh=`` (the ring over the ranks) ``states`` and ``batches``
+    hold this rank's node, (1, ...) and (T, 1, ...); ``w`` and ``active``
+    stay whole. A ``ConsensusRecorder`` then sums over the ranks, so every
+    rank records the same row and stops on the same round.
     """
     mix_ = _param_mixer(gcfg, mesh, axis, conn, dp)
+    if mix_.axis is not None and recorder is not None:
+        if not isinstance(recorder, ConsensusRecorder):
+            raise ValueError(
+                "the gossip ring over ranks records with a "
+                "ConsensusRecorder (its row sums over the ranks)")
+        recorder = dataclasses.replace(recorder, axis=mix_.axis)
     if telemetry and recorder is None:
         raise ValueError("telemetry=True needs a recorder (the history "
                          "carries the counters and the dp_epsilon series)")
@@ -277,7 +344,8 @@ def make_gossip_block_runner(local_step: Callable, gcfg: GossipConfig, *,
     def step_fn(states, _ctx, sched_t, stopped):
         batch = {key[len("batch."):]: val for key, val in sched_t.items()
                  if key.startswith("batch.")}
-        metrics = _local_steps(local_step, states, batch, sched_t["active"],
+        metrics = _local_steps(local_step, states, batch,
+                               _node_active(sched_t["active"], mix_.axis),
                                stopped)
         if bool(sched_t["mix"]):
             mix_(sched_t["w"], states.params,
@@ -332,11 +400,14 @@ class ConsensusRecorder:
     with an optional early stop once the replicas agree to ``eps``."""
 
     eps: float | None = None
+    # the ring over ranks: the NodeAxis its sums run over (set by the
+    # block runner), else None
+    axis: Any = None
 
     labels = ("consensus_distance",)
 
     def record_fn(self, states) -> torch.Tensor:
-        return torch.stack([consensus_distance(states.params)])
+        return torch.stack([consensus_distance(states.params, self.axis)])
 
     @property
     def stop_fn(self):
@@ -355,15 +426,23 @@ def replicate_state(state: Any, k: int) -> Any:
     return type(state)(*(replicate_state(val, k) for val in state))
 
 
-def consensus_distance(params_stack: dict) -> torch.Tensor:
+def consensus_distance(params_stack: dict, axis=None) -> torch.Tensor:
     """sum_k ||p_k - p_bar||^2 over all leaves (0-d fp32, on the device):
     the deep-net analogue of the paper's consensus violation. One node row
-    at a time, so no (K, ...) temporary of a leaf is made."""
+    at a time, so no (K, ...) temporary of a leaf is made. ``axis``: the
+    stack holds this rank's nodes of the ranks of a ``NodeAxis``; the mean
+    and the sum then run over the ranks (two all-reduces a leaf)."""
     total = 0.0
     for p in params_stack.values():
-        mean = torch.mean(p, dim=0).float()
+        if axis is None:
+            mean = torch.mean(p, dim=0).float()
+        else:
+            mean = axis.psum(torch.sum(p.float(), dim=0)) / (
+                p.shape[0] * axis.size)
         for k in range(p.shape[0]):
             total = total + torch.sum(torch.square(p[k].float() - mean))
+    if axis is not None:
+        total = axis.psum(torch.as_tensor(total, dtype=torch.float32))
     return total
 
 

@@ -16,11 +16,26 @@ Nothing here gathers a (K, ...) stack: the exchanges are the only traffic
 float summation order (the self term, then the colors, as
 ``plan.plan_mix_dense``); ``block_mix_step`` equals them bitwise (the
 product runs at the dense shape, ``plan.rows_product``).
+
+The same exchanges carry the other forms of the mix:
+
+* **attacked** (``*_wire``): the first step sends the lie ``v_send`` while
+  each node's own term uses its honest ``v_self``;
+* **quantized** (``block_qmix_steps``): each rank-level color sends the
+  narrow payload (as its bits, ``NodeAxis``) and its fp32 scale sidecar,
+  two exchanges; receivers dequantize into the buffer. The
+  rounding uniforms are the rank's rows of the round's (K, d) draw
+  (``quant.wire_uniforms(rows=)``), so the wire's bits do not depend on M;
+* **robust** (``block_robust_*``): the assembled buffer goes into
+  ``mixing.robust_neighborhood_mix`` instead of the product, bitwise
+  ``mixing.robust_mix_dense``'s rows for trim / median (clip: rtol, its
+  square-root chain).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import mixing, quant
 from repro_torch.topo.plan import (BlockPlan, CommPlan, _permutes_per_step,
                                    rows_product)
 
@@ -87,6 +102,167 @@ def block_mix_steps(v_block: torch.Tensor, axis, plan: BlockPlan,
     out = v_block
     for _ in range(steps):
         out = block_mix_step(out, axis, plan, w_rows)
+    return out
+
+
+def _row_ids(axis, plan: BlockPlan, device) -> torch.Tensor:
+    """(K/M,) the global node ids of this rank's block."""
+    ln = plan.local_nodes
+    return torch.arange(axis.index * ln, (axis.index + 1) * ln,
+                        device=device)
+
+
+def plan_mix_steps_wire(v_send: torch.Tensor, v_self, axis, plan: CommPlan,
+                        diag, coefs, steps: int) -> torch.Tensor:
+    """``plan_mix_steps`` whose FIRST step sends an attacked payload
+    ``v_send`` (``repro_torch.attack``) while the node's own term uses its
+    honest ``v_self`` (None: the honest path). Later steps mix received
+    values, which are honest."""
+    if v_self is None or steps <= 0:
+        return plan_mix_steps(v_send, axis, plan, diag, coefs, steps)
+    first = plan_mix_step(v_send, axis, plan, diag, coefs)
+    first = first + diag * (v_self - v_send)
+    return plan_mix_steps(first, axis, plan, diag, coefs, steps - 1)
+
+
+def block_mix_steps_wire(v_send: torch.Tensor, v_self, axis,
+                         plan: BlockPlan, w_rows: torch.Tensor,
+                         steps: int) -> torch.Tensor:
+    """``block_mix_steps`` whose FIRST step sends the block's attacked
+    payloads ``v_send`` while each node's own term uses its honest
+    ``v_self`` (None: the honest path): ``W v_send + diag(W) (v_self -
+    v_send)`` on the block's rows, bitwise ``mixing.mix_power_wire``'s
+    first step."""
+    if v_self is None or steps <= 0:
+        return block_mix_steps(v_send, axis, plan, w_rows, steps)
+    first = block_mix_step(v_send, axis, plan, w_rows)
+    ids = _row_ids(axis, plan, w_rows.device)
+    diag = w_rows.gather(1, ids[:, None]).to(first.dtype)        # (K/M, 1)
+    delta = (v_self - v_send).reshape(plan.local_nodes, -1)
+    first = first + (diag * delta).reshape(v_send.shape)
+    return block_mix_steps(first, axis, plan, w_rows, steps - 1)
+
+
+# ---------------------------------------------------------------------------
+# the quantized wire: narrow payloads and their scale sidecars
+# ---------------------------------------------------------------------------
+
+def block_gather_neighbors_q(q: torch.Tensor, scale: torch.Tensor,
+                             deq: torch.Tensor, axis,
+                             plan: BlockPlan) -> torch.Tensor:
+    """The quantized ``block_gather_neighbors``: per rank-level color, one
+    exchange of the (K/M, d) payload and one of its (K/M, 1) scales,
+    dequantized into the (K, d) buffer. The rank's own rows hold its own
+    DEQUANTIZED payload ``deq``: every contribution, local or received,
+    goes through the codec, so the product against the W rows is bitwise
+    ``dense_mix`` on the dequantized stack at any M."""
+    ln = plan.local_nodes
+    if ln == plan.num_nodes:
+        return deq
+    i = axis.index
+    partners = plan.block.partner_arrays()
+    buf = deq.new_zeros((plan.num_nodes, deq.shape[1]))
+    buf[i * ln:(i + 1) * ln] = deq
+    for c, perm in enumerate(plan.block.perms):
+        rq = axis.permute(q, perm)
+        rs = axis.permute(scale, perm)
+        src = int(partners[c, i])
+        if src != i:
+            buf[src * ln:(src + 1) * ln] = quant.dequantize(rq, rs)
+    return buf
+
+
+def _encode_block(v_block, ef_block, wire: str, u):
+    """The block's EF-compensated encode by rows: ``(q, scale, deq,
+    ef_new)``, ``ef_new`` shaped like ``ef_block`` (None without EF)."""
+    ln = v_block.shape[0]
+    q, sc, deq, ef_new = quant.encode(
+        v_block.reshape(ln, -1), wire, u,
+        None if ef_block is None else ef_block.reshape(ln, -1))
+    return q, sc, deq, (None if ef_new is None
+                        else ef_new.reshape(ef_block.shape))
+
+
+def block_qmix_steps(v_block: torch.Tensor, ef_block, axis,
+                     plan: BlockPlan, w_rows: torch.Tensor, steps: int,
+                     wire: str, draws=None, payload=None):
+    """B quantized block-mode gossip steps: each step encodes the rank's
+    (K/M, d) block once (per-row scales, the rank's rows of the round's
+    draws ``draws(step)``, EF folded when ``ef_block`` is not None), sends
+    payload and sidecar per rank-level color into the dequantized buffer
+    and contracts it against the W rows (``rows_product``): bitwise the
+    rank's rows of ``mixing.qmix_steps``. ``payload``: the pipelined
+    ``(q, scale)`` of the first step. Returns ``(mixed, ef_new)``."""
+    out, ef = v_block, ef_block
+    row0 = axis.index * plan.local_nodes
+    for s in range(steps):
+        if s == 0 and payload is not None:
+            q, sc = payload
+            deq = quant.dequantize(q, sc)
+        else:
+            q, sc, deq, ef = _encode_block(
+                out, ef, wire, None if draws is None else draws(s))
+        buf = block_gather_neighbors_q(q, sc, deq, axis, plan)
+        out = rows_product(w_rows, buf, row0).reshape(out.shape)
+    return out, ef
+
+
+def block_robust_qmix_step(v_block: torch.Tensor, ef_block, axis,
+                           plan: BlockPlan, w_rows: torch.Tensor, wire: str,
+                           draws, mode: str, *, trim: int = 1,
+                           clip: float | None = None):
+    """ONE robust gossip step on a quantized wire, the composed
+    ``cfg.robust`` x ``cfg.wire`` lowering: the block is encoded as in
+    ``block_qmix_steps``, the narrow payload and its sidecar cross per
+    color into the dequantized buffer, and each row is aggregated by
+    ``mixing.robust_neighborhood_mix``: the gate judges the values the
+    receivers consume, bitwise the stacked composed branch of
+    ``cola._round_body`` for trim / median. One step by construction
+    (``cola._check_wire_config``). Returns ``(mixed, ef_new)``."""
+    q, sc, deq, ef_new = _encode_block(
+        v_block, ef_block, wire, None if draws is None else draws(0))
+    buf = block_gather_neighbors_q(q, sc, deq, axis, plan)
+    out = mixing.robust_neighborhood_mix(
+        w_rows, buf, _row_ids(axis, plan, buf.device), mode, trim=trim,
+        clip=clip)
+    return out.reshape(v_block.shape).to(v_block.dtype), ef_new
+
+
+def block_robust_mix_step(v_block: torch.Tensor, axis, plan: BlockPlan,
+                          w_rows: torch.Tensor, mode: str, *, trim: int = 1,
+                          clip: float | None = None,
+                          v_self=None) -> torch.Tensor:
+    """One ROBUST gossip step for this rank's (K/M, ...) block: the
+    ``block_mix_step`` buffer, aggregated per row by
+    ``mixing.robust_neighborhood_mix`` instead of the product. The rule
+    reads only the slots in each row's W support, which the coverage
+    contract guarantees were exchanged, so trim and median are bitwise
+    ``mixing.robust_mix_dense``'s rows on every M (its products run at the
+    stacked shape, ``_Neighborhood.rows_matmul``); clip's square-root and
+    division chain holds at rtol over a run. ``v_self``: the block's
+    honest states when ``v_block`` holds attacked payloads (a liar's lie
+    reaches its neighbors, never its own aggregate)."""
+    ln = plan.local_nodes
+    buf = block_gather_neighbors(v_block.reshape(ln, -1), axis, plan)
+    out = mixing.robust_neighborhood_mix(
+        w_rows, buf, _row_ids(axis, plan, buf.device), mode, trim=trim,
+        clip=clip,
+        self_override=None if v_self is None else v_self.reshape(ln, -1))
+    return out.reshape(v_block.shape).to(v_block.dtype)
+
+
+def block_robust_mix_steps(v_block: torch.Tensor, axis, plan: BlockPlan,
+                           w_rows: torch.Tensor, mode: str, *,
+                           trim: int = 1, clip: float | None = None,
+                           steps: int = 1, v_self=None) -> torch.Tensor:
+    """B robust block-mode steps one after the other (no W^B fold), as
+    ``mixing.robust_mix_steps``; ``v_self`` applies to the first step
+    only."""
+    out = v_block
+    for s in range(steps):
+        out = block_robust_mix_step(out, axis, plan, w_rows, mode, trim=trim,
+                                    clip=clip,
+                                    v_self=v_self if s == 0 else None)
     return out
 
 

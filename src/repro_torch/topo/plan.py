@@ -622,6 +622,20 @@ def rows_product(w_rows: torch.Tensor, buf: torch.Tensor,
     return (w_full @ buf)[row0:row0 + r]
 
 
+def _block_buffer(plan: BlockPlan, flat: torch.Tensor,
+                  dev: int) -> torch.Tensor:
+    """Rank ``dev``'s (K, width) buffer without ranks: its own block and
+    one partner block per color, the blocks it never exchanges with zero
+    (``lowering.block_gather_neighbors``' result)."""
+    ln = plan.local_nodes
+    partners = plan.block.partner_arrays()  # (C, M)
+    buf = torch.zeros_like(flat)
+    for src in {dev, *(int(partners[c, dev])
+                       for c in range(plan.num_colors))}:
+        buf[src * ln:(src + 1) * ln] = flat[src * ln:(src + 1) * ln]
+    return buf
+
+
 def block_mix_dense(plan: BlockPlan, w, v_stack: torch.Tensor, *,
                     check: bool = True) -> torch.Tensor:
     """Block mode without ranks: per rank, the (K, d) buffer of its own
@@ -635,17 +649,9 @@ def block_mix_dense(plan: BlockPlan, w, v_stack: torch.Tensor, *,
     k, m, ln = plan.num_nodes, plan.num_devices, plan.local_nodes
     flat = v_stack.reshape(k, -1)
     w_t = torch.as_tensor(w, device=flat.device).to(flat.dtype)
-    partners = plan.block.partner_arrays()  # (C, M)
-    outs = []
-    for dev in range(m):
-        buf = torch.zeros_like(flat)
-        own = slice(dev * ln, (dev + 1) * ln)
-        buf[own] = flat[own]
-        for c in range(plan.num_colors):
-            src = int(partners[c, dev])
-            if src != dev:
-                buf[src * ln:(src + 1) * ln] = flat[src * ln:(src + 1) * ln]
-        outs.append(rows_product(w_t[own], buf, dev * ln))
+    outs = [rows_product(w_t[dev * ln:(dev + 1) * ln],
+                         _block_buffer(plan, flat, dev), dev * ln)
+            for dev in range(m)]
     return torch.cat(outs, dim=0).reshape(v_stack.shape)
 
 
@@ -653,3 +659,35 @@ def mix_with_block_plan(plan: BlockPlan, w, v_stack: torch.Tensor
                         ) -> torch.Tensor:
     """One gossip step of ``w`` through the block plan."""
     return block_mix_dense(plan, w, v_stack)
+
+
+def block_robust_mix_dense(plan: BlockPlan, w, v_stack: torch.Tensor,
+                           mode: str, *, trim: int = 1,
+                           clip: float | None = None, check: bool = True,
+                           self_stack: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """ROBUST block mode without ranks: per rank, the zero-filled buffer of
+    ``block_mix_dense``, then its node rows aggregated by
+    ``mixing.robust_neighborhood_mix`` instead of the product. The rule
+    reads only the slots in each row's W support (coverage checked), so
+    this is bitwise ``mixing.robust_mix_dense``: the executor the robust
+    lowering (``lowering.block_robust_mix_step``) is held to.
+    ``self_stack`` (K, ...): honest states overriding each node's own slot
+    when ``v_stack`` holds attacked payloads."""
+    from repro_torch.core import mixing
+    if check:
+        check_plan_covers(plan, w.detach().cpu().numpy()
+                          if torch.is_tensor(w) else w)
+    k, m, ln = plan.num_nodes, plan.num_devices, plan.local_nodes
+    flat = v_stack.reshape(k, -1)
+    w_t = torch.as_tensor(w, device=flat.device).to(flat.dtype)
+    own_stack = None if self_stack is None else self_stack.reshape(k, -1)
+    outs = []
+    for dev in range(m):
+        own = slice(dev * ln, (dev + 1) * ln)
+        outs.append(mixing.robust_neighborhood_mix(
+            w_t[own], _block_buffer(plan, flat, dev),
+            torch.arange(dev * ln, (dev + 1) * ln, device=flat.device),
+            mode, trim=trim, clip=clip,
+            self_override=None if own_stack is None else own_stack[own]))
+    return torch.cat(outs, dim=0).reshape(v_stack.shape).to(v_stack.dtype)

@@ -3,14 +3,24 @@
 
     PYTHONPATH=src python tests/_torch_dist_ranks.py OUT_DIR GROUP
 
-runs the cases of ``CASES`` in ``GROUP`` ("mix" or "cert"): for each
-world size they name, it spawns that many ranks, which rendezvous through
-a file under OUT_DIR. Rank 0 also runs the port's ``run_cola`` on the
-same inputs, and writes ``OUT_DIR/<world>_<case>.npz``: the distributed
-and the stacked final states, both histories and the distributed run's
-collective counts (JSON). The "cert" group also writes the counts of one
-mixing step and one certificate record on each plan path
-(``<world>_probe.json``, ``budget_probe``). Imports the port only.
+runs the cases of ``CASES`` in ``GROUP`` ("mix", "cert" or "wire"): for
+each world size they name, it spawns that many ranks, which rendezvous
+through a file under OUT_DIR. Rank 0 also runs the port's ``run_cola`` on
+the same inputs, and writes ``OUT_DIR/<world>_<case>.npz``: the
+distributed and the stacked final states, both histories and the
+distributed run's collective counts (JSON). The "cert" group also writes
+the counts of one mixing step and one certificate record on each plan
+path (``<world>_probe.json``, ``budget_probe``).
+
+The "wire" group (the quantized wire, robust mixing and attacks over
+ranks) reads inputs the test wrote into OUT_DIR first: the reference's
+stochastic-rounding uniforms of a case (``draws_<case>.npy``, (T + 1, B,
+K, d)) and the gossip ring's initial replicas (``gossip_<K>.pt``, the
+port's TrainState of K nodes, with ``gossip_<K>.npz`` batches). It also
+writes one wire mix's counts per wire and comm (``<world>_wire_probe
+.json``), each rank's env block against the whole env
+(``<world>_env_<rank>.json``) and the gossip ring's results
+(``<world>_gossip_<rank>.npz``). Imports the port only.
 """
 from __future__ import annotations
 
@@ -50,11 +60,29 @@ def data(kind: str):
 
 
 def _case(data="ridge", graph=("torus_2d", (2, 4)), cfg=None, rounds=25,
-          worlds=(2, 4), claim="bitwise", group="mix", **run):
+          worlds=(2, 4), claim="bitwise", group="mix", probe=False,
+          ref_draws=False, **run):
     base = dict(comm="plan", record_every=6, seed=3)
     return dict(data=data, graph=graph, cfg=cfg or {"kappa": 1.0},
                 rounds=rounds, worlds=worlds, claim=claim, group=group,
-                run={**base, **run})
+                probe=probe, ref_draws=ref_draws, run={**base, **run})
+
+
+def attacks_of(spec, pkg):
+    """The scenario list of an attack ``spec`` in ``pkg`` (the port's
+    ``repro_torch.attack`` or the reference's ``repro.attack``)."""
+    if spec == "sign_flip":
+        return [pkg.Byzantine(nodes=(1, 6), mode="sign_flip", scale=10.0,
+                              start=5, seed=1)]
+    if spec == "sign_flip_4":
+        return [pkg.Byzantine(nodes=(1,), mode="sign_flip", scale=10.0,
+                              start=5, seed=1)]
+    if spec == "free_rider":
+        return [pkg.FreeRider(nodes=(2,)),
+                pkg.FreeRider(nodes=(5,), stale=True, start=10)]
+    if spec == "link_identity":
+        return [pkg.LinkCorruption(edges=((0, 1),), scale=1.0)]
+    raise ValueError(spec)
 
 
 CERT = dict(data="lasso", cfg={"kappa": 8.0}, rounds=400, record_every=20,
@@ -110,6 +138,74 @@ CASES = {
                             claim="rtol", comm="dense", group="cert"),
 }
 
+# The "wire" group. Claims as above, plus "flip" (one node per rank on the
+# quantized wire: the local solve's batch-1 products part from run_cola's
+# in the last bits, so stochastic rounding may take the other grid step;
+# held with tests/test_torch_quant.py's flip-aware tolerance). The attacked
+# clip run holds at rtol (its square-root chain, as the reference's own
+# clip pin); on the wire clip is bitwise (a 1-ulp change would flip a
+# rounding draw, so nothing weaker could hold). Wire
+# cases record a probe of v and replay the reference's uniforms
+# (``ref_draws``). Attack cases: run_a's attack of the reference's
+# tests/test_dist_plan.py:296 on its lasso, gap + the honest-cohort
+# certificate.
+WIRE = dict(group="wire", probe=True, ref_draws=True)
+ATK = dict(group="wire", data="lasso", cfg={"kappa": 2.0}, rounds=60,
+           record_every=10, recorder="gap+certificate", eps=1.0,
+           attacks="sign_flip")
+CASES.update({
+    "int8_ef": _case(cfg={"kappa": 1.0, "wire": "int8"}, **WIRE),
+    "int8_ef_dense": _case(cfg={"kappa": 1.0, "wire": "int8"},
+                           comm="dense", **WIRE),
+    "fp8_pipe": _case(cfg={"kappa": 1.0, "wire": "fp8", "pipeline": True},
+                      **WIRE),
+    "e5m2_no_ef": _case(cfg={"kappa": 1.0, "wire": "fp8_e5m2",
+                             "error_feedback": False}, **WIRE),
+    "trim_int8": _case(cfg={"kappa": 1.0, "wire": "int8", "robust": "trim"},
+                       **WIRE),
+    "trim_int8_dense": _case(cfg={"kappa": 1.0, "wire": "int8",
+                                  "robust": "trim"}, comm="dense", **WIRE),
+    "median_int8": _case(cfg={"kappa": 1.0, "wire": "int8",
+                              "robust": "median"}, **WIRE),
+    "clip_int8_dense": _case(cfg={"kappa": 1.0, "wire": "int8",
+                                  "robust": "clip"}, comm="dense", **WIRE),
+    "clip_int8": _case(cfg={"kappa": 1.0, "wire": "int8", "robust": "clip"},
+                       **WIRE),
+    "trim_sign_flip": _case(**dict(ATK, cfg={"kappa": 2.0,
+                                             "robust": "trim"})),
+    "trim_sign_flip_dense": _case(**dict(ATK, cfg={"kappa": 2.0,
+                                                   "robust": "trim"}),
+                                  comm="dense"),
+    "median_sign_flip": _case(**dict(ATK, cfg={"kappa": 2.0,
+                                               "robust": "median"})),
+    "clip_sign_flip": _case(**dict(ATK, cfg={"kappa": 2.0,
+                                             "robust": "clip"}, rounds=20),
+                            claim="rtol"),
+    "sign_flip": _case(**dict(ATK, rounds=20)),
+    "free_rider": _case(**dict(ATK, rounds=30, recorder="gap",
+                               attacks="free_rider")),
+    "link_identity": _case(**dict(ATK, rounds=12, recorder="gap",
+                                  attacks="link_identity")),
+    "per_node_int8": _case(graph=("torus_2d", (2, 2)), worlds=(4,),
+                           cfg={"kappa": 1.0, "wire": "int8"}, comm="ring",
+                           claim="flip", **WIRE),
+    # undefended, the lie grows the state every round and with it the
+    # last-bit differences of one node per rank: three attacked rounds
+    # (as the reference pins its clip run before the growth)
+    "per_node_ring_sign_flip": _case(
+        **dict(ATK, graph=("ring", (4,)), worlds=(4,), rounds=8,
+               record_every=2, recorder="gap", attacks="sign_flip_4"),
+        comm="ring", claim="rtol"),
+    "per_node_plan_sign_flip": _case(
+        **dict(ATK, graph=("torus_2d", (2, 2)), worlds=(4,), rounds=8,
+               record_every=2, recorder="gap", attacks="sign_flip_4"),
+        claim="rtol"),
+    "per_node_trim_sign_flip": _case(
+        **dict(ATK, graph=("torus_2d", (2, 2)), worlds=(4,), rounds=20,
+               cfg={"kappa": 2.0, "robust": "trim"},
+               attacks="sign_flip_4"), comm="ring", claim="rtol"),
+})
+
 
 def exact_sigma(a_parts: np.ndarray) -> np.ndarray:
     """The certificate's sigma_k = ||A_[k]||_2^2, exact: the reference's
@@ -120,10 +216,20 @@ def exact_sigma(a_parts: np.ndarray) -> np.ndarray:
                     dtype=np.float32)
 
 
-def build(case: dict, device="cpu"):
+def probe_weights(k: int, d: int) -> np.ndarray:
+    """The state probe's fixed projection (tests/test_torch_quant.py's
+    ``_probe``)."""
+    return np.random.default_rng(99).standard_normal((k, d)).astype(
+        np.float32)
+
+
+def build(case: dict, device="cpu", case_name=None, out_dir=None):
     """(port problem, graph, cfg, run_cola kwargs) of a case; a
-    certificate recorder is built with the exact sigma_k."""
-    from repro_torch import convert
+    certificate recorder is built with the exact sigma_k; a wire case
+    composes the gap recorder with the probe of v and replays the
+    reference's uniforms from ``out_dir``."""
+    import torch
+    from repro_torch import attack, convert
     from repro_torch.core import cola, metrics, topology as topo
     from repro_torch.core.partition import make_partition
     name, x, y, lam, kw = data(case["data"])
@@ -143,6 +249,18 @@ def build(case: dict, device="cpu"):
         run["recorder"] = (cert if run["recorder"] == "certificate" else
                            metrics.ComposedRecorder(
                                (metrics.GapRecorder(prob, part), cert)))
+    if case["probe"]:
+        part = make_partition(prob.n, graph.num_nodes)
+        p = torch.as_tensor(probe_weights(graph.num_nodes, prob.d))
+        run["recorder"] = metrics.ComposedRecorder((
+            metrics.GapRecorder(prob, part),
+            metrics.FnRecorder(("probe",), lambda s, p=p:
+                               torch.sum(s.v_stack * p)[None])))
+    if case["ref_draws"]:
+        arr = np.load(os.path.join(out_dir, f"draws_{case_name}.npy"))
+        run["wire_draws"] = lambda t, step: torch.as_tensor(arr[t, step])
+    if "attacks" in run:
+        run["attacks"] = attacks_of(run["attacks"], attack)
     return prob, graph, cola.ColaConfig(**case["cfg"]), run
 
 
@@ -153,7 +271,7 @@ def run_cases(rank: int, world: int, out_dir: str, group: str) -> None:
     for name, case in CASES.items():
         if world not in case["worlds"] or case["group"] != group:
             continue
-        prob, graph, cfg, run = build(case)
+        prob, graph, cfg, run = build(case, case_name=name, out_dir=out_dir)
         comm = run.pop("comm")
         axis.reset_counts()
         res = run_dist_cola(prob, graph, cfg, axis, case["rounds"],
@@ -173,6 +291,9 @@ def run_cases(rank: int, world: int, out_dir: str, group: str) -> None:
             continue
         sim = cola.run_cola(prob, graph, cfg, case["rounds"], device="cpu",
                             block_size=16, **run)
+        if res.state.ef is not None:
+            extra.update(ef=res.state.ef.numpy(),
+                         ef_sim=sim.state.ef.numpy())
         np.savez(os.path.join(out_dir, f"{world}_{name}.npz"),
                  x=res.state.x_parts.numpy(), v=res.state.v_stack.numpy(),
                  x_sim=sim.state.x_parts.numpy(),
@@ -182,6 +303,10 @@ def run_cases(rank: int, world: int, out_dir: str, group: str) -> None:
                  counts=json.dumps(counts), **extra)
     if group == "cert":
         budget_probe(rank, world, out_dir, axis)
+    if group == "wire":
+        wire_probe(rank, world, out_dir, axis)
+        env_probe(rank, world, out_dir, axis)
+        gossip_probe(rank, world, out_dir, axis)
 
 
 def budget_probe(rank: int, world: int, out_dir: str, axis) -> None:
@@ -230,7 +355,8 @@ def budget_probe(rank: int, world: int, out_dir: str, axis) -> None:
         rec = metrics.make_recorder("certificate", prob, part, env, graph,
                                     topo.metropolis_weights(graph), 0.1)
         record = runtime._dist_record_fn(
-            rec, axis, ln, "plan", 1, sharding.cola_env_block(env, axis), pl)
+            rec, axis, ln, "plan", 1,
+            sharding.cola_env_block(prob, part, axis), pl)
         state = sharding.cola_state_block(cola.init_state(prob, part), axis)
         state = state._replace(v_stack=torch.randn(state.v_stack.shape,
                                                    generator=gen))
@@ -249,6 +375,187 @@ def budget_probe(rank: int, world: int, out_dir: str, axis) -> None:
     if rank == 0:
         with open(os.path.join(out_dir, f"{world}_probe.json"), "w") as f:
             json.dump(out, f)
+
+
+def wire_probe(rank: int, world: int, out_dir: str, axis) -> None:
+    """The counts of one quantized gossip round's mix on each comm (the
+    runtime's ``_dist_qmixers``: block plan, dense, and the composed trim)
+    on torus_2d(2, 4), and at 4 ranks on torus_2d(2, 2), one node per rank
+    (the block plan ``run_dist_cola`` compiles for a wire there): its
+    values against the stacked mix's rows."""
+    import torch
+    from repro_torch.core import cola, mixing, quant, topology as topo
+    from repro_torch.dist import runtime, sharding
+    from repro_torch.topo import plan as tplan
+    d = 48
+    gen = torch.Generator().manual_seed(1)
+    out = {}
+    layouts = [("torus", topo.torus_2d(2, 4))]
+    if world == 4:
+        layouts.append(("node_torus", topo.torus_2d(2, 2)))
+    for gname, graph in layouts:
+        k = graph.num_nodes
+        w = torch.as_tensor(topo.metropolis_weights(graph),
+                            dtype=torch.float32)
+        v = torch.randn((k, d), generator=gen)
+        ef = 0.01 * torch.randn((k, d), generator=gen)
+        u = torch.rand((k, d), generator=gen)
+        rows = sharding.node_rows(axis, k)
+        draws = lambda s, u=u, rows=rows: u[rows]
+        for wire in ("int8", "fp8"):
+            for comm, robust in (("plan", None), ("dense", None),
+                                 ("plan", "trim")):
+                cfg = cola.ColaConfig(wire=wire, robust=robust)
+                plan = (tplan.compile_block_plan(graph, world)
+                        if comm == "plan" else None)
+                payload = sharding.node_block(w, axis) if plan else w
+                qmix = runtime._dist_qmixers(axis, comm, cfg, plan)
+                axis.reset_counts()
+                got, ef_got = qmix(payload, v[rows], ef[rows], draws, None)
+                row = {"calls": dict(axis.counts),
+                       "sent": dict(axis.sent_bytes), "ln": k // world,
+                       "d": d, "k": k}
+                if plan is not None:
+                    row["contract_bytes"] = plan.contract(
+                        d, wire=wire).max_collective_permute_bytes
+                    row["contract_count"] = plan.contract(
+                        d, wire=wire).max_collective_permute_count
+                if robust is None:
+                    want, ef_want = mixing.qmix_steps(
+                        w, v, ef, 1, wire, lambda s: u)
+                else:
+                    _, _, deq, ef_want = quant.encode(v, wire, u, ef)
+                    want = mixing.robust_mix_dense(w, deq, robust)
+                want, ef_want = want[rows], ef_want[rows]
+                row["bitwise"] = bool(torch.equal(got, want)
+                                      and torch.equal(ef_got, ef_want))
+                row["max_abs_diff"] = float((got - want).abs().max())
+                out[f"{gname}:{wire}:{comm}:{robust}"] = row
+    if rank == 0:
+        with open(os.path.join(out_dir, f"{world}_wire_probe.json"),
+                  "w") as f:
+            json.dump(out, f)
+
+
+def env_probe(rank: int, world: int, out_dir: str, axis) -> None:
+    """Each rank's env, built from its own columns, against its rows of
+    the whole env: equal bitwise, and 1/M of the whole one's storage."""
+    from repro_torch import convert
+    from repro_torch.core import cola
+    from repro_torch.core.partition import make_partition
+    from repro_torch.dist import sharding
+    name, x, y, lam, kw = data("ridge")
+    prob = convert.problem_from_numpy(name, x, y, lam, device="cpu", **kw)
+    part = make_partition(prob.n, K)
+    out = {}
+    for with_gram in (True, False):
+        whole = cola.build_env(prob, part, with_gram=with_gram)
+        block = sharding.cola_env_block(prob, part, axis,
+                                        with_gram=with_gram)
+        for field, a, b in zip(whole._fields, block, whole):
+            if b is None:
+                out[f"{field}:{with_gram}"] = {"none": a is None}
+                continue
+            b_rows = sharding.node_block(b, axis)
+            out[f"{field}:{with_gram}"] = {
+                "bitwise": bool(a.shape == b_rows.shape
+                                and (a == b_rows).all()),
+                "storage": a.untyped_storage().nbytes(),
+                "whole_storage": b.untyped_storage().nbytes()}
+    with open(os.path.join(out_dir, f"{world}_env_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+GOSSIP_ROUNDS = 2
+
+
+def _node_rows(tree, own: slice):
+    """A copy of rows ``own`` of every tensor of a (K, ...)-stacked
+    state."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree[own].clone()
+    if isinstance(tree, dict):
+        return {key: _node_rows(val, own) for key, val in tree.items()}
+    return type(tree)(*(_node_rows(val, own) for val in tree))
+
+
+def gossip_probe(rank: int, world: int, out_dir: str, axis) -> None:
+    """The gossip ring over the ranks, K = M nodes, one per rank, at
+    Qwen3-4B's smoke width with SGD + momentum (as
+    tests/test_torch_gossip.py patches it): ``make_gossip_step(mesh=)``
+    for ``GOSSIP_ROUNDS`` rounds from the test's replicas and batches, the
+    block runner with a consensus recorder, and ``ring_mix_pytree``
+    against ``mix_pytree``; rank 0 also runs the dense step and runner on
+    all K nodes. Writes each rank's rows."""
+    import torch
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.core import topology as topo
+    from repro_torch.optim import gossip, optimizers
+    from repro_torch.train import steps
+    k = world
+    states = torch.load(os.path.join(out_dir, f"gossip_{k}.pt"),
+                        weights_only=False)
+    z = np.load(os.path.join(out_dir, f"gossip_{k}.npz"))
+    batches = {key: torch.as_tensor(z[key]) for key in ("tokens", "labels")}
+    steps._optimizer = lambda hp: optimizers.sgd_momentum(0.9)
+    tcfg = smoke_variant(get_config("qwen3_4b"))
+    local = steps.make_train_step(tcfg, steps.TrainHParams(lr=0.05))
+    gcfg = gossip.GossipConfig(num_nodes=k, topology="ring")
+    w = torch.as_tensor(gcfg.weights(), dtype=torch.float32)
+    active = torch.ones((k,))
+    own = slice(rank, rank + 1)
+    mine = _node_rows(states, own)
+    step = gossip.make_gossip_step(local, gcfg, mesh=axis)
+    for t in range(GOSSIP_ROUNDS):
+        step(mine, {key: b[t, own] for key, b in batches.items()}, w, active)
+    res = {f"step.{n}": p.numpy() for n, p in mine.params.items()}
+    # the block runner over the ranks, with the consensus distance
+    mine = _node_rows(states, own)
+    runner = gossip.make_gossip_block_runner(
+        local, gcfg, mesh=axis, recorder=gossip.ConsensusRecorder())
+    _, _, hist = runner(mine, {key: b[:, own].numpy()
+                               for key, b in batches.items()},
+                        np.broadcast_to(gcfg.weights(),
+                                        (GOSSIP_ROUNDS, k, k)),
+                        np.ones((GOSSIP_ROUNDS, k)),
+                        np.ones((GOSSIP_ROUNDS,), bool), block_size=1)
+    res.update({f"runner.{n}": p.numpy() for n, p in mine.params.items()})
+    res["runner_distance"] = np.asarray(hist["consensus_distance"])
+    # ring_mix_pytree on random leaves against mix_pytree's rows
+    gen = torch.Generator().manual_seed(3)
+    leaves = {"a": torch.randn((k, 6, 5), generator=gen),
+              "b": torch.randn((k, 7), generator=gen)}
+    band = torch.as_tensor(topo.metropolis_weights(topo.ring(k))[0, [-1 % k,
+                                                                   0, 1]],
+                           dtype=torch.float32)
+    ring = gossip.ring_mix_pytree({n: p[own] for n, p in leaves.items()},
+                                  axis, band, 1, steps=2)
+    dense = gossip.mix_pytree(w, leaves, steps=2)
+    res.update({f"ring.{n}": ring[n].numpy() for n in leaves})
+    res.update({f"ring_dense.{n}": dense[n][own].numpy() for n in leaves})
+    res["ring_calls"] = np.asarray(json.dumps(dict(axis.counts)))
+    if rank == 0:
+        full = torch.load(os.path.join(out_dir, f"gossip_{k}.pt"),
+                          weights_only=False)
+        dense_step = gossip.make_gossip_step(local, gcfg)
+        for t in range(GOSSIP_ROUNDS):
+            dense_step(full, {key: b[t] for key, b in batches.items()}, w,
+                       active)
+        res.update({f"dense.{n}": p.numpy() for n, p in full.params.items()})
+        full = torch.load(os.path.join(out_dir, f"gossip_{k}.pt"),
+                          weights_only=False)
+        runner = gossip.make_gossip_block_runner(
+            local, gcfg, recorder=gossip.ConsensusRecorder())
+        _, _, hist = runner(full, {key: b.numpy()
+                                   for key, b in batches.items()},
+                            np.broadcast_to(gcfg.weights(),
+                                            (GOSSIP_ROUNDS, k, k)),
+                            np.ones((GOSSIP_ROUNDS, k)),
+                            np.ones((GOSSIP_ROUNDS,), bool), block_size=1)
+        res["dense_runner_distance"] = np.asarray(
+            hist["consensus_distance"])
+    np.savez(os.path.join(out_dir, f"{world}_gossip_{rank}.npz"), **res)
 
 
 def worlds_of(group: str) -> list:

@@ -45,8 +45,11 @@ CERT_COUNTS = ("cond9_nodes", "cond10_nodes", "certified",
 GAP = ("primal", "hamiltonian", "dual", "gap", "consensus_violation")
 
 
-def run_group(tmp_path_factory, group: str) -> Path:
-    out = tmp_path_factory.mktemp(f"dist_{group}")
+def run_group(tmp_path_factory, group: str, inputs: Path | None = None
+              ) -> Path:
+    """Run ``group``'s cases in a subprocess; ``inputs``: a directory the
+    caller wrote the group's inputs into, which is then the output one."""
+    out = inputs or tmp_path_factory.mktemp(f"dist_{group}")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, str(ROOT / "tests" / "_torch_dist_ranks.py"),

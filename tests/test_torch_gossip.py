@@ -18,6 +18,7 @@ stream by its moments (mean within 5 standard errors of 0, std within
 1 %), its links uncorrelated (|r| < 5 / sqrt(n)).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -473,11 +474,17 @@ def test_rejected_combinations_and_unported_paths(setup):
         tgsp.make_gossip_block_runner(
             tlocal, tgsp.GossipConfig(num_nodes=4, robust="trim"),
             mesh=object(), axis="nodes")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the ring over ranks (ported): it needs a process group, one node
+    # per rank and a circulant W (the runs: tests/test_torch_dist_wire.py)
+    with pytest.raises(RuntimeError, match="init_process_group"):
         tgsp.make_gossip_step(tlocal, tgsp.GossipConfig(num_nodes=4),
                               mesh=object(), axis="nodes")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tgsp.ring_mix_pytree({}, "nodes", None, 1)
+    ring_axis = types.SimpleNamespace(size=4, index=0, permute=None)
+    with pytest.raises(ValueError, match="circulant"):
+        tgsp._param_mixer(tgsp.GossipConfig(num_nodes=4,
+                                            topology="star"),
+                          ring_axis, None, 1)
+    assert tgsp.ring_mix_pytree({}, ring_axis, torch.ones(3), 1) == {}
     with pytest.raises(ValueError, match="needs a recorder"):
         tgsp.make_gossip_block_runner(tlocal,
                                       tgsp.GossipConfig(num_nodes=4),

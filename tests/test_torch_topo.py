@@ -380,3 +380,51 @@ def test_circulant_band_checks_equal_reference():
     with pytest.raises(ValueError) as want:
         jmixing.check_circulant_band(torus, 1)
     assert str(got.value) == str(want.value)
+
+
+# ---------------------------------------------------------------------------
+# robust block mode without ranks
+# ---------------------------------------------------------------------------
+
+# the graphs of chip_smoke.py's topo_plan phase
+ROBUST_GRAPHS = ("ring", "cycle2", "torus2d", "expander", "hypercube",
+                 "complete")
+
+
+@pytest.mark.parametrize("name", ROBUST_GRAPHS)
+@pytest.mark.parametrize("attacked", [False, True])
+def test_block_robust_mix_dense_bitwise_robust_mix_dense(name, attacked):
+    """The robust block executor at M = 4 (16 nodes) is bitwise the
+    port's ``robust_mix_dense`` for trim, median and clip (its products
+    run at the stacked shape), with and without honest own slots under a
+    sign-flipped payload, and within rtol 1e-6 of the reference's block
+    executor."""
+    want_g, got_g = _both(name, 16)
+    got_bp = ttopo_plan.compile_block_plan(got_g, 4)
+    want_bp = rtopo.compile_block_plan(want_g, 4)
+    w = ttopo.metropolis_weights(got_g).astype(np.float32)
+    rng = np.random.default_rng(7)
+    v = (1.0 + rng.standard_normal((16, 24))).astype(np.float32)
+    honest = v.copy()
+    if attacked:
+        v[3] *= -10.0
+    self_stack = torch.as_tensor(honest) if attacked else None
+    for mode in ("trim", "median", "clip"):
+        got = ttopo_plan.block_robust_mix_dense(
+            got_bp, w, torch.as_tensor(v), mode, self_stack=self_stack)
+        assert torch.equal(got, tmixing.robust_mix_dense(
+            torch.as_tensor(w), torch.as_tensor(v), mode,
+            self_stack=self_stack)), mode
+        want = np.asarray(rtopo.plan.block_robust_mix_dense(
+            want_bp, w, jnp.asarray(v), mode,
+            self_stack=jnp.asarray(honest) if attacked else None))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want).max(),
+                                   err_msg=mode)
+
+
+def test_block_robust_mix_dense_rejects_uncovered_w():
+    bp = ttopo_plan.compile_block_plan(ttopo.ring(8), 4)
+    w = ttopo.metropolis_weights(ttopo.complete(8))
+    with pytest.raises(ValueError):
+        ttopo_plan.block_robust_mix_dense(bp, w, torch.ones((8, 3)), "trim")
