@@ -112,6 +112,27 @@ line:
    one round's collective calls and bytes against the plan's
    ``contract(wire=)`` (the int8 dense all-gather: 16 x 400,000 x 1 +
    16 x 4 = 6,400,064 B).
+7n. obs — telemetry (``repro_torch.obs``): the content fingerprint of the
+   lasso (a 3.2 GB copy to the host and a SHA-256) in seconds; run_a,
+   run_q8 and run_atk_trim with telemetry off and on in turns (off, on,
+   on, off): the on run bitwise the off run (state, EF residual, every
+   history column, stop round), 20 ``cd_gram`` launches, the counted
+   bytes and exchanges against the compiled plan's ``contract(wire=)``,
+   run_q8's saturation in [0, 1) and EF norm > 0, run_atk_trim's
+   rejections on the two attackers' columns only and equal to the
+   replayed gate's; ms per round of the round body off and on (host
+   clock; device ms and idle share, CUDA events behind a sleep kernel)
+   and of the run's block spans (``obs.trace``); trim on the clean run
+   rejects nothing; dist1_a / dist1_q8 at one NCCL rank, plan and dense,
+   on bitwise off, 0 bytes on the plan and 20 x 6,400,064 on the int8
+   dense comm, and ``NodeAxis``'s calls only one all-reduce and one
+   all-gather more (the end-of-run combine); DGD's modeled bytes; a
+   tracer over run_a (span summary, Chrome trace size, CUDA events at
+   the block spans) and the same run under ``obs.trace.torch_profile``:
+   the kernels inside the block spans against the events' device ms
+   (``obs_profiler_coverage``); a registry in a temporary directory
+   holding these runs, the CLI's list / show / diff / timeline, run_a's
+   off / on twin diffed as telemetry only.
 8. serve_a — Qwen3-4B at full width and depth in bf16 through
    ``launch.serve.serve``: 8 prompts of 1,024 tokens, 32 greedy tokens.
 9. serve_b — H2O-Danube3-4B at full width, 4 layers: 2 prompts of 4,608
@@ -3042,6 +3063,445 @@ def dist1_wire_phases(torch, rt, cd_glm, dist_mod, quant, attack, axis,
     return out
 
 
+# ---------------------------------------------------------------------------
+# observability: counters, spans, the profiler bridge, the run registry
+# ---------------------------------------------------------------------------
+
+OBS_ROUNDS = 20
+# body-level timing: rounds per measurement, and the turns (telemetry off
+# and on alternate, each side measured twice)
+OBS_TURNS = (False, True, True, False)
+
+
+def telemetry_profile(torch, prob, graph, cfg, attacks, rounds: int) -> dict:
+    """The round body as ``run_cola``'s block driver runs it, without and
+    with the telemetry counters' update (``obs.counters.make_update`` on the
+    signals the body hands out, the row written into a (T, 3) buffer), in
+    turns ``OBS_TURNS``: host-clock ms per round, device ms per round
+    (queued behind a sleep kernel, 4 rounds: a defended round is ~250
+    launches) and the idle share, each side the mean of its turns. The
+    rounds replay ``attacks``' schedule (the attack entries of each
+    round) from the initial state, each side from its own state."""
+    import numpy as np
+    from repro_torch.core import cola, partition, quant
+    from repro_torch.obs import counters as obs_counters
+    k = graph.num_nodes
+    part = partition.make_partition(prob.n, k)
+    env = cola.build_env(prob, part)
+    body = cola.make_round(prob, part, cfg)
+    sched, info = attack_schedule(graph, rounds, attacks, prob.d)
+    names = tuple(n for n in (info.entry_names if info else ())
+                  if n not in ("dishonest", "bias"))
+    on_card = lambda a: torch.as_tensor(np.array(a), device="cuda")
+    w = [on_card(sched["w"][t]) for t in range(rounds)]
+    active = on_card(sched["active"][0])
+    atk = [{n: on_card(sched["atk_" + n][t]) for n in names} or None
+           for t in range(rounds)]
+    draws = (quant.wire_uniforms(0, k, prob.d, "cuda")
+             if quant.is_quantized(cfg.wire) else None)
+    state0 = cola._arm_wire_state(cola.init_state(prob, part), cfg, draws)
+    update = obs_counters.make_update(
+        cfg, obs_counters.round_increments(graph, prob.d, cfg))
+    rows = torch.zeros((rounds, 3), device="cuda")
+    sides = {False: {"st": state0, "t": 0},
+             True: {"st": state0, "t": 0,
+                    "c": obs_counters.init_counters(k, "cuda")}}
+
+    def stepper(tel: bool):
+        side = sides[tel]
+
+        def one():
+            t = side["t"] % rounds
+            sig = {} if tel else None
+            new = body(side["st"], env, w[t], active, None, atk=atk[t],
+                       sig=sig, **cola._round_draws(draws, t))
+            if tel:
+                side["c"], rows[t] = update(side["c"], sig, new)
+            side["st"] = new
+            side["t"] += 1
+        return one
+
+    meas = {False: [], True: []}
+    out = {"turns": [], "body_ms_turns": []}
+    for tel in OBS_TURNS:
+        meas[tel].append(timed_rounds(torch, stepper(tel), rounds,
+                                      device_reps=4))
+        out["turns"].append("on" if tel else "off")
+        out["body_ms_turns"].append(meas[tel][-1]["ms_per_round"])
+    mean = lambda tel, key: statistics.mean(m[key] for m in meas[tel])
+    for key in ("ms_per_round", "device_ms_per_round"):
+        out[key + "_off"], out[key + "_on"] = mean(False, key), mean(True,
+                                                                     key)
+        out[key.replace("_per_round", "") + "_overhead"] = \
+            out[key + "_on"] / out[key + "_off"] - 1.0
+    for tel, tag in ((False, "off"), (True, "on")):
+        out["device_idle_share_" + tag] = \
+            1.0 - out["device_ms_per_round_" + tag] / out["ms_per_round_"
+                                                          + tag]
+    del env
+    return out
+
+
+def block_span_ms(summary: dict) -> float:
+    """Milliseconds in a run's block spans (``Tracer.summary()``)."""
+    spans = summary["spans"]
+    return 1e3 * sum(spans[n]["total_s"] for n in ("block-first-dispatch",
+                                                   "block-dispatch")
+                     if n in spans)
+
+
+def telemetry_twin(torch, rt, cd_glm, obs_report, obs_trace, topo, name,
+                   prob, graph, cfg_kw: dict, attacks, replay=None) -> dict:
+    """One configuration with telemetry off and on, in turns
+    (``OBS_TURNS``), ``OBS_ROUNDS`` rounds, gap+certificate with eps 1e-3,
+    blocks of 8, with the launch counts zeroed just before each run and
+    read just after (the Gram kernel once per executed round). Checks: the
+    on run's state (EF residual included) and every history column
+    bitwise the off run's, equal stop rounds; ``wire_bytes`` and
+    ``permutes`` equal the executed rounds x the compiled plan's
+    ``contract(wire=)``; on a wire the saturation in [0, 1) and the EF
+    norm positive; under an attack the rejections on the attackers'
+    columns only, equal to ``replay``'s rejected edges (``attack_profile``
+    on the same rounds). Times: the run's block spans per executed round
+    (host clock, each run's own tracer; the on run's from its report) and
+    ``telemetry_profile`` of the round body."""
+    import dataclasses as dc
+    cfg_off = rt.ColaConfig(kappa=1.0, **cfg_kw)
+    cfg_on = dc.replace(cfg_off, telemetry=True)
+    kw = dict(recorder="gap+certificate", eps=1e-3, record_every=1,
+              executor="block", block_size=8, attacks=attacks)
+    runs, span_ms, walls = {}, {False: [], True: []}, {False: [], True: []}
+    turns = []
+    for tel in OBS_TURNS:
+        cd_glm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with obs_trace.use(obs_trace.Tracer()) as tr:
+            res = rt.run_cola(prob, graph, cfg_on if tel else cfg_off,
+                              OBS_ROUNDS, device="cuda", **kw)
+        torch.cuda.synchronize()
+        walls[tel].append(time.perf_counter() - t0)
+        launches = dict(cd_glm.LAUNCHES)
+        h = res.history
+        executed = executed_rounds(h, OBS_ROUNDS, kw["block_size"])
+        if launches["cd_gram"] != executed or launches["cd_residual"]:
+            fail(f"obs_{name}: launches {launches}, want cd_gram once per "
+                 f"executed round ({executed}) and no cd_residual")
+        summary = (obs_report.load_reports()[-1]["spans"] if tel
+                   else tr.summary())
+        if tel and summary["cache"]["bypass"] != 1:
+            fail(f"obs_{name}: the report's tracer saw {summary['cache']}")
+        span_ms[tel].append(block_span_ms(summary) / executed)
+        turns.append(span_ms[tel][-1])
+        runs[tel] = (res, launches, executed)
+    (off, _, executed), (on, launches, _) = runs[False], runs[True]
+    h_on = dict(on.history)
+    tel = h_on.pop("telemetry")
+    same = lambda a, b: (a is None and b is None) or (
+        a is not None and b is not None and torch.equal(a, b))
+    bitwise = {"x": same(off.state.x_parts, on.state.x_parts),
+               "v": same(off.state.v_stack, on.state.v_stack),
+               "ef": same(off.state.ef, on.state.ef),
+               "history": h_on == off.history}
+    if not all(bitwise.values()):
+        fail(f"obs_{name}: telemetry on is not bitwise off: {bitwise}")
+    wire = cfg_off.wire if cfg_off.wire != "fp32" else None
+    contract = topo.compile_plan(graph).contract(prob.d, wire=wire)
+    stop = h_on["stop_round"]
+    counted = OBS_ROUNDS if stop is None else stop + 1
+    if tel["rounds"] != counted or tel["wire_bytes"] != \
+            counted * contract.max_collective_permute_bytes or \
+            tel["permutes"] != counted * contract.max_collective_permute_count:
+        fail(f"obs_{name}: {tel['rounds']} rounds, {tel['wire_bytes']} B, "
+             f"{tel['permutes']} exchanges; want {counted} x "
+             f"{contract.describe()}")
+    if wire is not None and not (0.0 <= tel["saturation_mean"] < 1.0
+                                 and tel["ef_norm"] > 0.0):
+        fail(f"obs_{name}: saturation {tel['saturation_mean']}, EF norm "
+             f"{tel['ef_norm']}")
+    row = {"phase": "obs_" + name, "graph": graph.name, **cfg_kw,
+           "attack": FULL_BYZANTINE if attacks else None,
+           "rounds": OBS_ROUNDS, "stop_round": stop,
+           "executed_rounds": executed, "launches": launches,
+           "bitwise_off_on": bitwise,
+           **{key: tel[key] for key in (
+               "rounds", "wire_bytes", "permutes", "contract",
+               "saturation_mean", "ef_norm", "gate_total")},
+           "contract_bytes_per_round": contract.max_collective_permute_bytes,
+           "run_span_ms_per_round_off": statistics.mean(span_ms[False]),
+           "run_span_ms_per_round_on": statistics.mean(span_ms[True]),
+           "run_span_ms_turns": turns,
+           "run_wall_s_off": statistics.mean(walls[False]),
+           "run_wall_s_on": statistics.mean(walls[True])}
+    row["run_span_overhead"] = (row["run_span_ms_per_round_on"]
+                                / row["run_span_ms_per_round_off"] - 1.0)
+    if attacks:
+        gate = tel["gate_rejections"]
+        bad = [i for i, n in enumerate(gate)
+               if n and i not in FULL_BYZANTINE["nodes"]]
+        want = sum(replay["rejected_edges_per_round"][:counted])
+        if bad or tel["gate_honest"] != 0 or tel["gate_total"] != want \
+                or tel["dishonest_nodes"] != list(FULL_BYZANTINE["nodes"]):
+            fail(f"obs_{name}: gate rejections {gate} (honest "
+                 f"{tel['gate_honest']}, dishonest nodes "
+                 f"{tel['dishonest_nodes']}), replay counted {want}")
+        row.update(gate_rejections=gate, gate_honest=tel["gate_honest"],
+                   gate_dishonest=tel["gate_dishonest"],
+                   replay_rejected_edges=want)
+    row.update(telemetry_profile(torch, prob, graph, cfg_off, attacks,
+                                 OBS_ROUNDS))
+    row["recorders_share_off"] = 1.0 - row["ms_per_round_off"] / \
+        row["run_span_ms_per_round_off"]
+    emit(row)
+    return row
+
+
+def obs_dist_phase(torch, rt, cd_glm, dist_mod, axis, prob, graph) -> list:
+    """run_a and run_q8 through ``run_dist_cola`` at one NCCL rank, plan
+    and dense, telemetry off then on: the on run bitwise the off run; the
+    counted bytes ``OBS_ROUNDS`` x the comm's budget (0 on the block plan
+    at M = 1, the all-gathered narrow payload and scales on the int8
+    dense comm: 16 x 400,000 + 16 x 4 = 6,400,064 B); ``NodeAxis``'s calls
+    over the run the off run's plus the one all-reduce and the one
+    all-gather that combine the rank's counts (none in a round)."""
+    import dataclasses as dc
+    from repro_torch.core import quant
+    out = []
+    kw = dict(recorder="gap+certificate", eps=1e-3, record_every=1,
+              block_size=8)
+    for name, cfg_kw in (("dist1_a", {}), ("dist1_q8", {"wire": "int8"})):
+        cfg = rt.ColaConfig(kappa=1.0, **cfg_kw)
+        for comm in ("plan", "dense"):
+            runs = {}
+            for tel in (False, True):
+                cd_glm.reset_launches()
+                axis.reset_counts()
+                res = dist_mod.run_dist_cola(
+                    prob, graph, dc.replace(cfg, telemetry=tel), axis,
+                    OBS_ROUNDS, comm=comm, device="cuda", **kw)
+                runs[tel] = (res, dict(axis.counts), dict(axis.sent_bytes),
+                             dict(cd_glm.LAUNCHES))
+            (off, calls_off, _, _), (on, calls_on, _, launches) = \
+                runs[False], runs[True]
+            h_on = dict(on.history)
+            tel = h_on.pop("telemetry")
+            executed = executed_rounds(h_on, OBS_ROUNDS, kw["block_size"])
+            if launches["cd_gram"] != executed:
+                fail(f"obs_{name} ({comm}): launches {launches}")
+            bitwise = (torch.equal(off.state.x_parts, on.state.x_parts)
+                       and torch.equal(off.state.v_stack, on.state.v_stack)
+                       and h_on == off.history)
+            added = {kind: calls_on.get(kind, 0) - calls_off.get(kind, 0)
+                     for kind in set(calls_on) | set(calls_off)}
+            per = (0 if comm == "plan" else quant.payload_bytes(
+                prob.d, cfg.wire, graph.num_nodes))
+            if not bitwise or tel["wire_bytes"] != tel["rounds"] * per or \
+                    {k: v for k, v in added.items() if v} != \
+                    {"all-gather": 1, "all-reduce": 1}:
+                fail(f"obs_{name} ({comm}): bitwise {bitwise}, "
+                     f"{tel['wire_bytes']} B (want {tel['rounds']} x "
+                     f"{per}), calls added {added}")
+            row = {"phase": "obs_" + name, "comm": comm, "wire": cfg.wire,
+                   "bitwise_off_on": bitwise, "rounds": tel["rounds"],
+                   "wire_bytes": tel["wire_bytes"],
+                   "bytes_per_round": per, "contract": tel["contract"],
+                   "collective_calls_off": calls_off,
+                   "collective_calls_added_by_telemetry": added,
+                   "launches": launches}
+            emit(row)
+            out.append(row)
+    return out
+
+
+def obs_trace_phase(torch, rt, obs_trace, lasso, ring, logdir) -> dict:
+    """run_a (telemetry off) under a tracer that also records a CUDA event
+    at each block span's start and end: the span summary, the exported
+    Chrome trace's size, and the CUDA-event device ms from the first
+    block's start to the last block's end; then the same run under
+    ``obs.trace.torch_profile``: the device time of the kernels (and
+    copies and sets) launched inside the block spans (a kernel's launch
+    call, matched by correlation id, inside a ``block-*`` annotation of
+    the exported trace), and its coverage: that time over the CUDA-event
+    device ms of the same rounds."""
+    import contextlib
+    import os
+
+    class EventTracer(obs_trace.Tracer):
+        def __init__(self):
+            super().__init__()
+            self.events = []
+
+        @contextlib.contextmanager
+        def span(self, name, **meta):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with super().span(name, **meta):
+                yield
+            end.record()
+            self.events.append((start, end))
+
+    kw = dict(recorder="gap+certificate", eps=1e-3, record_every=1,
+              executor="block", block_size=8)
+    cfg = rt.ColaConfig(kappa=1.0)
+    with obs_trace.use(EventTracer()) as tr:
+        rt.run_cola(lasso, ring, cfg, OBS_ROUNDS, device="cuda", **kw)
+    torch.cuda.synchronize()
+    event_ms = tr.events[0][0].elapsed_time(tr.events[-1][1])
+    path = tr.export(os.path.join(logdir, "tracer.json"))
+    with obs_trace.torch_profile(os.path.join(logdir, "profile"),
+                                 device="cuda"):
+        rt.run_cola(lasso, ring, cfg, OBS_ROUNDS, device="cuda", **kw)
+    with open(os.path.join(logdir, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in events
+             if ev.get("cat") == "user_annotation"
+             and str(ev.get("name", "")).startswith("block-")]
+    launch_ts = {ev["args"]["correlation"]: ev["ts"] for ev in events
+                 if ev.get("cat") == "cuda_runtime"
+                 and "correlation" in ev.get("args", {})}
+    dev_cats = ("kernel", "gpu_memcpy", "gpu_memset")
+    in_span = [ev for ev in events if ev.get("cat") in dev_cats
+               and any(a <= launch_ts.get(ev.get("args", {}).get(
+                   "correlation"), -1.0) <= b for a, b in spans)]
+    all_dev = [ev for ev in events if ev.get("cat") in dev_cats]
+    prof_ms = sum(ev["dur"] for ev in in_span) / 1e3
+    row = {"phase": "obs_trace", "run": "run_a", "rounds": OBS_ROUNDS,
+           "span_summary": tr.summary(),
+           "chrome_trace_bytes": os.path.getsize(path),
+           "block_spans_in_profile": len(spans),
+           "cuda_event_device_ms": event_ms,
+           "profiler_kernel_ms_in_spans": prof_ms,
+           "profiler_kernels_in_spans": len(in_span),
+           "profiler_kernel_ms_all": sum(ev["dur"] for ev in all_dev) / 1e3,
+           "profiler_trace_bytes": os.path.getsize(
+               os.path.join(logdir, "profile", "trace.json"))}
+    if not spans or not tr.events:
+        fail(f"obs_trace: no block spans ({len(spans)} in the profile, "
+             f"{len(tr.events)} timed)")
+    emit(row)
+    emit({"phase": "obs_profiler_coverage", "run": "run_a",
+          "profiler_kernel_ms_in_spans": prof_ms,
+          "cuda_event_device_ms": event_ms,
+          "coverage_pct": 100.0 * prof_ms / event_ms})
+    return row
+
+
+def obs_phase(torch, rt, cd_glm, bl, dist_mod, topo, axis, lasso, ring,
+              torus, x, y, replay_trim: dict) -> dict:
+    """The ``obs`` phase (see the module): the content fingerprint's
+    seconds, telemetry twins of run_a, run_q8 and run_atk_trim (and trim
+    on the clean run: no rejection), the dist1 twins, DGD's modeled bytes,
+    the trace and profiler rows, then the run registry these runs filled
+    (a temporary directory, removed at the end) through the CLI's list,
+    show, diff and timeline, and run_a's off / on twin diffed."""
+    import contextlib
+    import dataclasses as dc
+    import io
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import attack
+    from repro_torch.core import executor as exec_engine
+    from repro_torch.obs import cli as obs_cli, report as obs_report, \
+        trace as obs_trace
+    t_phase = time.perf_counter()
+    reg = tempfile.mkdtemp(prefix="obs_")
+    old = os.environ.get(obs_report.ENV_DIR)
+    os.environ[obs_report.ENV_DIR] = reg
+    try:
+        t0 = time.perf_counter()
+        digest = exec_engine.fingerprint(lasso)
+        t1 = time.perf_counter()
+        exec_engine.fingerprint(lasso)
+        emit({"phase": "obs_fingerprint", "seconds": t1 - t0,
+              "memoized_seconds": time.perf_counter() - t1,
+              "bytes_hashed_at_least": lasso.a.numel() * 4,
+              "digest": digest[:16]})
+        twins = {}
+        for name, graph, cfg_kw, attacks in (
+                ("run_a", ring, {}, None),
+                ("run_q8", ring, {"wire": "int8"}, None),
+                ("run_atk_trim", torus, {"robust": "trim"},
+                 [attack.Byzantine(**FULL_BYZANTINE)])):
+            twins[name] = telemetry_twin(
+                torch, rt, cd_glm, obs_report, obs_trace, topo, name, lasso,
+                graph, cfg_kw, attacks, replay=replay_trim)
+        clean = rt.run_cola(lasso, torus, rt.ColaConfig(
+            kappa=1.0, robust="trim", telemetry=True), OBS_ROUNDS,
+            device="cuda", recorder="gap+certificate", eps=1e-3,
+            block_size=8).history["telemetry"]
+        if clean["gate_total"] != 0:
+            fail(f"obs: trim on the clean run rejected "
+                 f"{clean['gate_rejections']}")
+        emit({"phase": "obs_run_atk_trim_clean",
+              "gate_total": clean["gate_total"],
+              "wire_bytes": clean["wire_bytes"]})
+        dist_rows = obs_dist_phase(torch, rt, cd_glm, dist_mod, axis, lasso,
+                                   ring)
+        cons = bl.make_consensus_problem(x, y, NODES, loss="square",
+                                         reg="l2", lam=1e-4, device="cuda")
+        dgd_rounds = 5
+        dgd = bl.run_dgd(cons, ring, step=1.0 / smooth_lipschitz(
+            torch, x, 1e-4), rounds=dgd_rounds, device="cuda",
+            telemetry=True).history["telemetry"]
+        want = dgd_rounds * NODES * x.shape[1] * 4
+        if dgd["wire_bytes"] != want:
+            fail(f"obs_dgd: {dgd['wire_bytes']} B, want {want}")
+        emit({"phase": "obs_dgd", **dgd, "want_wire_bytes": want})
+        del cons
+        trace_row = obs_trace_phase(torch, rt, obs_trace, lasso, ring, reg)
+
+        # the registry: run_a's off twin as a report beside its on run
+        cfg_off = rt.ColaConfig(kappa=1.0)
+        off = rt.run_cola(lasso, ring, cfg_off, OBS_ROUNDS, device="cuda",
+                          recorder="gap+certificate", eps=1e-3,
+                          block_size=8)
+        h = off.history
+        obs_report.append_report(obs_report.make_report(
+            driver="run_cola", problem_fp=digest,
+            config=dc.asdict(cfg_off),
+            graph={"kind": ring.name, "num_nodes": ring.num_nodes},
+            rounds=(OBS_ROUNDS if h["stop_round"] is None
+                    else h["stop_round"] + 1), history=h))
+        reports = obs_report.load_reports()
+        on_a = next(i for i, r in enumerate(reports)
+                    if r["driver"] == "run_cola"
+                    and r["config"]["wire"] == "fp32"
+                    and r["config"]["robust"] is None)
+        twin = obs_report.diff_reports(reports[-1], reports[on_a])
+        if not twin["only_telemetry"] or twin["history"]:
+            fail(f"obs: run_a's off / on twin diffs as {twin}")
+        outs = {}
+        for args in (["list"], ["show", "-1"], ["diff", str(on_a), "-1"],
+                     ["timeline", str(on_a)]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = obs_cli.main(["--dir", reg] + args)
+            if rc != 0:
+                fail(f"obs: `obs {' '.join(args)}` exited {rc}")
+            outs[args[0]] = buf.getvalue()
+        if "only_telemetry: True" not in outs["diff"]:
+            fail(f"obs: the CLI's diff says {outs['diff']!r}")
+        emit({"phase": "obs_report", "runs_in_registry": len(reports),
+              "drivers": sorted({r["driver"] for r in reports}),
+              "twin_only_telemetry": twin["only_telemetry"],
+              "twin_history_delta": twin["history"],
+              "twin_config_delta": twin["config"],
+              "cli_lines": {k: len(v.splitlines()) for k, v in outs.items()},
+              "timeline": outs["timeline"].splitlines()[:8]})
+    finally:
+        if old is None:
+            os.environ.pop(obs_report.ENV_DIR, None)
+        else:
+            os.environ[obs_report.ENV_DIR] = old
+        shutil.rmtree(reg, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "obs_total", "seconds": seconds})
+    return {"twins": twins, "dist": dist_rows, "trace": trace_row,
+            "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3203,6 +3663,10 @@ def main() -> int:
     dist1_wire_phases(torch, rt, cd_glm, dist_mod, quant, attack, axis,
                       lasso, ring, torus,
                       {"run_q8": run_q8, "run_f8p": run_f8p, **atk_runs})
+    # telemetry: run_a, run_q8 and run_atk_trim off and on, the dist1
+    # twins, DGD, the trace and the profiler's coverage, the run registry
+    obs = obs_phase(torch, rt, cd_glm, bl, dist_mod, topo, axis, lasso, ring,
+                    torus, x, y, atk_runs["run_atk_trim"])
     for run in (run_q8, run_f8p, *atk_runs.values()):
         for key in ("state", "taps", "side"):
             run.pop(key, None)
@@ -3292,6 +3756,8 @@ def main() -> int:
         launches_run_cohort=run_cohort["launches"]["cd_gram"],
         **{f"launches_{name}": run["launches"]["cd_gram"]
            for name, run in atk_runs.items()},
+        **{f"launches_obs_{name}": row["launches"]["cd_gram"]
+           for name, row in obs["twins"].items()},
         launches_dist1_a={comm: row["launches"]["cd_gram"]
                           for comm, row in dist1_a.items()},
         launches_dist1_d={f"{mode}_{comm}": row["launches"]["cd_gram"]

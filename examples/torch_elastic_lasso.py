@@ -20,17 +20,24 @@ per element plus a 4-byte fp32 scale per node (stochastic rounding, error
 feedback unless ``--no-error-feedback``), and the run prints the bytes one
 node sends per round on that wire beside the fp32 wire's.
 
-The reference example's other flags come with later parts of the port
-(ROADMAP queue 1): ``--byzantine`` and ``--robust`` with item 11 (attacks
-and robust mixing), ``--telemetry`` and ``--report`` with item 15
-(observability), and its comm-plan rendering (``plan.render``) with item
-13 (the topology compiler).
+With ``--telemetry`` the run carries the ``repro_torch.obs`` counters
+(wire bytes and exchanges against the compiled plan's contract, the
+codec's saturation and EF residual on a quantized wire) and prints the
+totals; ``--report`` also appends a ``RunReport`` to the run registry
+(``.repro_runs/`` or ``$REPRO_RUNS_DIR``) for ``python -m repro_torch.obs
+show/diff/timeline``.
+
+The reference example's ``--byzantine`` / ``--robust`` flags and its
+comm-plan rendering are not in this example
+(``examples/torch_attack_smoke.py`` runs the attacks and defenses).
 
   PYTHONPATH=src python examples/torch_elastic_lasso.py [--device cpu]
       [--topo torus] [--p-stay 0.8] [--eps 3.0] [--rounds 1500]
       [--leave-mode freeze] [--wire int8] [--no-error-feedback]
+      [--telemetry] [--report]
 """
 import argparse
+import os
 
 import numpy as np
 
@@ -74,7 +81,17 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="where the run happens (default cuda; cpu runs the "
                          "kernels' plain PyTorch versions)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="carry the obs counters and print their totals")
+    ap.add_argument("--report", action="store_true",
+                    help="also append a RunReport to the run registry "
+                         "(implies --telemetry)")
     args = ap.parse_args()
+    telemetry = args.telemetry or args.report
+    if telemetry and not args.report:
+        # counters only: keep the registry untouched unless the user
+        # already pointed REPRO_RUNS_DIR somewhere
+        os.environ.setdefault("REPRO_RUNS_DIR", "off")
 
     x, y, _ = synthetic.regression(1500, 300, seed=1, sparsity_solution=0.1)
     prob = PROBLEMS["lasso"](x, y, 1e-3, device=args.device)
@@ -93,7 +110,8 @@ def main() -> None:
     cadence = metrics_lib.AdaptiveCadence(base=1, max_every=64, grow=2,
                                           near=2.0)
     res = run_cola(prob, graph,
-                   ColaConfig(kappa=2.0, wire=args.wire, error_feedback=ef),
+                   ColaConfig(kappa=2.0, wire=args.wire, error_feedback=ef,
+                              telemetry=telemetry),
                    rounds=args.rounds,
                    record_every=cadence, recorder="gap+certificate",
                    eps=args.eps, active_schedule=churn,
@@ -118,6 +136,20 @@ def main() -> None:
     x_final = res.state.x_parts.reshape(-1)[: prob.n].cpu().numpy()
     nnz = int(np.sum(np.abs(x_final) > 1e-6))
     print(f"solution sparsity: {nnz}/{prob.n} nonzeros")
+
+    if telemetry:
+        tel = h["telemetry"]
+        print(f"telemetry: {tel['rounds']} rounds moved "
+              f"{tel['wire_bytes']:,} wire bytes "
+              f"({tel['permutes']} exchanges) — contract: {tel['contract']}")
+        if quant.is_quantized(args.wire):
+            print(f"  codec: mean saturation {tel['saturation_mean']:.4f}, "
+                  f"final EF residual norm {tel['ef_norm']:.4f}")
+        if args.report:
+            from repro_torch.obs import report as obs_report
+            print(f"report appended to {obs_report.runs_file()} — inspect "
+                  "with: python -m repro_torch.obs show -1 (or "
+                  "diff/timeline)")
 
 
 if __name__ == "__main__":

@@ -18,7 +18,10 @@ DIGing, the robust aggregation of ``mixing.robust_mix_dense``) and the
 products ``X_k w`` and ``X_k^T r`` (``torch.bmm``), as the reference leaves
 them to XLA: no CUDA kernel of this package runs here. The runners execute on the round-block
 engine (``repro_torch.core.executor``) by default, with ``executor="loop"``
-kept as the per-round path; both give bitwise the same results.
+kept as the per-round path; both give bitwise the same results. With
+``telemetry=True`` the history gets ``"telemetry"`` (the modeled wire
+bytes of the dense mix, ``_telemetry_info``) and the run registry a
+``RunReport`` (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -135,11 +138,26 @@ class BaselineResult(NamedTuple):
     history: dict
 
 
-def _check_unported(telemetry) -> None:
-    if telemetry:
-        raise NotImplementedError(
-            "repro_torch baselines: telemetry=True is not ported yet "
-            "(ROADMAP queue 1 item 15 (observability))")
+def _telemetry_info(driver: str, prob: ConsensusProblem, graph, *,
+                    mixes_per_round: int, config: dict) -> dict:
+    """Static per-round wire model for a baseline's telemetry entry.
+
+    The baselines mix with a dense (K, K) contraction — the all-gather
+    oracle's wire: each node receives the full (K, d) replica stack per
+    mixing application, so the modeled budget is ``mixes_per_round x K x d``
+    payload bytes per node per round (DIGing mixes both the iterate and
+    the tracker). Rounds never stop early here, so the host product is
+    exact and no counter rides the state.
+    """
+    k, d = prob.num_nodes, prob.dim
+    per = mixes_per_round * k * d * prob.x_parts.element_size()
+    return {"driver": driver,
+            "graph": {"kind": graph.name, "num_nodes": k},
+            "config": config,
+            "bytes_per_round": per,
+            "permutes_per_round": 0,
+            "contract": f"dense all-gather x{mixes_per_round}: "
+                        f"{per:,}B/device/round"}
 
 
 def _on_device(prob: ConsensusProblem, device) -> None:
@@ -157,10 +175,13 @@ def _mixing(prob: ConsensusProblem, graph: topo.Topology) -> torch.Tensor:
 
 def _run(prob: ConsensusProblem, round_fn: Callable, state, rounds: int,
          record_every: int, executor: str = "block",
-         block_size: int = 64) -> BaselineResult:
+         block_size: int = 64, telemetry: dict | None = None
+         ) -> BaselineResult:
     """Drive ``round_fn`` (``carry -> carry``, the node iterates first in
     the carry) for ``rounds`` rounds, recording the objective at the
-    nodes' mean and the consensus error."""
+    nodes' mean and the consensus error. ``telemetry`` (a
+    ``_telemetry_info`` dict, block executor only) surfaces the run's wire
+    counters in ``history["telemetry"]`` and emits a RunReport."""
     def row(carry):
         ws = carry[0]
         mean = torch.mean(ws, dim=0)
@@ -170,16 +191,34 @@ def _run(prob: ConsensusProblem, round_fn: Callable, state, rounds: int,
     recorder = metrics_lib.FnRecorder(labels=("objective", "consensus"),
                                       fn=row)
     if executor == "block":
-        res = exec_engine.run_round_blocks(
-            lambda carry, _ctx, _sched: round_fn(carry), state, {},
-            recorder=recorder,
-            record_mask=exec_engine.record_flags(rounds, record_every),
-            block_size=block_size, num_rounds=rounds)
-        return BaselineResult(w_stack=res.state[0],
-                              history=metrics_lib.history_from(recorder, res))
+        from repro_torch.obs import trace as obs_trace
+        with obs_trace.run_tracer(telemetry is not None) as tracer:
+            res = exec_engine.run_round_blocks(
+                lambda carry, _ctx, _sched: round_fn(carry), state, {},
+                recorder=recorder,
+                record_mask=exec_engine.record_flags(rounds, record_every),
+                block_size=block_size, num_rounds=rounds)
+        history = metrics_lib.history_from(recorder, res)
+        if telemetry is not None:
+            from repro_torch.obs import report as obs_report
+            history["telemetry"] = {
+                "rounds": rounds,
+                "wire_bytes": rounds * telemetry["bytes_per_round"],
+                "permutes": rounds * telemetry["permutes_per_round"],
+                "contract": telemetry["contract"],
+                "stop_round": res.stop_round}
+            obs_report.auto_emit(obs_report.make_report(
+                driver=telemetry["driver"],
+                problem_fp=exec_engine.fingerprint(prob),
+                config=telemetry["config"], graph=telemetry["graph"],
+                rounds=rounds, history=history,
+                contract=telemetry["contract"], spans=tracer.summary()))
+        return BaselineResult(w_stack=res.state[0], history=history)
     if executor != "loop":
         raise ValueError(f"unknown executor {executor!r} "
                          "(want 'block' or 'loop')")
+    if telemetry is not None:
+        raise ValueError("telemetry requires executor='block'")
     history: dict = {"round": [], "objective": [], "consensus": [],
                      "stop_round": None}
     for t in range(rounds):
@@ -224,13 +263,16 @@ def run_dgd(prob: ConsensusProblem, graph: topo.Topology, *, step: float,
             robust_clip: float | None = None, executor: str = "block",
             block_size: int = 64, telemetry: bool = False,
             device=None) -> BaselineResult:
-    _check_unported(telemetry)
     _on_device(prob, device)
+    tel = _telemetry_info(
+        "dgd", prob, graph, mixes_per_round=1,
+        config={"step": step, "diminishing": diminishing, "robust": robust,
+                "rounds": rounds}) if telemetry else None
     return _run(prob, *dgd_round(prob, graph, step=step,
                                  diminishing=diminishing, robust=robust,
                                  robust_trim=robust_trim,
                                  robust_clip=robust_clip),
-                rounds, record_every, executor, block_size)
+                rounds, record_every, executor, block_size, tel)
 
 
 # ---------------------------------------------------------------------------
@@ -273,12 +315,15 @@ def run_diging(prob: ConsensusProblem, graph: topo.Topology, *, step: float,
                robust_clip: float | None = None, executor: str = "block",
                block_size: int = 64, telemetry: bool = False,
                device=None) -> BaselineResult:
-    _check_unported(telemetry)
     _on_device(prob, device)
+    tel = _telemetry_info(
+        "diging", prob, graph, mixes_per_round=2,
+        config={"step": step, "robust": robust,
+                "rounds": rounds}) if telemetry else None
     return _run(prob, *diging_round(prob, graph, step=step, robust=robust,
                                     robust_trim=robust_trim,
                                     robust_clip=robust_clip),
-                rounds, record_every, executor, block_size)
+                rounds, record_every, executor, block_size, tel)
 
 
 # ---------------------------------------------------------------------------
@@ -328,9 +373,13 @@ def run_dadmm(prob: ConsensusProblem, graph: topo.Topology, *, rho: float,
 
     with m_k^t the average of x_k and its neighbors' midpoints, the argmin
     solved inexactly by ``inner_steps`` prox-gradient steps."""
-    _check_unported(telemetry)
     _on_device(prob, device)
+    # two neighbor-sum contractions per round (the x and dual updates)
+    tel = _telemetry_info(
+        "dadmm", prob, graph, mixes_per_round=2,
+        config={"rho": rho, "inner_steps": inner_steps,
+                "rounds": rounds}) if telemetry else None
     return _run(prob, *dadmm_round(prob, graph, rho=rho,
                                    inner_steps=inner_steps,
                                    inner_lr=inner_lr),
-                rounds, record_every, executor, block_size)
+                rounds, record_every, executor, block_size, tel)

@@ -49,8 +49,13 @@ quantized wire the lie is encoded like any payload (one gossip step, no
 pipeline). The certificate of an attacked run audits the honest cohort
 (``metrics.attackify``).
 
-Telemetry raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+Telemetry (``cfg.telemetry``, ``repro_torch.obs``): counters carried in
+``ColaState.counters`` through the block executor count the wire's bytes
+and exchanges (the compiled plan's budget), the step-0 payload's
+saturation, the EF residual's norm and the robust gate's rejections per
+sender, each taken from what the round computed (the round body hands its
+step-0 payload and gate mask out through ``sig``). The totals land in
+``history["telemetry"]`` and a ``RunReport`` in the run registry.
 """
 from __future__ import annotations
 
@@ -104,9 +109,11 @@ class ColaConfig:
     #   one after the other.
     robust_trim: int = 1            # collusion depth of the norm gate
     robust_clip: float | None = None  # clip radius; None = median-adaptive
-    # A reference option not ported yet; run_cola rejects it (see
-    # ``_check_supported``).
-    telemetry: bool = False
+    telemetry: bool = False         # carry repro_torch.obs.Counters in the
+    #   state (block executor only): per-round wire bytes / exchanges,
+    #   saturation and EF norm, robust-gate rejections. Totals land in
+    #   history["telemetry"] and a RunReport in the run registry. Off: the
+    #   state has no counters and the run is the same, bitwise.
 
     def resolved_sigma(self, k: int) -> float:
         return self.gamma * k if self.sigma_prime is None else self.sigma_prime
@@ -129,6 +136,8 @@ class ColaState(NamedTuple):
     ef: torch.Tensor | None = None
     # pipelined wire: the (payload, scale) of the next round's first step
     buf: Any = None
+    # repro_torch.obs.Counters under cfg.telemetry (else None)
+    counters: Any = None
 
 
 class ColaEnv(NamedTuple):
@@ -220,6 +229,7 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
     the pipelined body encodes with. ``qmix_fn(w, v, ef, draws, payload)
     -> (mixed, ef_new)`` runs the B steps on the wire (default
     ``mixing.qmix_steps``; ``payload`` is the pipelined ``state.buf``).
+    Every hook also takes ``sig=``, the round's signal dict (below).
     A caller's ``qmix_fn`` is a lowered wire (the distributed runtime's
     exchanges, robust-aware under ``cfg.robust``): the composed branch of
     the stacked body then gives way to it, as in the reference. ``atk``
@@ -227,7 +237,11 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
     ``repro_torch.attack``): the emitted payloads become ``coef * v +
     bias_coef * bias`` on the wire before the mix, while every node's own
     mixing term and state stay honest, and ``work`` masks dx (free
-    riders)."""
+    riders). ``sig``: an optional dict the round fills with what the
+    telemetry counters read (``repro_torch.obs.counters``): ``"q"``, the
+    step-0 payload it encoded or consumed, on a quantized wire; ``"gate"``,
+    the (R, K) step-0 rejection mask of the robust mix it ran. The round
+    computes the same with or without it."""
     k = part.num_nodes
     sigma = cfg.resolved_sigma(k)
     spec = SubproblemSpec(sigma_over_tau=sigma / problem.tau, inv_k=1.0 / k)
@@ -240,12 +254,12 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
         raise ValueError(f"unknown robust mode {robust!r} "
                          f"(want one of {mixing.ROBUST_MODES})")
 
-    def mix(w, v_send, v_self):
+    def mix(w, v_send, v_self, sig=None):
         if robust is None:
             return mixing.mix_power_wire(w, v_send, v_self, cfg.gossip_steps)
         return mixing.robust_mix_steps(
             w, v_send, robust, trim=cfg.robust_trim, clip=cfg.robust_clip,
-            steps=cfg.gossip_steps, self_stack=v_self)
+            steps=cfg.gossip_steps, self_stack=v_self, sig=sig)
 
     if mix_fn is not None:
         mix = mix_fn
@@ -253,12 +267,14 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
         grad_mix_fn = mixing.dense_mix
     lowered_qmix = qmix_fn is not None
     if qmix_fn is None:
-        qmix_fn = lambda w, v, ef, draws, payload: mixing.qmix_steps(
-            w, v, ef, cfg.gossip_steps, cfg.wire, draws, payload=payload)
+        qmix_fn = lambda w, v, ef, draws, payload, sig=None: \
+            mixing.qmix_steps(w, v, ef, cfg.gossip_steps, cfg.wire, draws,
+                              payload=payload, sig=sig)
 
     def one_round(state: ColaState, env: ColaEnv, w: torch.Tensor,
                   active: torch.Tensor, budgets=None, draws=None,
-                  draws_next=None, atk: dict | None = None) -> ColaState:
+                  draws_next=None, atk: dict | None = None,
+                  sig: dict | None = None) -> ColaState:
         # Step 4: gossip mixing of the local estimates (B steps, App. E.2).
         # A payload attack exists only on the wire: receivers mix the lie,
         # each node's own term uses its honest state (v_self; None on the
@@ -270,8 +286,10 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
             # each node's own slot and EF residual follow the codec view
             # of its honest value
             u0 = None if draws is None else draws(0)
-            _, _, deq_self, ef_new = quant.encode(state.v_stack, cfg.wire,
+            q, _, deq_self, ef_new = quant.encode(state.v_stack, cfg.wire,
                                                   u0, state.ef)
+            if sig is not None:
+                sig["q"] = q
             v_send = _apply_payload_attack(state.v_stack, atk)
             if v_send is state.v_stack:
                 deq_send, self_stack = deq_self, None
@@ -280,16 +298,17 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
                 deq_send = quant.dequantize(
                     *quant.quantize_rows(p_atk, cfg.wire, u0))
                 self_stack = deq_self
-            v_half = mix(w, deq_send, self_stack)
+            v_half = mix(w, deq_send, self_stack, sig=sig)
         elif quantized:
             # every step mixes the codec's view of every payload; a
             # pipelined run's first payload is state.buf
             v_half, ef_new = qmix_fn(w, state.v_stack, state.ef, draws,
-                                     state.buf)
+                                     state.buf, sig=sig)
         else:
             v_send = _apply_payload_attack(state.v_stack, atk)
             v_half = mix(w, v_send,
-                         None if v_send is state.v_stack else state.v_stack)
+                         None if v_send is state.v_stack else state.v_stack,
+                         sig=sig)
         # Gradient each node uses for its subproblem.
         grads = problem.grad_f(v_half)
         if cfg.grad_mode == "mixed":
@@ -357,12 +376,7 @@ class RunResult(NamedTuple):
 
 
 def _check_supported(cfg: ColaConfig, *, leave_mode) -> None:
-    """Reject the reference features this port does not run yet, with the
-    ROADMAP queue-1 item that brings them."""
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "repro_torch.run_cola: cfg.telemetry is not ported yet "
-            "(ROADMAP queue 1 item 15 (observability))")
+    """Reject an unknown ``leave_mode``."""
     if leave_mode not in ("freeze", "reset"):
         raise ValueError(f"unknown leave_mode {leave_mode!r} (want 'freeze' "
                          "or 'reset')")
@@ -573,8 +587,8 @@ def _reset_leavers(state: ColaState, env: ColaEnv, leavers: torch.Tensor,
     ef_new = (None if state.ef is None else
               torch.where(leavers[:, None], torch.zeros_like(state.ef),
                           state.ef))
-    return ColaState(x_parts=x_new, v_stack=state.v_stack - total[None, :],
-                     ef=ef_new, buf=state.buf)
+    return state._replace(x_parts=x_new,
+                          v_stack=state.v_stack - total[None, :], ef=ef_new)
 
 
 def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
@@ -680,7 +694,14 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                                   np_dtype)
     body = _round_body(problem, part, cfg)
     if executor == "block":
-        stream = atk_part = atk_info = None
+        stream = atk_part = atk_info = telemetry = None
+        if cfg.telemetry:
+            from repro_torch.obs import counters as obs_counters
+            inc = obs_counters.round_increments(graph, problem.d, cfg,
+                                                problem.a.element_size())
+            telemetry = (obs_counters.make_update(cfg, inc), inc)
+            state = state._replace(
+                counters=obs_counters.init_counters(k, dev))
         if attacks is not None:
             ctx = attack_lib.AttackContext(graph=graph, rounds=rounds, k=k,
                                            d=problem.d, dtype=np_dtype,
@@ -701,15 +722,26 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                 sched, sample, rec, k=k, rounds=rounds, seed=seed,
                 leave_mode=leave_mode, dtype=problem.a.dtype, device=dev,
                 extra_parts=() if atk_part is None else (atk_part,))
-        return _run_cola_block(body, env, state, rounds, record_every, rec,
-                               sched, block_size, stream=stream,
-                               wire_draws=wire_draws, atk_info=atk_info)
+        from repro_torch.obs import trace as obs_trace
+        with obs_trace.run_tracer(cfg.telemetry) as tracer:
+            res = _run_cola_block(body, env, state, rounds, record_every,
+                                  rec, sched, block_size, stream=stream,
+                                  wire_draws=wire_draws, atk_info=atk_info,
+                                  telemetry=telemetry)
+        if cfg.telemetry:
+            _emit_report("run_cola", problem, cfg, graph, telemetry[1],
+                         res.history, tracer.summary())
+        return res
     if executor == "loop":
         if attacks is not None:
             raise ValueError(
                 "attacks= requires executor='block' — attack scenarios are "
                 "schedule transforms over the pre-materialized (T, ...) "
                 "schedules the loop driver does not build")
+        if cfg.telemetry:
+            raise ValueError(
+                "cfg.telemetry requires executor='block' — the obs "
+                "counters ride the round-block executor's state")
         return _run_cola_loop(body, env, state, rounds, record_every, rec,
                               sched, wire_draws=wire_draws)
     raise ValueError(f"unknown executor {executor!r} (want 'block' or 'loop')")
@@ -789,7 +821,7 @@ def _run_cola_loop(body, env, state, rounds, record_every, recorder,
 
 def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
                     block_size, *, stream=None, wire_draws=None,
-                    atk_info=None) -> RunResult:
+                    atk_info=None, telemetry=None) -> RunResult:
     """Round-block driver (see ``repro_torch.core.executor``).
 
     The leaver reset is decided on the host: ``reset_any`` is a host entry
@@ -801,7 +833,11 @@ def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
     active and the certificate's). ``atk_info``: the attacks' entries; the
     random payloads' run-constant (K, d) directions go to the device once
     (the stacked ``atk_bias`` is a (T, K, d) broadcast of them), and the
-    eavesdropper's taps are the round's aux output."""
+    eavesdropper's taps are the round's aux output. ``telemetry``:
+    ``(update, inc)`` of ``repro_torch.obs.counters`` when the state
+    carries counters: each round's signals update them, its counter row is
+    aux ``"obs"`` (the taps then aux ``"taps"``), and the history gets
+    ``"telemetry"`` (``summarize``)."""
     has_reset = "reset_any" in sched
     if wire_draws is not None:
         sched = dict(sched, round=np.arange(rounds))
@@ -825,15 +861,23 @@ def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
         atk = {n: s_t["atk_" + n] if n != "bias" else s_t.get("atk_bias",
                                                               bias)
                for n in atk_names} or None
+        sig = None if telemetry is None else {}
         new = body(st, env_ctx, s_t["w"], s_t["active"], s_t.get("budgets"),
-                   atk=atk, **draws)
-        if tap_idx is None:
-            return new
-        # what the tapped nodes emit this round (post-reset state, the
-        # round's wire transform), from their rows alone
-        rows = lambda t: t.index_select(0, tap_idx)
-        return new, _apply_payload_attack(
-            rows(st.v_stack), atk and {n: rows(a) for n, a in atk.items()})
+                   atk=atk, sig=sig, **draws)
+        tap = None
+        if tap_idx is not None:
+            # what the tapped nodes emit this round (post-reset state, the
+            # round's wire transform), from their rows alone
+            rows = lambda t: t.index_select(0, tap_idx)
+            tap = _apply_payload_attack(
+                rows(st.v_stack),
+                atk and {n: rows(a) for n, a in atk.items()})
+        if telemetry is None:
+            return new if tap is None else (new, tap)
+        # the round body builds a new state: carry the updated counters
+        counters, row = telemetry[0](st.counters, sig, new)
+        aux = {"obs": row} if tap is None else {"obs": row, "taps": tap}
+        return new._replace(counters=counters), aux
 
     cad = metrics_lib.as_cadence(record_every)
     rec_mask = None if cad else exec_engine.record_flags(rounds, record_every)
@@ -849,10 +893,30 @@ def _run_cola_block(body, env, state, rounds, record_every, recorder, sched,
         step_fn, state, sched, context=env, recorder=recorder,
         record_mask=rec_mask, block_size=block_size, cadence=cad,
         num_rounds=rounds, host_entries=("reset_any", "round"),
-        stream=stream, with_aux=tap_idx is not None)
-    return RunResult(state=res.state,
-                     history=metrics_lib.history_from(recorder, res),
-                     taps=res.aux)
+        stream=stream, with_aux=tap_idx is not None or telemetry is not None)
+    history = metrics_lib.history_from(recorder, res)
+    if telemetry is None:
+        return RunResult(state=res.state, history=history, taps=res.aux)
+    from repro_torch.obs import counters as obs_counters
+    history["telemetry"] = obs_counters.summarize(
+        res.state.counters, telemetry[1], series=res.aux["obs"],
+        stop_round=res.stop_round, dishonest=sched.get("atk_dishonest"))
+    return RunResult(state=res.state, history=history,
+                     taps=res.aux.get("taps"))
+
+
+def _emit_report(driver: str, problem: Problem, cfg, graph, inc: dict,
+                 history: dict, spans: dict) -> None:
+    """Append a telemetry run's ``RunReport`` to the run registry
+    (``repro_torch.obs.report.auto_emit``)."""
+    from repro_torch.obs import report as obs_report
+    stop = history["telemetry"]["stop_round"]
+    obs_report.auto_emit(obs_report.make_report(
+        driver=driver, problem_fp=exec_engine.fingerprint(problem),
+        config=dataclasses.asdict(cfg),
+        graph={"kind": graph.name, "num_nodes": graph.num_nodes},
+        rounds=history["telemetry"]["rounds"] if stop is None else stop + 1,
+        history=history, contract=inc["contract"], spans=spans))
 
 
 def _run_cola_cohort(problem, cfg, rounds, *, part, record_every, recorder,

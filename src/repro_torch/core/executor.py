@@ -25,20 +25,146 @@ the device busy instead:
   body updates the state itself and gets the stop flag to keep it
   unchanged: the cohort round writes K' rows of a (K, d) state, where a
   select over the whole state would copy all of it every round.
-* a step may also return a per-round output (``with_aux``: the
-  eavesdropper's taps), which the engine writes into a preallocated
-  ``(T, ...)`` device tensor, zeros for the rounds after the stop.
+* a step may also return a per-round output (``with_aux``: a tensor or a
+  dict of tensors, such as the eavesdropper's taps and the telemetry
+  counters' rows), which the engine writes into preallocated ``(T, ...)``
+  device tensors, zeros for the rounds after the stop;
+* each block runs inside a ``repro_torch.obs.trace`` span
+  (``block-first-dispatch``, then ``block-dispatch``, with ``start=`` and
+  ``rounds=``) on the active tracer. The span times the host: the block's
+  enqueue, plus its read of the stop flag when a stop is armed.
 
 PyTorch runs eagerly, so a no-op round still computes its round body before
 the select discards it, and the reference's compiled-driver cache has no
-counterpart here. Capturing a block as a CUDA graph is later work.
+counterpart here: every ``run_round_blocks`` call reports one ``"bypass"``
+event to the ``cache_listener``s, the reference's event for a build
+without a cache. Capturing a block as a CUDA graph is later work.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
+import hashlib
+import types
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+
+# Cache-event listeners (``cache_listener``): the reference's executor
+# reports each compiled-driver resolution; the port has no driver cache and
+# reports one "bypass" per run_round_blocks call.
+_CACHE_LISTENERS: list = []
+
+
+def _cache_event(key, kind: str) -> None:
+    for listener in list(_CACHE_LISTENERS):
+        listener(key, kind)
+
+
+@contextlib.contextmanager
+def cache_listener(fn: Callable[[Any, str], None]):
+    """Register ``fn(key, kind)`` for cache events, removably.
+
+    The listener is appended on entry and removed on exit even if the body
+    raises, so nested monitors (``obs.trace`` tracers) never double-count
+    or leak a stale callback across tests. The same function object may be
+    registered by nested scopes — each exit removes exactly one
+    registration."""
+    _CACHE_LISTENERS.append(fn)
+    try:
+        yield fn
+    finally:
+        try:
+            _CACHE_LISTENERS.remove(fn)
+        except ValueError:  # already removed (e.g. a test cleared the list)
+            pass
+
+
+def _fp_update(h, obj, seen: set) -> None:
+    """Feed ``obj``'s content (not its address) into the hash ``h``:
+    tensors and arrays by shape, dtype and bytes; functions by bytecode,
+    closure cells, defaults and the names of the globals they read;
+    dataclasses by their fields. ``seen`` guards cycles."""
+    if isinstance(obj, (types.FunctionType, dict)) or (
+            dataclasses.is_dataclass(obj) and not isinstance(obj, type)):
+        if id(obj) in seen:
+            h.update(b"<cycle>")
+            return
+        seen.add(id(obj))
+    h.update(type(obj).__name__.encode())
+    if obj is None or isinstance(obj, (bool, int, float, complex, str,
+                                       bytes, np.generic)):
+        h.update(repr(obj).encode())
+    elif isinstance(obj, torch.Tensor):
+        t = obj.detach().contiguous().cpu()
+        h.update(f"{tuple(t.shape)}{t.dtype}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy())
+    elif isinstance(obj, np.ndarray):
+        h.update(f"{obj.shape}{obj.dtype}".encode())
+        h.update(np.ascontiguousarray(obj).reshape(-1).view(np.uint8))
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            _fp_update(h, x, seen)
+    elif isinstance(obj, dict):
+        for k in sorted(obj, key=repr):
+            _fp_update(h, k, seen)
+            _fp_update(h, obj[k], seen)
+    elif isinstance(obj, functools.partial):
+        _fp_update(h, (obj.func, obj.args, dict(obj.keywords)), seen)
+    elif isinstance(obj, types.FunctionType):
+        _fp_update(h, obj.__code__, seen)
+        for cell in obj.__closure__ or ():
+            try:
+                _fp_update(h, cell.cell_contents, seen)
+            except ValueError:  # empty cell
+                h.update(b"<empty-cell>")
+        _fp_update(h, (obj.__defaults__, obj.__kwdefaults__), seen)
+        h.update(" ".join(n for n in sorted(obj.__code__.co_names)
+                          if n in obj.__globals__).encode())
+    elif isinstance(obj, types.CodeType):
+        h.update(obj.co_code)
+        h.update(" ".join(obj.co_names).encode())
+        for c in obj.co_consts:
+            _fp_update(h, c, seen)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            h.update(f.name.encode())
+            _fp_update(h, getattr(obj, f.name), seen)
+    else:
+        h.update(repr(obj).encode())
+
+
+_FP_MEMO_ATTR = "_fingerprint_memo"
+
+
+def fingerprint(*objs: Any) -> str:
+    """Content digest of ``objs`` (a RunReport's ``problem`` field): two
+    separately built objects with the same contents get the same digest,
+    objects that differ in any tensor, closure constant or hyperparameter
+    get different ones.
+
+    Hashing a Problem copies its (d, n) data matrix to the host and hashes
+    it (3.2 GB at the epsilon shape), so a single frozen-dataclass argument
+    memoizes its digest on the instance, as the reference does: repeated
+    runs over one Problem hash it once. (Sound because a frozen Problem is
+    never written in place by the port.)"""
+    memoizable = (len(objs) == 1 and dataclasses.is_dataclass(objs[0])
+                  and not isinstance(objs[0], type)
+                  and type(objs[0]).__dataclass_params__.frozen)
+    if memoizable:
+        memo = getattr(objs[0], _FP_MEMO_ATTR, None)
+        if memo is not None:
+            return memo
+    h = hashlib.sha256()
+    seen: set = set()
+    for o in objs:
+        _fp_update(h, o, seen)
+    digest = h.hexdigest()
+    if memoizable:
+        object.__setattr__(objs[0], _FP_MEMO_ATTR, digest)
+    return digest
 
 
 class BlockRunResult(NamedTuple):
@@ -129,9 +255,9 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
         armed), and the step must leave the state unchanged where it is
         set. The engine then selects nothing.
       with_aux: ``step_fn`` returns ``(state, aux)``; each round's ``aux``
-        tensor (zeros once the stop flag is set, as the reference's
-        skipped rounds give) lands in ``BlockRunResult.aux``, one row per
-        executed round.
+        (a tensor, or a dict of tensors; zeros once the stop flag is set,
+        as the reference's skipped rounds give) lands in
+        ``BlockRunResult.aux``, one row per executed round.
 
     Returns:
       BlockRunResult(state, metrics, rounds, stop_round, aux).
@@ -171,60 +297,67 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
     executed = 0
     stopped_early = False
     start = 0
+    # phase tracing (repro_torch.obs.trace; imported here: it imports this
+    # module): the active tracer records every block's dispatch
+    from repro_torch.obs import trace as obs_trace
+    tracer = obs_trace.current()
+    _cache_event(None, "bypass")
     while start < t_total:
         stop = min(start + block_size, t_total)
-        sched_b = {name: (np.asarray(v[start:stop]) if name in host_entries
-                          else torch.as_tensor(
-                              np.ascontiguousarray(v[start:stop]),
-                              device=device))
-                   for name, v in schedule.items()}
-        for t in range(start, stop):
-            sched_t = {name: v[t - start] for name, v in sched_b.items()}
-            if stream is not None:
-                sched_t.update(stream(t))
-            if in_place:
-                new_state = step_fn(state, context, sched_t,
-                                    stopped if has_stop else None)
-            else:
-                new_state = step_fn(state, context, sched_t)
-            if with_aux:
-                new_state, aux = new_state
-                if aux_buf is None:
-                    aux_buf = torch.zeros((t_total,) + tuple(aux.shape),
-                                          dtype=aux.dtype, device=device)
-                aux_buf[t] = (torch.where(stopped, 0, aux) if has_stop
-                              else aux)
-            state = (new_state if in_place or not has_stop
-                     else _select(stopped, state, new_state))
-            if has_cadence:
-                row = record_at(state, sched_t).to(torch.float32)
-                due = (nxt <= t) | (t == t_total - 1)
-                do_rec = due & ~stopped
-                far = recorder.cadence_ratio(row).to(torch.float32) \
-                    > cadence.near
-                new_every = torch.where(
-                    far, torch.clamp(every * cadence.grow,
-                                     max=cadence.max_every),
-                    torch.full_like(every, cadence.base))
-                every = torch.where(do_rec, new_every, every)
-                nxt = torch.where(do_rec, t + new_every, nxt)
-                metrics[t] = torch.where(do_rec, row, torch.zeros_like(row))
-                valid[t] = do_rec
-                if has_stop:
-                    stopped = stopped | (do_rec & stop_fn(row))
-            elif rec_all[t]:
-                row = record_at(state, sched_t).to(torch.float32)
-                metrics[row_i] = row
-                valid[row_i] = ~stopped
-                if has_stop:
-                    stopped = stopped | (~stopped & stop_fn(row))
-                row_i += 1
-        executed = stop
-        start = stop
-        # the host-side short-circuit: one scalar sync per block, only when
-        # early exit is armed
-        if has_stop and bool(stopped):
-            stopped_early = True
+        with tracer.span("block-first-dispatch" if start == 0
+                         else "block-dispatch", start=start,
+                         rounds=stop - start):
+            sched_b = {name: (np.asarray(v[start:stop])
+                              if name in host_entries
+                              else torch.as_tensor(
+                                  np.ascontiguousarray(v[start:stop]),
+                                  device=device))
+                       for name, v in schedule.items()}
+            for t in range(start, stop):
+                sched_t = {name: v[t - start] for name, v in sched_b.items()}
+                if stream is not None:
+                    sched_t.update(stream(t))
+                if in_place:
+                    new_state = step_fn(state, context, sched_t,
+                                        stopped if has_stop else None)
+                else:
+                    new_state = step_fn(state, context, sched_t)
+                if with_aux:
+                    new_state, aux = new_state
+                    aux_buf = _store_aux(aux_buf, aux, t, t_total,
+                                         stopped if has_stop else None)
+                state = (new_state if in_place or not has_stop
+                         else _select(stopped, state, new_state))
+                if has_cadence:
+                    row = record_at(state, sched_t).to(torch.float32)
+                    due = (nxt <= t) | (t == t_total - 1)
+                    do_rec = due & ~stopped
+                    far = recorder.cadence_ratio(row).to(torch.float32) \
+                        > cadence.near
+                    new_every = torch.where(
+                        far, torch.clamp(every * cadence.grow,
+                                         max=cadence.max_every),
+                        torch.full_like(every, cadence.base))
+                    every = torch.where(do_rec, new_every, every)
+                    nxt = torch.where(do_rec, t + new_every, nxt)
+                    metrics[t] = torch.where(do_rec, row,
+                                             torch.zeros_like(row))
+                    valid[t] = do_rec
+                    if has_stop:
+                        stopped = stopped | (do_rec & stop_fn(row))
+                elif rec_all[t]:
+                    row = record_at(state, sched_t).to(torch.float32)
+                    metrics[row_i] = row
+                    valid[row_i] = ~stopped
+                    if has_stop:
+                        stopped = stopped | (~stopped & stop_fn(row))
+                    row_i += 1
+            executed = stop
+            start = stop
+            # the host-side short-circuit: one scalar sync per block, only
+            # when early exit is armed
+            stopped_early = has_stop and bool(stopped)
+        if stopped_early:
             break
 
     metrics_np = rounds = None
@@ -238,7 +371,29 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
             stop_round = int(rounds[-1])
     return BlockRunResult(state=state, metrics=metrics_np, rounds=rounds,
                           stop_round=stop_round,
-                          aux=None if aux_buf is None else aux_buf[:executed])
+                          aux=_trim_aux(aux_buf, executed))
+
+
+def _store_aux(buf, aux, t: int, t_total: int, stopped):
+    """Write round ``t``'s aux (a tensor or a dict of tensors) into the
+    (T, ...) buffers, allocated at the first round; zeros once ``stopped``
+    (None: no stop armed) is set."""
+    if isinstance(aux, dict):
+        buf = {} if buf is None else buf
+        for name, val in aux.items():
+            buf[name] = _store_aux(buf.get(name), val, t, t_total, stopped)
+        return buf
+    if buf is None:
+        buf = torch.zeros((t_total,) + tuple(aux.shape), dtype=aux.dtype,
+                          device=aux.device)
+    buf[t] = aux if stopped is None else torch.where(stopped, 0, aux)
+    return buf
+
+
+def _trim_aux(buf, executed: int):
+    if isinstance(buf, dict):
+        return {name: v[:executed] for name, v in buf.items()}
+    return None if buf is None else buf[:executed]
 
 
 def make_block_runner(step_fn: Callable, *, recorder: Any = None,

@@ -59,7 +59,7 @@ def mix_power_wire(w: torch.Tensor, v_send: torch.Tensor,
 
 
 def qmix_steps(w: torch.Tensor, v_stack: torch.Tensor, ef, steps: int,
-               wire: str, draws=None, payload=None):
+               wire: str, draws=None, payload=None, sig: dict | None = None):
     """B gossip steps over a QUANTIZED wire.
 
     Every step, each node encodes its current value once (EF-compensated
@@ -68,17 +68,22 @@ def qmix_steps(w: torch.Tensor, v_stack: torch.Tensor, ef, steps: int,
     and the mix runs on the dequantized stack: ``W @ deq``. Every
     contribution goes through the codec, the node's own diagonal term
     included. ``payload``: an optional pre-encoded ``(q, scale)`` for the
-    first step (the pipelined driver's double buffer).
+    first step (the pipelined driver's double buffer). ``sig``: an
+    optional dict that receives the first step's payload as ``sig["q"]``
+    (the telemetry counters' saturation signal).
 
     Returns ``(mixed, ef_new)``.
     """
     out = v_stack
     for s in range(steps):
         if s == 0 and payload is not None:
+            q = payload[0]
             deq = quant.dequantize(*payload)
         else:
             u = None if draws is None else draws(s)
-            _, _, deq, ef = quant.encode(out, wire, u, ef)
+            q, _, deq, ef = quant.encode(out, wire, u, ef)
+        if s == 0 and sig is not None:
+            sig["q"] = q
         out = dense_mix(w, deq)
     return out, ef
 
@@ -402,8 +407,8 @@ def robust_center(w_rows, buf: torch.Tensor, row_ids, *,
 
 def robust_neighborhood_mix(w_rows, buf: torch.Tensor, row_ids, mode: str, *,
                             trim: int = 1, clip: float | None = None,
-                            self_override: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            self_override: torch.Tensor | None = None,
+                            sig: dict | None = None) -> torch.Tensor:
     """Robust aggregation of a neighborhood buffer, the Byzantine-resilient
     replacement for ``w_rows @ buf``.
 
@@ -430,6 +435,10 @@ def robust_neighborhood_mix(w_rows, buf: torch.Tensor, row_ids, mode: str, *,
       self_override: optional (R, ...) HONEST own values: under a wire
         attack ``buf`` holds the emitted payloads, but a node's own slot is
         its own state (exempt from the gate).
+      sig: optional dict that receives the (R, K) rejection mask this mix
+        applied as ``sig["gate"]`` (``gate_flags``' mask; the telemetry
+        counters read it from here, so no second gate runs). The output is
+        the same with or without it.
 
     Every output depends only on the slots inside each row's support. The
     gate decides per neighbor from whole-vector geometry, so honest
@@ -445,6 +454,8 @@ def robust_neighborhood_mix(w_rows, buf: torch.Tensor, row_ids, mode: str, *,
     r = nb.rows.shape[0]
     if mode in ("trim", "median"):
         center, flagged = _gate_center_flags(nb, trim)
+        if sig is not None:
+            sig["gate"] = flagged
         w_drop = torch.sum(torch.where(flagged, nb.w_rows, 0.0), dim=1)
         out = nb.weighted_sum(torch.where(flagged, 0.0, nb.w_rows))
         # trim: the flagged edges' weight goes onto the own value; median:
@@ -453,6 +464,8 @@ def robust_neighborhood_mix(w_rows, buf: torch.Tensor, row_ids, mode: str, *,
                                        else nb.self_vals)
         return out.reshape((r,) + buf.shape[1:])
     dev, scale = _clip_scale(nb, clip)
+    if sig is not None:
+        sig["gate"] = (scale < 1.0) & nb.nb_mask
     clipped = nb.self_vals[:, None, :] + dev * scale[:, :, None]
     del dev
     clipped = torch.where(nb.mask[:, :, None], clipped, 0.0)
@@ -462,29 +475,34 @@ def robust_neighborhood_mix(w_rows, buf: torch.Tensor, row_ids, mode: str, *,
 
 def robust_mix_dense(w: torch.Tensor, v_stack: torch.Tensor, mode: str, *,
                      trim: int = 1, clip: float | None = None,
-                     self_stack: torch.Tensor | None = None) -> torch.Tensor:
+                     self_stack: torch.Tensor | None = None,
+                     sig: dict | None = None) -> torch.Tensor:
     """ONE robust gossip step on stacked (K, ...) node state, the robust
     counterpart of ``dense_mix``; ``self_stack`` holds the honest states
-    when ``v_stack`` holds attacked wire payloads."""
+    when ``v_stack`` holds attacked wire payloads; ``sig`` as
+    ``robust_neighborhood_mix``'s (the (K, K) mask)."""
     k = v_stack.shape[0]
     flat = v_stack.reshape(k, -1)
     ov = None if self_stack is None else self_stack.reshape(k, -1)
     out = robust_neighborhood_mix(
         w, flat, torch.arange(k, device=flat.device), mode, trim=trim,
-        clip=clip, self_override=ov)
+        clip=clip, self_override=ov, sig=sig)
     return out.reshape(v_stack.shape).to(v_stack.dtype)
 
 
 def robust_mix_steps(w: torch.Tensor, v_stack: torch.Tensor, mode: str, *,
                      trim: int = 1, clip: float | None = None,
                      steps: int = 1,
-                     self_stack: torch.Tensor | None = None) -> torch.Tensor:
+                     self_stack: torch.Tensor | None = None,
+                     sig: dict | None = None) -> torch.Tensor:
     """B consecutive robust gossip steps, applied one after the other (the
     aggregation is nonlinear: no W^B fold). A wire attack (``self_stack``
     not None) exists on the FIRST step only; later steps mix received
-    values, which are honest."""
+    values, which are honest. ``sig`` receives the FIRST step's (K, K)
+    rejection mask (``robust_neighborhood_mix``)."""
     out = v_stack
     for i in range(steps):
         out = robust_mix_dense(w, out, mode, trim=trim, clip=clip,
-                               self_stack=self_stack if i == 0 else None)
+                               self_stack=self_stack if i == 0 else None,
+                               sig=sig if i == 0 else None)
     return out

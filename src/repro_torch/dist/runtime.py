@@ -51,7 +51,13 @@ plan's products run at the dense shape (``topo.plan.rows_product``,
 ``mixing._Neighborhood.rows_matmul``); the certificate's cross-rank sums
 add in another order.
 
-Telemetry raises ``NotImplementedError`` (ROADMAP queue 1 item 15).
+Telemetry (``cfg.telemetry``, ``repro_torch.obs``) counts on each rank:
+the wire's bytes and exchanges are the static budget of the comm the run
+uses (``obs.counters.dist_round_increments``); each rank counts the gate
+rejections of its own receiver rows and its rows' share of the saturation
+and of the EF residual, from the signals its round body hands out. The
+ranks combine them once, at the end of the run (one all-reduce, one
+all-gather), so telemetry adds no collective to a round.
 """
 from __future__ import annotations
 
@@ -80,13 +86,8 @@ from repro_torch.topo import lowering as topo_lowering, plan as topo_plan
 
 
 def _check_supported(cfg: ColaConfig) -> None:
-    """Reject what the distributed runtime does not run: telemetry (not
-    ported yet, naming the ROADMAP item that brings it) and client
-    sampling (a fixed node set lies over the ranks)."""
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "run_dist_cola: cfg.telemetry is not ported yet (ROADMAP queue "
-            "1 item 15 (observability))")
+    """Reject what the distributed runtime does not run: client sampling
+    (a fixed node set lies over the ranks)."""
     if cfg.participation is not None:
         raise ValueError(
             "run_dist_cola: cfg.participation (client sampling) runs on "
@@ -129,7 +130,9 @@ def _dist_mixers(axis: NodeAxis, local_nodes: int, conn: int, comm: str,
     ``dense`` every rank robust-mixes the gathered stack; on ``plan`` the
     plan must be a ``BlockPlan`` (``run_dist_cola`` compiles one whenever
     ``robust`` is set). The gradient mixer stays linear, as ``run_cola``'s
-    ``grad_mode="mixed"``.
+    ``grad_mode="mixed"``. ``mix_fn(..., sig=)`` hands the robust mix's
+    first-step rejection mask of this rank's receiver rows out as
+    ``sig["gate"]`` (``cola._round_body``'s signal dict).
     """
     if comm == "dense":
         def steps_mix(w, stack, steps):
@@ -176,7 +179,7 @@ def _dist_mixers(axis: NodeAxis, local_nodes: int, conn: int, comm: str,
     block_plan = isinstance(plan, topo_plan.BlockPlan)
     if robust is None:
         if comm == "dense":
-            def mix_fn(w, v_send, v_self):
+            def mix_fn(w, v_send, v_self, sig=None):
                 if v_self is None or gossip_steps <= 0:
                     return steps_mix(w, v_send, gossip_steps)
                 # bitwise run_cola's mix_power_wire: the gathered payloads
@@ -186,7 +189,7 @@ def _dist_mixers(axis: NodeAxis, local_nodes: int, conn: int, comm: str,
                     gossip_steps)
                 return sharding.node_block(mixed, axis)
         elif comm == "ring":
-            def mix_fn(w, v_send, v_self):
+            def mix_fn(w, v_send, v_self, sig=None):
                 if v_self is None or gossip_steps <= 0:
                     return steps_mix(w, v_send, gossip_steps)
                 band = mixing.banded_weights(w, conn)
@@ -196,30 +199,33 @@ def _dist_mixers(axis: NodeAxis, local_nodes: int, conn: int, comm: str,
                     out = mixing.ring_mix_ppermute(out, axis, band, conn)
                 return out[None]
         elif block_plan:
-            def mix_fn(w_rows, v_send, v_self):
+            def mix_fn(w_rows, v_send, v_self, sig=None):
                 return topo_lowering.block_mix_steps_wire(
                     v_send, v_self, axis, plan, w_rows, gossip_steps)
         else:
-            def mix_fn(payload, v_send, v_self):
+            def mix_fn(payload, v_send, v_self, sig=None):
                 diag, coefs = payload
                 return topo_lowering.plan_mix_steps_wire(
                     v_send[0], None if v_self is None else v_self[0], axis,
                     plan, diag[0], coefs[:, 0], gossip_steps)[None]
     elif comm == "dense":
-        def mix_fn(w, v_send, v_self):
+        def mix_fn(w, v_send, v_self, sig=None):
             if gossip_steps <= 0:
                 return v_send
+            full = None if sig is None else {}
             mixed = mixing.robust_mix_steps(
                 w, axis.all_gather(v_send), robust, trim=robust_trim,
                 clip=robust_clip, steps=gossip_steps,
                 self_stack=None if v_self is None
-                else axis.all_gather(v_self))
+                else axis.all_gather(v_self), sig=full)
+            if sig is not None:
+                sig["gate"] = sharding.node_block(full["gate"], axis)
             return sharding.node_block(mixed, axis)
     elif comm == "plan" and block_plan:
-        def mix_fn(w_rows, v_send, v_self):
+        def mix_fn(w_rows, v_send, v_self, sig=None):
             return topo_lowering.block_robust_mix_steps(
                 v_send, axis, plan, w_rows, robust, trim=robust_trim,
-                clip=robust_clip, steps=gossip_steps, v_self=v_self)
+                clip=robust_clip, steps=gossip_steps, v_self=v_self, sig=sig)
     else:
         raise ValueError(
             f"robust={robust!r} needs comm='dense' or a block plan; got "
@@ -249,6 +255,9 @@ def _dist_qmixers(axis: NodeAxis, comm: str, cfg: ColaConfig,
 
     The pipelined encode of the next round's first payload is the round
     body's own, on the block: the draws are already the rank's rows.
+    ``sig`` receives the first step's payload of the rank's rows
+    (``sig["q"]``) and under ``cfg.robust`` the rejection mask of its
+    receiver rows (``sig["gate"]``).
     """
     wire, steps = cfg.wire, cfg.gossip_steps
     if comm == "plan" and not isinstance(plan, topo_plan.BlockPlan):
@@ -257,16 +266,17 @@ def _dist_qmixers(axis: NodeAxis, comm: str, cfg: ColaConfig,
     if comm == "plan" and cfg.robust is not None:
         # composed robust x wire: one step, no pipeline
         # (cola._check_wire_config), so buf is always None
-        def qmix_fn(w_rows, v, ef, draws, buf):
+        def qmix_fn(w_rows, v, ef, draws, buf, sig=None):
             return topo_lowering.block_robust_qmix_step(
                 v, ef, axis, plan, w_rows, wire, draws, cfg.robust,
-                trim=cfg.robust_trim, clip=cfg.robust_clip)
+                trim=cfg.robust_trim, clip=cfg.robust_clip, sig=sig)
     elif comm == "plan":
-        def qmix_fn(w_rows, v, ef, draws, buf):
+        def qmix_fn(w_rows, v, ef, draws, buf, sig=None):
             return topo_lowering.block_qmix_steps(
-                v, ef, axis, plan, w_rows, steps, wire, draws, payload=buf)
+                v, ef, axis, plan, w_rows, steps, wire, draws, payload=buf,
+                sig=sig)
     elif comm == "dense":
-        def qmix_fn(w, v, ef, draws, buf):
+        def qmix_fn(w, v, ef, draws, buf, sig=None):
             out = v
             for s in range(steps):
                 if s == 0 and buf is not None:
@@ -274,14 +284,21 @@ def _dist_qmixers(axis: NodeAxis, comm: str, cfg: ColaConfig,
                 else:
                     q, sc, _, ef = quant.encode(
                         out, wire, None if draws is None else draws(s), ef)
+                step_sig = sig if s == 0 else None
+                if step_sig is not None:
+                    step_sig["q"] = q
                 # quantize, then gather: the narrow payload and the
                 # sidecar cross, never the dequantized stack
                 deq = quant.dequantize(axis.all_gather(q),
                                        axis.all_gather(sc))
                 if cfg.robust is not None:
+                    full = None if step_sig is None else {}
                     mixed = mixing.robust_mix_steps(
                         w, deq, cfg.robust, trim=cfg.robust_trim,
-                        clip=cfg.robust_clip, steps=1)
+                        clip=cfg.robust_clip, steps=1, sig=full)
+                    if step_sig is not None:
+                        step_sig["gate"] = sharding.node_block(full["gate"],
+                                                               axis)
                 else:
                     mixed = mixing.dense_mix(w, deq)
                 out = sharding.node_block(mixed, axis)
@@ -605,6 +622,15 @@ def run_dist_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
     kw = dict(dtype=problem.a.dtype, device=dev)
     state = ColaState(x_parts=torch.zeros((local_nodes, part.block), **kw),
                       v_stack=torch.zeros((local_nodes, problem.d), **kw))
+    obs_upd = obs_inc = None
+    if cfg.telemetry:
+        from repro_torch.obs import counters as obs_counters
+        obs_inc = obs_counters.dist_round_increments(
+            cfg, problem.d, comm=comm, plan=plan, conn=conn, k=k,
+            itemsize=problem.a.element_size())
+        obs_upd = obs_counters.make_update(cfg, obs_inc,
+                                           share=local_nodes / k)
+        state = state._replace(counters=obs_counters.init_counters(k, dev))
     draws = None
     if quantized:
         draws = (quant.wire_uniforms(seed, k, problem.d, dev,
@@ -647,8 +673,14 @@ def run_dist_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                for n in body_atk} or None
         wire_kw = ({} if draws is None
                    else _round_draws(draws, int(s_t["round"])))
-        return body(st, env_ctx, payload, s_t["active"], s_t.get("budgets"),
-                    atk=atk, **wire_kw)
+        sig = None if obs_upd is None else {}
+        new = body(st, env_ctx, payload, s_t["active"], s_t.get("budgets"),
+                   atk=atk, sig=sig, **wire_kw)
+        if obs_upd is None:
+            return new
+        # the round body builds a new state: carry the updated counters
+        counters, row = obs_upd(st.counters, sig, new)
+        return new._replace(counters=counters), {"obs": row}
 
     cad = metrics_lib.as_cadence(record_every)
     rec_mask = (None if cad
@@ -669,10 +701,23 @@ def run_dist_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
         sched.update(sched_cls.from_w_stack(plan, sched["w"],
                                             static=static).entries())
         del sched["w"]
-    res = exec_engine.run_round_blocks(
-        step_fn, state, sharding.schedule_block(sched, axis), context=env_l,
-        recorder=dist_rec, record_mask=rec_mask, block_size=block_size,
-        cadence=cad, num_rounds=rounds,
-        host_entries=("reset_any", "round"))
+    from repro_torch.obs import trace as obs_trace
+    with obs_trace.run_tracer(obs_upd is not None) as tracer:
+        res = exec_engine.run_round_blocks(
+            step_fn, state, sharding.schedule_block(sched, axis),
+            context=env_l, recorder=dist_rec, record_mask=rec_mask,
+            block_size=block_size, cadence=cad, num_rounds=rounds,
+            host_entries=("reset_any", "round"),
+            with_aux=obs_upd is not None)
+    history = metrics_lib.history_from(dist_rec, res)
+    if obs_upd is not None:
+        # the ranks' counts, combined once for the run
+        counters, series = obs_counters.combine_over_ranks(
+            res.state.counters, res.aux["obs"], axis)
+        history["telemetry"] = obs_counters.summarize(
+            counters, obs_inc, series=series, stop_round=res.stop_round,
+            dishonest=sched.get("atk_dishonest"))
+        cola._emit_report("run_dist_cola", problem, cfg, graph, obs_inc,
+                          history, tracer.summary())
     return RunResult(state=sharding.gather_state(res.state, axis),
-                     history=metrics_lib.history_from(dist_rec, res))
+                     history=history)

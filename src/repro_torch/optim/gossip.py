@@ -23,8 +23,9 @@ its node's (1, ...) rows of the states and batches, and the mix is the
 banded ring over the ranks (``ring_mix_pytree``: ``2 conn`` exchanges of
 each leaf per gossip step, ``mixing.ring_mix_ppermute``), which needs a
 circulant W of connectivity ``conn``. As in the reference, robust mixing,
-a quantized wire and DP run on the dense path only. ``telemetry=`` comes
-with observability, ROADMAP queue 1 item 15.
+a quantized wire and DP run on the dense path only. The block runner's
+``telemetry=True`` models the wire's bytes per mixed round and reports the
+run (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -37,9 +38,6 @@ import torch
 from repro_torch.core import executor as exec_engine, metrics as \
     metrics_lib, mixing, quant, topology as topo
 from repro_torch.optim import privacy
-
-TELEMETRY_TODO = ("telemetry= comes with observability: ROADMAP queue 1 "
-                  "item 15")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,6 +324,13 @@ def make_gossip_block_runner(local_step: Callable, gcfg: GossipConfig, *,
     hold this rank's node, (1, ...) and (T, 1, ...); ``w`` and ``active``
     stay whole. A ``ConsensusRecorder`` then sums over the ranks, so every
     rank records the same row and stops on the same round.
+
+    With ``telemetry=True`` (a recorder needed) the history gets
+    ``"telemetry"``: the modeled wire bytes per mixed round (the
+    parameters x the codec's bytes per emission; K emissions a gossip step
+    on the dense path, the all-gather oracle's view, 2 conn exchanges on
+    the ring), the final ``dp_epsilon`` under ``dp=``, and the run
+    registry a ``RunReport`` (``driver="gossip"``).
     """
     mix_ = _param_mixer(gcfg, mesh, axis, conn, dp)
     if mix_.axis is not None and recorder is not None:
@@ -337,8 +342,6 @@ def make_gossip_block_runner(local_step: Callable, gcfg: GossipConfig, *,
     if telemetry and recorder is None:
         raise ValueError("telemetry=True needs a recorder (the history "
                          "carries the counters and the dp_epsilon series)")
-    if telemetry:
-        raise NotImplementedError(TELEMETRY_TODO)
     names: list = []
 
     def step_fn(states, _ctx, sched_t, stopped):
@@ -368,10 +371,12 @@ def make_gossip_block_runner(local_step: Callable, gcfg: GossipConfig, *,
             # of block boundaries or early stopping
             sched["dp_round"] = np.arange(len(mix))
             host += ("dp_round",)
-        res = exec_engine.run_round_blocks(
-            step_fn, states, sched, recorder=recorder,
-            record_mask=record_mask, block_size=block_size,
-            host_entries=host, in_place=True, with_aux=True)
+        from repro_torch.obs import trace as obs_trace
+        with obs_trace.run_tracer(telemetry) as tracer:
+            res = exec_engine.run_round_blocks(
+                step_fn, states, sched, recorder=recorder,
+                record_mask=record_mask, block_size=block_size,
+                host_entries=host, in_place=True, with_aux=True)
         metrics = {n: res.aux[:, i] for i, n in enumerate(names)}
         if recorder is None:
             return res.state, metrics
@@ -389,9 +394,49 @@ def make_gossip_block_runner(local_step: Callable, gcfg: GossipConfig, *,
                 "clip": dp.clip, "sigma": dp.sigma, "delta": dp.delta,
                 "per_link": dp.per_link, "releases": final.releases,
                 "rho": final.rho, "epsilon": final.epsilon()}
+        if telemetry:
+            _gossip_telemetry(gcfg, states.params, mix, history,
+                              res.stop_round, ring=mix_.axis is not None,
+                              conn=conn, spans=tracer.summary())
         return res.state, metrics, history
 
     return run
+
+
+def _gossip_telemetry(gcfg: GossipConfig, params: dict, mix, history: dict,
+                      stop_round, *, ring: bool, conn, spans: dict) -> None:
+    """The block runner's ``history["telemetry"]`` and RunReport: the
+    modeled bytes per mixed round of the replicas' parameters on the
+    wire."""
+    from repro_torch.core.executor import fingerprint
+    from repro_torch.obs import report as obs_report
+    pcount = int(sum(np.prod(p.shape[1:]) for p in params.values()))
+    pb = quant.payload_bytes(pcount, gcfg.wire)
+    if not ring:
+        per_mix = gcfg.gossip_steps * gcfg.num_nodes * pb
+        permutes_mix = 0
+        contract = (f"gossip dense x{gcfg.gossip_steps}: "
+                    f"{per_mix:,}B/device/mixed-round "
+                    f"({pcount:,} params, wire={gcfg.wire})")
+    else:
+        c = conn or 1
+        per_mix = gcfg.gossip_steps * 2 * c * pb
+        permutes_mix = gcfg.gossip_steps * 2 * c
+        contract = (f"gossip ring conn={c}: {per_mix:,}B/device/"
+                    f"mixed-round ({pcount:,} params)")
+    mixed = int(np.asarray(mix, dtype=bool).sum())
+    t_total = int(np.asarray(mix).shape[0])
+    history["telemetry"] = {
+        "rounds": t_total, "mixed_rounds": mixed,
+        "wire_bytes": mixed * per_mix, "permutes": mixed * permutes_mix,
+        "contract": contract, "stop_round": stop_round}
+    if history.get("dp_epsilon"):
+        history["telemetry"]["dp_epsilon"] = float(history["dp_epsilon"][-1])
+    obs_report.auto_emit(obs_report.make_report(
+        driver="gossip", problem_fp=fingerprint(gcfg),
+        config=dataclasses.asdict(gcfg),
+        graph={"kind": gcfg.topology, "num_nodes": gcfg.num_nodes},
+        rounds=t_total, history=history, contract=contract, spans=spans))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -185,14 +185,16 @@ def _encode_block(v_block, ef_block, wire: str, u):
 
 def block_qmix_steps(v_block: torch.Tensor, ef_block, axis,
                      plan: BlockPlan, w_rows: torch.Tensor, steps: int,
-                     wire: str, draws=None, payload=None):
+                     wire: str, draws=None, payload=None,
+                     sig: dict | None = None):
     """B quantized block-mode gossip steps: each step encodes the rank's
     (K/M, d) block once (per-row scales, the rank's rows of the round's
     draws ``draws(step)``, EF folded when ``ef_block`` is not None), sends
     payload and sidecar per rank-level color into the dequantized buffer
     and contracts it against the W rows (``rows_product``): bitwise the
     rank's rows of ``mixing.qmix_steps``. ``payload``: the pipelined
-    ``(q, scale)`` of the first step. Returns ``(mixed, ef_new)``."""
+    ``(q, scale)`` of the first step. ``sig`` receives the first step's
+    payload as ``sig["q"]``. Returns ``(mixed, ef_new)``."""
     out, ef = v_block, ef_block
     row0 = axis.index * plan.local_nodes
     for s in range(steps):
@@ -202,6 +204,8 @@ def block_qmix_steps(v_block: torch.Tensor, ef_block, axis,
         else:
             q, sc, deq, ef = _encode_block(
                 out, ef, wire, None if draws is None else draws(s))
+        if s == 0 and sig is not None:
+            sig["q"] = q
         buf = block_gather_neighbors_q(q, sc, deq, axis, plan)
         out = rows_product(w_rows, buf, row0).reshape(out.shape)
     return out, ef
@@ -210,7 +214,8 @@ def block_qmix_steps(v_block: torch.Tensor, ef_block, axis,
 def block_robust_qmix_step(v_block: torch.Tensor, ef_block, axis,
                            plan: BlockPlan, w_rows: torch.Tensor, wire: str,
                            draws, mode: str, *, trim: int = 1,
-                           clip: float | None = None):
+                           clip: float | None = None,
+                           sig: dict | None = None):
     """ONE robust gossip step on a quantized wire, the composed
     ``cfg.robust`` x ``cfg.wire`` lowering: the block is encoded as in
     ``block_qmix_steps``, the narrow payload and its sidecar cross per
@@ -218,20 +223,25 @@ def block_robust_qmix_step(v_block: torch.Tensor, ef_block, axis,
     ``mixing.robust_neighborhood_mix``: the gate judges the values the
     receivers consume, bitwise the stacked composed branch of
     ``cola._round_body`` for trim / median. One step by construction
-    (``cola._check_wire_config``). Returns ``(mixed, ef_new)``."""
+    (``cola._check_wire_config``). ``sig`` receives the payload
+    (``sig["q"]``) and the rejection mask of the rank's rows
+    (``sig["gate"]``). Returns ``(mixed, ef_new)``."""
     q, sc, deq, ef_new = _encode_block(
         v_block, ef_block, wire, None if draws is None else draws(0))
+    if sig is not None:
+        sig["q"] = q
     buf = block_gather_neighbors_q(q, sc, deq, axis, plan)
     out = mixing.robust_neighborhood_mix(
         w_rows, buf, _row_ids(axis, plan, buf.device), mode, trim=trim,
-        clip=clip)
+        clip=clip, sig=sig)
     return out.reshape(v_block.shape).to(v_block.dtype), ef_new
 
 
 def block_robust_mix_step(v_block: torch.Tensor, axis, plan: BlockPlan,
                           w_rows: torch.Tensor, mode: str, *, trim: int = 1,
                           clip: float | None = None,
-                          v_self=None) -> torch.Tensor:
+                          v_self=None, sig: dict | None = None
+                          ) -> torch.Tensor:
     """One ROBUST gossip step for this rank's (K/M, ...) block: the
     ``block_mix_step`` buffer, aggregated per row by
     ``mixing.robust_neighborhood_mix`` instead of the product. The rule
@@ -241,28 +251,32 @@ def block_robust_mix_step(v_block: torch.Tensor, axis, plan: BlockPlan,
     stacked shape, ``_Neighborhood.rows_matmul``); clip's square-root and
     division chain holds at rtol over a run. ``v_self``: the block's
     honest states when ``v_block`` holds attacked payloads (a liar's lie
-    reaches its neighbors, never its own aggregate)."""
+    reaches its neighbors, never its own aggregate). ``sig`` receives the
+    (K/M, K) rejection mask of the block's rows (``sig["gate"]``)."""
     ln = plan.local_nodes
     buf = block_gather_neighbors(v_block.reshape(ln, -1), axis, plan)
     out = mixing.robust_neighborhood_mix(
         w_rows, buf, _row_ids(axis, plan, buf.device), mode, trim=trim,
         clip=clip,
-        self_override=None if v_self is None else v_self.reshape(ln, -1))
+        self_override=None if v_self is None else v_self.reshape(ln, -1),
+        sig=sig)
     return out.reshape(v_block.shape).to(v_block.dtype)
 
 
 def block_robust_mix_steps(v_block: torch.Tensor, axis, plan: BlockPlan,
                            w_rows: torch.Tensor, mode: str, *,
                            trim: int = 1, clip: float | None = None,
-                           steps: int = 1, v_self=None) -> torch.Tensor:
+                           steps: int = 1, v_self=None,
+                           sig: dict | None = None) -> torch.Tensor:
     """B robust block-mode steps one after the other (no W^B fold), as
     ``mixing.robust_mix_steps``; ``v_self`` applies to the first step
-    only."""
+    only, and ``sig`` receives the first step's mask."""
     out = v_block
     for s in range(steps):
         out = block_robust_mix_step(out, axis, plan, w_rows, mode, trim=trim,
                                     clip=clip,
-                                    v_self=v_self if s == 0 else None)
+                                    v_self=v_self if s == 0 else None,
+                                    sig=sig if s == 0 else None)
     return out
 
 

@@ -8,7 +8,10 @@ each world size they name, it spawns that many ranks, which rendezvous
 through a file under OUT_DIR. Rank 0 also runs the port's ``run_cola`` on
 the same inputs, and writes ``OUT_DIR/<world>_<case>.npz``: the
 distributed and the stacked final states, both histories and the
-distributed run's collective counts (JSON). The "cert" group also writes
+distributed run's collective counts (JSON); a ``telemetry`` case also
+runs with ``cfg.telemetry`` on (``x_on``, ``v_on``, ``history_on``,
+``counts_on``, and rank 0's ``run_cola`` telemetry ``history_sim_on``).
+Every rank runs with ``REPRO_RUNS_DIR=off``. The "cert" group also writes
 the counts of one mixing step and one certificate record on each plan
 path (``<world>_probe.json``, ``budget_probe``).
 
@@ -24,6 +27,7 @@ writes one wire mix's counts per wire and comm (``<world>_wire_probe
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import json
 import os
@@ -61,11 +65,12 @@ def data(kind: str):
 
 def _case(data="ridge", graph=("torus_2d", (2, 4)), cfg=None, rounds=25,
           worlds=(2, 4), claim="bitwise", group="mix", probe=False,
-          ref_draws=False, **run):
+          ref_draws=False, telemetry=False, **run):
     base = dict(comm="plan", record_every=6, seed=3)
     return dict(data=data, graph=graph, cfg=cfg or {"kappa": 1.0},
                 rounds=rounds, worlds=worlds, claim=claim, group=group,
-                probe=probe, ref_draws=ref_draws, run={**base, **run})
+                probe=probe, ref_draws=ref_draws, telemetry=telemetry,
+                run={**base, **run})
 
 
 def attacks_of(spec, pkg):
@@ -204,6 +209,14 @@ CASES.update({
         **dict(ATK, graph=("torus_2d", (2, 2)), worlds=(4,), rounds=20,
                cfg={"kappa": 2.0, "robust": "trim"},
                attacks="sign_flip_4"), comm="ring", claim="rtol"),
+    # telemetry over ranks: each run again with the counters on (bitwise
+    # the run without them), no early stop, so every round counts
+    "tel_fp32": _case(group="wire", telemetry=True),
+    "tel_int8": _case(cfg={"kappa": 1.0, "wire": "int8"}, group="wire",
+                      telemetry=True),
+    "tel_trim_sign_flip": _case(
+        **dict(ATK, cfg={"kappa": 2.0, "robust": "trim"}, rounds=20,
+               recorder="gap", eps=None), telemetry=True),
 })
 
 
@@ -287,6 +300,21 @@ def run_cases(rank: int, world: int, out_dir: str, group: str) -> None:
                                   record_every=20)
             extra = {"x_trunc": trunc.state.x_parts.numpy(),
                      "v_trunc": trunc.state.v_stack.numpy()}
+        if case["telemetry"]:
+            cfg_on = dataclasses.replace(cfg, telemetry=True)
+            axis.reset_counts()
+            on = run_dist_cola(prob, graph, cfg_on, axis, case["rounds"],
+                               comm=comm, device="cpu", block_size=16, **run)
+            extra = {"x_on": on.state.x_parts.numpy(),
+                     "v_on": on.state.v_stack.numpy(),
+                     "history_on": json.dumps(on.history),
+                     "counts_on": json.dumps(
+                         {"calls": dict(axis.counts),
+                          "sent": dict(axis.sent_bytes)})}
+            if rank == 0:
+                extra["history_sim_on"] = json.dumps(cola.run_cola(
+                    prob, graph, cfg_on, case["rounds"], device="cpu",
+                    block_size=16, **run).history)
         if rank != 0:
             continue
         sim = cola.run_cola(prob, graph, cfg, case["rounds"], device="cpu",
@@ -582,6 +610,8 @@ def _rank(rank: int, world: int, out_dir: str, group: str) -> None:
 def main(argv) -> int:
     import torch.multiprocessing as mp
     out_dir, group = os.path.abspath(argv[0]), argv[1]
+    # telemetry runs write no run registry
+    os.environ["REPRO_RUNS_DIR"] = "off"
     for world in worlds_of(group):
         mp.spawn(_rank, args=(world, out_dir, group), nprocs=world)
     print("DIST_RANKS_OK")

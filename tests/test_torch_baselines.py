@@ -135,11 +135,14 @@ def test_loop_and_block_executors_bitwise(method):
     (tbl.run_dgd, dict(step=0.1, telemetry=True), "item 15"),
     (tbl.run_diging, dict(step=0.1, telemetry=True), "item 15"),
     (tbl.run_dadmm, dict(rho=1.0, telemetry=True), "item 15")])
-def test_unported_options_raise(run, kw, item):
-    """Telemetry (ROADMAP queue 1 item 15) still raises. The robust
-    aggregation (item 11) runs now: robust DGD and DIGing against the
-    reference's robust runs, at the tolerances of
-    ``test_baseline_matches_reference``."""
+def test_unported_options_raise(run, kw, item, monkeypatch):
+    """Every option is ported now. The robust aggregation (item 11):
+    robust DGD and DIGing against the reference's robust runs, at the
+    tolerances of ``test_baseline_matches_reference``. Telemetry (item
+    15): the telemetry entry equals the reference's (the modeled wire
+    bytes and exchanges, the contract line, the rounds; no registry
+    written), the history at the same tolerances."""
+    monkeypatch.setenv("REPRO_RUNS_DIR", "off")
     ref, port = _problems("square", "l2")
     if item == "item 11":
         j_run = {tbl.run_dgd: jbl.run_dgd,
@@ -156,8 +159,16 @@ def test_unported_options_raise(run, kw, item):
         np.testing.assert_allclose(got.w_stack.numpy(), w_ref, rtol=0,
                                    atol=1e-4 * np.max(np.abs(w_ref)))
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        run(port, ttopo.ring(K), rounds=2, device="cpu", **kw)
+    j_run = {tbl.run_dgd: jbl.run_dgd, tbl.run_diging: jbl.run_diging,
+             tbl.run_dadmm: jbl.run_dadmm}[run]
+    want = j_run(ref, jtopo.ring(K), rounds=12, record_every=4, **kw)
+    got = run(port, ttopo.ring(K), rounds=12, record_every=4,
+              device="cpu", **kw)
+    h, w = got.history, want.history
+    assert h["telemetry"] == w["telemetry"]
+    assert h["telemetry"]["wire_bytes"] > 0
+    assert h["round"] == w["round"]
+    np.testing.assert_allclose(h["objective"], w["objective"], rtol=1e-4)
 
 
 def test_problem_on_another_device_raises():

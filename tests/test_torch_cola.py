@@ -260,29 +260,39 @@ def test_solve_reference_matches_reference():
 @pytest.mark.parametrize("bad", [
     dict(cfg=dict(robust="trim")), dict(cfg=dict(telemetry=True)),
     dict(attacks=[object()])])
-def test_unported_features_raise(bad):
-    """Telemetry (ROADMAP queue 1 item 15) still raises. Robust mixing and
-    attacks (item 11) run now: robust="trim" matches the reference's run
-    (the tolerances of ``_assert_history``), and an attack list holding
-    something that is no scenario raises TypeError in both packages."""
+def test_unported_features_raise(bad, monkeypatch):
+    """Every case is ported now. Robust mixing and attacks (item 11):
+    robust="trim" matches the reference's run (the tolerances of
+    ``_assert_history``), and an attack list holding something that is no
+    scenario raises TypeError in both packages. Telemetry (item 15): the
+    history matches the reference's at the same tolerances, and the
+    counters' integers (rounds, wire bytes, exchanges, the contract line,
+    gate counts) equal the reference's (no registry written)."""
+    monkeypatch.setenv("REPRO_RUNS_DIR", "off")
     ref, port = _lasso()
     bad = dict(bad)
     cfg = bad.pop("cfg", {})
+    if cfg.get("telemetry"):
+        want = j_run(ref, jtopo.ring(4), JConfig(**cfg), 20, record_every=4)
+        got = tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(**cfg), 20,
+                             record_every=4, device="cpu")
+        _assert_history(got.history, want.history)
+        tel, rtel = got.history["telemetry"], want.history["telemetry"]
+        for key in ("rounds", "wire_bytes", "permutes", "contract",
+                    "gate_rejections", "gate_total", "stop_round"):
+            assert tel[key] == rtel[key], key
+        assert tel["wire_bytes"] > 0
+        return
     if cfg.get("robust"):
         want = j_run(ref, jtopo.ring(4), JConfig(**cfg), 20, record_every=4)
         got = tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(**cfg), 20,
                              record_every=4, device="cpu")
         _assert_history(got.history, want.history)
         return
-    if "attacks" in bad:
-        with pytest.raises(TypeError, match="not an attack scenario"):
-            j_run(ref, jtopo.ring(4), JConfig(), 5, **bad)
-        with pytest.raises(TypeError, match="not an attack scenario"):
-            tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(), 5,
-                           device="cpu", **bad)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(**cfg), 5,
+    with pytest.raises(TypeError, match="not an attack scenario"):
+        j_run(ref, jtopo.ring(4), JConfig(), 5, **bad)
+    with pytest.raises(TypeError, match="not an attack scenario"):
+        tcola.run_cola(port, ttopo.ring(4), tcola.ColaConfig(), 5,
                        device="cpu", **bad)
 
 

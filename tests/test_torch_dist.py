@@ -211,17 +211,42 @@ def test_dist1_zero_rounds(group1):
     (dict(cfg=dict(robust="trim")), None, None),
     (dict(attacks="byz", cfg=dict(wire="int8")), NotImplementedError,
      "quantized wire"),
-    (dict(cfg=dict(telemetry=True)), NotImplementedError, "item 15"),
+    (dict(cfg=dict(telemetry=True)), None, None),
     (dict(cfg=dict(participation="half")), ValueError, "participation"),
     (dict(cfg=dict(pipeline=True)), ValueError, "quantized wire"),
     (dict(leave_mode="rejoin"), ValueError, "leave_mode"),
     (dict(comm="star"), ValueError, "unknown comm")],
     ids=["wire", "wire_arg", "robust", "attacks", "telemetry",
          "participation", "pipeline", "leave_mode", "comm"])
-def test_unported_and_bad_options_raise(group1, kw, exc, match):
-    _, port = _ridge()
+def test_unported_and_bad_options_raise(group1, kw, exc, match,
+                                       monkeypatch):
+    """Telemetry (ported): the run bitwise its telemetry-off twin and
+    ``run_cola``'s, and the telemetry entry against the reference's
+    ``run_dist_cola`` on a 1-device mesh (fp32; the reference's counters
+    fail on a quantized wire over a mesh): on ring(8) at one rank the
+    block plan has no colors, so 0 bytes and 0 exchanges, the contract
+    line, the rounds and the gate counts equal."""
+    monkeypatch.setenv("REPRO_RUNS_DIR", "off")
+    ref, port = _ridge()
     kw = dict(kw)
     cfg = kw.pop("cfg", {})
+    if cfg.get("telemetry"):
+        got = run_dist_cola(port, ttopo.ring(K), tcola.ColaConfig(**cfg),
+                            None, 6, device="cpu")
+        off = run_dist_cola(port, ttopo.ring(K), tcola.ColaConfig(), None,
+                            6, device="cpu")
+        tel = got.history.pop("telemetry")
+        _assert_bitwise(got, off)
+        _assert_bitwise(got, tcola.run_cola(port, ttopo.ring(K),
+                                            tcola.ColaConfig(), 6,
+                                            device="cpu"))
+        want = j_run_dist(ref, jtopo.ring(K), JConfig(**cfg), _mesh1(), 6)
+        rtel = want.history["telemetry"]
+        for key in ("wire_bytes", "permutes", "contract", "rounds",
+                    "gate_rejections", "stop_round"):
+            assert tel[key] == rtel[key], key
+        assert tel["wire_bytes"] == 0
+        return
     if cfg.get("participation"):
         cfg["participation"] = schedule.SampleConfig(k_active=K // 2)
     if kw.get("attacks"):

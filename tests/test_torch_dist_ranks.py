@@ -67,8 +67,10 @@ def cases_of(group: str) -> list:
 def load(out: Path, name: str, world: int) -> dict:
     z = np.load(out / f"{world}_{name}.npz")
     res = {key: z[key] for key in z.files}
-    for key in ("history", "history_sim", "counts"):
-        res[key] = json.loads(str(res[key]))
+    for key in ("history", "history_sim", "counts", "history_on",
+                "counts_on", "history_sim_on"):
+        if key in res:
+            res[key] = json.loads(str(res[key]))
     return res
 
 

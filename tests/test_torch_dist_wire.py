@@ -313,3 +313,46 @@ def test_gossip_ring_over_ranks(wire_out, world):
                                    rtol=1e-4, atol=1e-9)
         calls = json.loads(str(z["ring_calls"]))
         assert calls.get("all-gather", 0) == 0
+
+
+@pytest.mark.parametrize("name,world", [
+    (n, w) for n, w in cases_of("wire") if ranks.CASES[n]["telemetry"]])
+def test_telemetry_over_ranks(wire_out, name, world):
+    """Telemetry on, over 2 and 4 ranks: the run bitwise its telemetry-off
+    twin; the counted wire bytes and exchanges equal rounds x the block
+    plan's ``contract(wire=)`` and what ``NodeAxis`` counted; the only
+    collectives telemetry adds are the one all-reduce and the one
+    all-gather that combine the ranks' counts at the end (none in a
+    round); the per-sender gate counts equal the port's ``run_cola``'s."""
+    res = load(wire_out, name, world)
+    case = ranks.CASES[name]
+    np.testing.assert_array_equal(res["x_on"], res["x"])
+    np.testing.assert_array_equal(res["v_on"], res["v"])
+    tel = res["history_on"].pop("telemetry")
+    assert res["history_on"] == res["history"]
+    rounds = case["rounds"]
+    assert tel["rounds"] == rounds and tel["stop_round"] is None
+    graph = getattr(jtopo, case["graph"][0])(*case["graph"][1])
+    wire = case["cfg"].get("wire")
+    c = tplan.compile_block_plan(graph.adjacency, world).contract(
+        _problem(case).d, wire=wire)
+    assert tel["wire_bytes"] == rounds * c.max_collective_permute_bytes
+    assert tel["permutes"] == rounds * c.max_collective_permute_count
+    assert tel["contract"] == c.describe()
+    on, off = res["counts_on"], res["counts"]
+    assert on["sent"]["permute"] == tel["wire_bytes"]
+    assert on["calls"]["permute"] == tel["permutes"]
+    added = {kind: on["calls"].get(kind, 0) - off["calls"].get(kind, 0)
+             for kind in set(on["calls"]) | set(off["calls"])}
+    assert added == {"permute": 0, "all-gather": 1, "all-reduce": 1,
+                     "broadcast": 0}
+    sim = res["history_sim_on"]["telemetry"]
+    assert tel["gate_rejections"] == sim["gate_rejections"]
+    if "attacks" in case["run"]:
+        assert tel["dishonest_nodes"] == [1, 6]
+        assert tel["gate_dishonest"] > 0
+    if wire is not None:
+        np.testing.assert_allclose(tel["saturation_mean"],
+                                   sim["saturation_mean"], rtol=1e-5)
+        np.testing.assert_allclose(tel["ef_norm"], sim["ef_norm"],
+                                   rtol=1e-5)

@@ -489,10 +489,43 @@ def test_rejected_combinations_and_unported_paths(setup):
         tgsp.make_gossip_block_runner(tlocal,
                                       tgsp.GossipConfig(num_nodes=4),
                                       telemetry=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tgsp.make_gossip_block_runner(
-            tlocal, tgsp.GossipConfig(num_nodes=4),
-            recorder=tgsp.ConsensusRecorder(), telemetry=True)
+    # telemetry (ported): the entry equals the reference's on the same run
+    # (the modeled bytes per mixed round, the mixed rounds, the contract
+    # line; no registry written); under DP it also carries the final
+    # epsilon, the reference's accountant's
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_RUNS_DIR", "off")
+        cfg, _, state0, jlocal, _, pipe = setup
+        rounds = 3
+        jst, tst = _states(setup)
+        bs = [_batches(pipe, t) for t in range(rounds)]
+        batches = {key: np.stack([b[key] for b in bs]) for key in bs[0]}
+        w = np.broadcast_to(tgsp.GossipConfig(num_nodes=K).weights().astype(
+            np.float32), (rounds, K, K))
+        act = np.ones((rounds, K), np.float32)
+        mix = np.array([False, True, True])
+        _, _, got = tgsp.make_gossip_block_runner(
+            tlocal, tgsp.GossipConfig(num_nodes=K),
+            recorder=tgsp.ConsensusRecorder(), telemetry=True)(
+            tst, batches, w, act, mix, block_size=3)
+        _, _, want = jgsp.make_gossip_block_runner(
+            jlocal, jgsp.GossipConfig(num_nodes=K),
+            recorder=jgsp.ConsensusRecorder(), telemetry=True)(
+            jst, jax.tree.map(jnp.asarray, batches), jnp.asarray(w),
+            jnp.asarray(act), mix, block_size=3)
+        assert got["telemetry"] == want["telemetry"]
+        assert got["telemetry"]["wire_bytes"] > 0
+        _, tst = _states(setup)
+        _, _, got_dp = tgsp.make_gossip_block_runner(
+            tlocal, tgsp.GossipConfig(num_nodes=K, wire="int8"), dp=dp,
+            recorder=tgsp.ConsensusRecorder(), telemetry=True)(
+            tst, batches, w, act, mix, block_size=3)
+    tel = got_dp["telemetry"]
+    assert tel["wire_bytes"] == 2 * K * tq.payload_bytes(
+        int(sum(np.prod(p.shape[1:]) for p in tst.params.values())), "int8")
+    assert tel["dp_epsilon"] == float(jpriv.epsilon_schedule(
+        jpriv.DPConfig(clip=1.0, sigma=1.0), jtopo.ring(K), 1,
+        np.cumsum(mix))[-1])
 
 
 def test_dp_block_runner_history_carries_epsilon(setup):

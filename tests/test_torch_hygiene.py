@@ -3,8 +3,8 @@
 * No file of ``src/repro_torch``, ``chip_smoke.py`` or the port's examples
   imports JAX or the reference package (an AST scan).
 * Importing the port leaves ``jax`` and ``repro`` out of ``sys.modules``.
-* Without a card, the entry points refuse to run unless ``device="cpu"``
-  is asked for.
+* Without a card, the entry points (``python -m repro_torch.obs smoke``
+  too) refuse to run unless ``device="cpu"`` is asked for.
 """
 import ast
 import os
@@ -55,6 +55,7 @@ def test_import_leaves_jax_and_reference_unloaded():
             "import repro_torch.launch.train, repro_torch.optim.gossip, "
             "repro_torch.optim.privacy, repro_torch.train.checkpoint; "
             "import repro_torch.topo, repro_torch.dist; "
+            "import repro_torch.obs, repro_torch.obs.cli; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -63,9 +64,12 @@ def test_import_leaves_jax_and_reference_unloaded():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
+    # restored after the test: the smoke command points the registry at
+    # its --dir
+    monkeypatch.setenv("REPRO_RUNS_DIR", "off")
     from repro_torch import PROBLEMS, convert, run_cola
     from repro_torch.core import topology
     x = np.ones((6, 4), np.float32)
@@ -81,6 +85,15 @@ def test_entry_points_raise_without_a_card():
         run_cola(prob, topology.ring(2), ColaConfig(), 2)
     res = run_cola(prob, topology.ring(2), ColaConfig(), 2, device="cpu")
     assert res.state.x_parts.device.type == "cpu"
+
+    # the obs CLI's smoke runs: on the card unless --device cpu is asked
+    from repro_torch.obs import cli as obs_cli, report as obs_report
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        obs_cli.main(["--dir", str(tmp_path), "smoke"])
+    assert obs_report.load_reports(str(tmp_path)) == []
+    assert obs_cli.main(["--dir", str(tmp_path), "smoke", "--device",
+                         "cpu"]) == 0
+    assert len(obs_report.load_reports(str(tmp_path))) == 2
 
     from repro_torch.core import baselines
     with pytest.raises(RuntimeError, match="device='cpu'"):
