@@ -3502,6 +3502,209 @@ def obs_phase(torch, rt, cd_glm, bl, dist_mod, topo, axis, lasso, ring,
             "seconds": seconds}
 
 
+# one block of the full-width runs the analysis phase traces
+ANALYSIS_ROUNDS = 8
+
+
+def analysis_drivers(torch, axis) -> dict:
+    """Every registered driver and seeded violation of
+    ``repro_torch.analysis`` on the card, over the one-rank NCCL group:
+    the simulator drivers PASS; the dist drivers, which need 3 or 4 ranks,
+    SKIP with their reason (the CPU tests run them on 4 gloo ranks);
+    every fixture CAUGHT, the ``.item()`` in a round body by
+    ``set_sync_debug_mode("error")``, except a fixture that needs more
+    ranks than one (SKIP with its reason)."""
+    from repro_torch.analysis import drivers, selftest
+    out = {"drivers": {}, "selftests": {}}
+    with drivers.settings(device="cuda", axis=axis):
+        for name in sorted(drivers.DRIVER_REGISTRY):
+            t0 = time.perf_counter()
+            res = drivers.run_one(drivers.DRIVER_REGISTRY[name])
+            status = {"skip": "SKIP", "findings": "FAIL" if res["findings"]
+                      else "PASS"}.get(res["status"], "FAIL")
+            emit({"phase": "analysis_driver", "driver": name,
+                  "status": status, "findings": res["findings"],
+                  "detail": res["detail"][-2000:],
+                  "seconds": time.perf_counter() - t0})
+            if status == "FAIL" or (
+                    status == "SKIP"
+                    and drivers.DRIVER_REGISTRY[name].ranks <= axis.size):
+                fail(f"analysis: driver {name} {status}: "
+                     f"{res['findings'] or res['detail']}")
+            out["drivers"][name] = status
+        for name, caught, detail in selftest.run_selftests():
+            status = {None: "SKIP", True: "CAUGHT", False: "MISSED"}[caught]
+            emit({"phase": "analysis_selftest", "selftest": name,
+                  "status": status, "detail": detail[-2000:]})
+            if caught is False or (caught is None and
+                                   selftest.SELFTESTS[name].ranks <= 1):
+                fail(f"analysis: selftest {name} {status}: {detail}")
+            out["selftests"][name] = status
+    return out
+
+
+def analysis_block(torch, rt, cd_glm, obs_trace, name, prob, graph, cfg,
+                   attacks) -> dict:
+    """The trace passes over one warmed full-width block of ``run_cola``
+    (``ANALYSIS_ROUNDS`` rounds, gap+certificate with eps 1e-3, one
+    block): zero findings, and no kernel built or loaded and one cache
+    bypass for its one block-executor call on the warmed run (the
+    retrace pass). Beside it the block's host span (``obs.trace``) traced
+    and untraced, in turns untraced, traced, untraced: the passes' host
+    cost per block."""
+    from repro_torch.analysis import passes
+
+    def run():
+        return rt.run_cola(prob, graph, cfg, ANALYSIS_ROUNDS, device="cuda",
+                           recorder="gap+certificate", eps=1e-3,
+                           block_size=ANALYSIS_ROUNDS, attacks=attacks)
+
+    def spans(fn):
+        with obs_trace.use(obs_trace.Tracer()) as tracer:
+            out = fn()
+        torch.cuda.synchronize()
+        return out, block_span_ms(tracer.summary())
+
+    run()
+    _, plain_a = spans(run)
+    cd_glm.reset_launches()
+    with passes.RetraceMonitor() as mon:
+        trace, traced_ms = spans(lambda: passes.trace_ops(run))
+    launches = dict(cd_glm.LAUNCHES)
+    _, plain_b = spans(run)
+    findings = (passes.trace_passes(trace, where=name)
+                + passes.retrace_findings(mon, name))
+    in_rounds = [op for op in trace.within("round")]
+    row = {"phase": "analysis_" + name, "rounds": ANALYSIS_ROUNDS,
+           "findings": [str(f) for f in findings],
+           "ops": len(trace.ops), "ops_in_rounds": len(in_rounds),
+           "ops_in_round_bodies": sum(1 for _ in trace.within("step")),
+           "float_dtypes_in_block": sorted({
+               str(m.dtype) for op in trace.within("block")
+               for m in op.outputs if m.dtype.is_floating_point}),
+           "launches_in_round_bodies": trace.launch_counts("step"),
+           "launches": launches, "sync_debug_armed": True,
+           "sync_errors": len(trace.sync_errors),
+           "cache_events": [kind for _, kind in mon.events],
+           "block_executor_calls": mon.runs, "builds_on_warmed_run":
+               mon.builds,
+           "block_span_ms_untraced": [plain_a, plain_b],
+           "block_span_ms_traced": traced_ms,
+           "passes_host_ms_per_block": traced_ms - (plain_a + plain_b) / 2}
+    emit(row)
+    if findings or not in_rounds or \
+            launches["cd_gram"] != ANALYSIS_ROUNDS:
+        fail(f"analysis_{name}: findings {row['findings']}, "
+             f"{len(in_rounds)} ops in rounds, launches {launches}")
+    return row
+
+
+def analysis_round_ops(torch, rt, prob, graph) -> dict:
+    """``op_analysis.analyze`` of one run_a round body (the round
+    ``run_cola`` runs, without its recorder): flops, bytes, the ctypes
+    launches it lists as opaque (one ``cd_gram``), and the bytes over the
+    same call's device ms (CUDA events behind a sleep kernel) against the
+    card's HBM rate."""
+    import numpy as np
+    from repro_torch.core import cola, partition, topology
+    from repro_torch.launch import op_analysis
+    cfg = rt.ColaConfig(kappa=1.0)
+    part = partition.make_partition(prob.n, graph.num_nodes)
+    env = cola.build_env(prob, part)
+    body = cola.make_round(prob, part, cfg)
+    state = cola.init_state(prob, part)
+    w = torch.as_tensor(topology.metropolis_weights(graph).astype(
+        np.float32), device="cuda")
+    active = torch.ones((graph.num_nodes,), device="cuda")
+    body(state, env, w, active)
+    rep = op_analysis.analyze(body, state, env, w, active)
+    dev_ms = device_ms(torch, lambda: body(state, env, w, active), 5)
+    row = {"phase": "analysis_op_count", "run": "run_a round body",
+           "flops": rep["flops"], "bytes": rep["bytes"],
+           "opaque": rep["opaque"], "aten_ops": rep["ops"],
+           "collectives_total": rep["collectives"]["total"],
+           "device_ms": dev_ms,
+           "bytes_per_s": rep["bytes"] / (dev_ms * 1e-3),
+           "hbm_share": rep["bytes"] / (dev_ms * 1e-3) / HBM_BYTES_PER_S}
+    emit(row)
+    if rep["opaque"] != {"cd_gram": 1}:
+        fail(f"analysis_op_count: opaque launches {rep['opaque']}, want "
+             "one cd_gram")
+    del env
+    return row
+
+
+def analysis_contracts(torch, rt, axis, prob, graph) -> list:
+    """One round of dist1_a's body at one NCCL rank held to its contract:
+    the block plan at M = 1 exchanges 0 bytes and calls nothing, within
+    ``contract()`` (its per-rank ``check``: one rank may be unmatched in
+    every color); the dense comm all-gathers the fp32 stack (16 x 400,000
+    x 4 = 25,600,000 B) and the int8 one the narrow payload and its scales
+    (6,400,064 B), each within ``gather_contract``."""
+    from repro_torch.analysis import contracts, drivers
+    rows = []
+    with drivers.settings(device="cuda", axis=axis):
+        for comm, wire, want in (("plan", "fp32", 0),
+                                 ("dense", "fp32",
+                                  graph.num_nodes * prob.d * 4),
+                                 ("dense", "int8",
+                                  graph.num_nodes * (prob.d + 4))):
+            cfg = rt.ColaConfig(kappa=1.0, wire=wire)
+            report, plan, _, _ = drivers.dist_round(prob, graph, cfg, axis,
+                                                    comm=comm)
+            coll = report["collectives"]
+            counts = report["collective_counts"]
+            if comm == "plan":
+                contract = plan.contract(prob.d)
+                contract.check({"permute": counts["collective-permute"],
+                                **{k: counts[k] for k in contract.forbid}},
+                               {"permute": coll["collective-permute"]})
+                ok = coll["total"] == 0 and counts["total"] == 0
+            else:
+                contract = contracts.gather_contract(
+                    f"dense-oracle-{wire}",
+                    min_all_gather_bytes=prob.d * 4 if wire == "fp32"
+                    else prob.d)
+                contracts.check_comm(report, contract)
+                ok = coll["all-gather"] == want and coll["total"] == want
+            row = {"phase": "analysis_contract", "run": "dist1_a",
+                   "comm": comm, "wire": wire, "ranks": axis.size,
+                   "contract": contract.describe(), "bytes": coll,
+                   "calls": counts, "want_bytes": want}
+            emit(row)
+            if not ok:
+                fail(f"analysis_contract dist1_a {comm} {wire}: {coll}, "
+                     f"want {want} B")
+            rows.append(row)
+    return rows
+
+
+def analysis_phase(torch, rt, cd_glm, axis, lasso, ring, torus) -> dict:
+    """The ``analysis`` phase (see the module)."""
+    from repro_torch import attack
+    from repro_torch.core import metrics
+    from repro_torch.obs import trace as obs_trace
+    t_phase = time.perf_counter()
+    out = {"drivers": analysis_drivers(torch, axis)}
+    for name, graph, cfg_kw, attacks in (
+            ("run_a", ring, {}, None),
+            ("run_q8", ring, {"wire": "int8"}, None),
+            ("run_atk_trim", torus, {"robust": "trim"},
+             [attack.Byzantine(**FULL_BYZANTINE)])):
+        out[name] = analysis_block(torch, rt, cd_glm, obs_trace, name, lasso,
+                                   graph, rt.ColaConfig(kappa=1.0, **cfg_kw),
+                                   attacks)
+    out["op_count"] = analysis_round_ops(torch, rt, lasso, ring)
+    out["contracts"] = analysis_contracts(torch, rt, axis, lasso, ring)
+    footprints = metrics.render_footprints(NODES, EPS_FEATURES, EPS_SAMPLES
+                                           // NODES)
+    print(footprints, flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "analysis_total", "seconds": out["seconds"],
+          "footprint_lines": len(footprints.splitlines())})
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3667,6 +3870,10 @@ def main() -> int:
     # twins, DGD, the trace and the profiler's coverage, the run registry
     obs = obs_phase(torch, rt, cd_glm, bl, dist_mod, topo, axis, lasso, ring,
                     torus, x, y, atk_runs["run_atk_trim"])
+    # contract analysis: the drivers and seeded violations on the card, the
+    # passes over warmed full-width blocks, one round's op counts, dist1_a's
+    # contracts at one rank
+    analysis = analysis_phase(torch, rt, cd_glm, axis, lasso, ring, torus)
     for run in (run_q8, run_f8p, *atk_runs.values()):
         for key in ("state", "taps", "side"):
             run.pop(key, None)
@@ -3763,6 +3970,8 @@ def main() -> int:
         launches_dist1_d={f"{mode}_{comm}": row["launches"]["cd_gram"]
                           for mode, rows in dist1_d.items()
                           for comm, row in rows.items()},
+        **{f"launches_analysis_{name}": analysis[name]["launches"]["cd_gram"]
+           for name in ("run_a", "run_q8", "run_atk_trim")},
         n_k_2=gram_at(2),
         shape="K=16, n_k=125 (G resident), 125 steps",
         n_k_500=gram_at(500), n_k_1000=gram_at(1000),

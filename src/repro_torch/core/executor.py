@@ -39,6 +39,14 @@ the select discards it, and the reference's compiled-driver cache has no
 counterpart here: every ``run_round_blocks`` call reports one ``"bypass"``
 event to the ``cache_listener``s, the reference's event for a build
 without a cache. Capturing a block as a CUDA graph is later work.
+
+Two more hooks serve the contract analysis (``repro_torch.analysis``),
+and cost nothing while none is registered: a ``region_listener`` hears
+each block and each round begin and end (``("block" | "round",
+entering)``; a round spans its body, its record and its stop update, and
+the block's stop-flag read lies outside every round), the eager form of
+the reference's scan / while regions; a ``step_wrapper`` replaces the
+round body each call runs with ``wrap(step_fn, in_place=, with_aux=)``.
 """
 from __future__ import annotations
 
@@ -64,6 +72,17 @@ def _cache_event(key, kind: str) -> None:
 
 
 @contextlib.contextmanager
+def _registered(registry: list, fn):
+    registry.append(fn)
+    try:
+        yield fn
+    finally:
+        try:
+            registry.remove(fn)
+        except ValueError:  # already removed (a test cleared the list)
+            pass
+
+
 def cache_listener(fn: Callable[[Any, str], None]):
     """Register ``fn(key, kind)`` for cache events, removably.
 
@@ -72,14 +91,35 @@ def cache_listener(fn: Callable[[Any, str], None]):
     or leak a stale callback across tests. The same function object may be
     registered by nested scopes — each exit removes exactly one
     registration."""
-    _CACHE_LISTENERS.append(fn)
+    return _registered(_CACHE_LISTENERS, fn)
+
+
+# Region listeners and step wrappers (module docstring).
+_REGION_LISTENERS: list = []
+_STEP_WRAPPERS: list = []
+
+
+def region_listener(fn: Callable[[str, bool], None]):
+    """Register ``fn(region, entering)`` for the block and round regions of
+    every ``run_round_blocks`` call in the scope (removed on exit)."""
+    return _registered(_REGION_LISTENERS, fn)
+
+
+def step_wrapper(wrap: Callable[..., Callable]):
+    """Register ``wrap(step_fn, in_place=, with_aux=) -> step_fn``: every
+    ``run_round_blocks`` call in the scope runs the wrapped round body."""
+    return _registered(_STEP_WRAPPERS, wrap)
+
+
+@contextlib.contextmanager
+def _region(listeners: list, name: str):
+    for fn in listeners:
+        fn(name, True)
     try:
-        yield fn
+        yield
     finally:
-        try:
-            _CACHE_LISTENERS.remove(fn)
-        except ValueError:  # already removed (e.g. a test cleared the list)
-            pass
+        for fn in listeners:
+            fn(name, False)
 
 
 def _fp_update(h, obj, seen: set) -> None:
@@ -302,11 +342,17 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
     from repro_torch.obs import trace as obs_trace
     tracer = obs_trace.current()
     _cache_event(None, "bypass")
+    for wrap in list(_STEP_WRAPPERS):
+        step_fn = wrap(step_fn, in_place=in_place, with_aux=with_aux)
+    listeners = list(_REGION_LISTENERS)
+    no_region = contextlib.nullcontext()
+    region = ((lambda name: _region(listeners, name)) if listeners
+              else (lambda name: no_region))
     while start < t_total:
         stop = min(start + block_size, t_total)
         with tracer.span("block-first-dispatch" if start == 0
                          else "block-dispatch", start=start,
-                         rounds=stop - start):
+                         rounds=stop - start), region("block"):
             sched_b = {name: (np.asarray(v[start:stop])
                               if name in host_entries
                               else torch.as_tensor(
@@ -314,44 +360,46 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
                                   device=device))
                        for name, v in schedule.items()}
             for t in range(start, stop):
-                sched_t = {name: v[t - start] for name, v in sched_b.items()}
-                if stream is not None:
-                    sched_t.update(stream(t))
-                if in_place:
-                    new_state = step_fn(state, context, sched_t,
-                                        stopped if has_stop else None)
-                else:
-                    new_state = step_fn(state, context, sched_t)
-                if with_aux:
-                    new_state, aux = new_state
-                    aux_buf = _store_aux(aux_buf, aux, t, t_total,
-                                         stopped if has_stop else None)
-                state = (new_state if in_place or not has_stop
-                         else _select(stopped, state, new_state))
-                if has_cadence:
-                    row = record_at(state, sched_t).to(torch.float32)
-                    due = (nxt <= t) | (t == t_total - 1)
-                    do_rec = due & ~stopped
-                    far = recorder.cadence_ratio(row).to(torch.float32) \
-                        > cadence.near
-                    new_every = torch.where(
-                        far, torch.clamp(every * cadence.grow,
-                                         max=cadence.max_every),
-                        torch.full_like(every, cadence.base))
-                    every = torch.where(do_rec, new_every, every)
-                    nxt = torch.where(do_rec, t + new_every, nxt)
-                    metrics[t] = torch.where(do_rec, row,
-                                             torch.zeros_like(row))
-                    valid[t] = do_rec
-                    if has_stop:
-                        stopped = stopped | (do_rec & stop_fn(row))
-                elif rec_all[t]:
-                    row = record_at(state, sched_t).to(torch.float32)
-                    metrics[row_i] = row
-                    valid[row_i] = ~stopped
-                    if has_stop:
-                        stopped = stopped | (~stopped & stop_fn(row))
-                    row_i += 1
+                with region("round"):
+                    sched_t = {name: v[t - start]
+                               for name, v in sched_b.items()}
+                    if stream is not None:
+                        sched_t.update(stream(t))
+                    if in_place:
+                        new_state = step_fn(state, context, sched_t,
+                                            stopped if has_stop else None)
+                    else:
+                        new_state = step_fn(state, context, sched_t)
+                    if with_aux:
+                        new_state, aux = new_state
+                        aux_buf = _store_aux(aux_buf, aux, t, t_total,
+                                             stopped if has_stop else None)
+                    state = (new_state if in_place or not has_stop
+                             else _select(stopped, state, new_state))
+                    if has_cadence:
+                        row = record_at(state, sched_t).to(torch.float32)
+                        due = (nxt <= t) | (t == t_total - 1)
+                        do_rec = due & ~stopped
+                        far = recorder.cadence_ratio(row).to(torch.float32) \
+                            > cadence.near
+                        new_every = torch.where(
+                            far, torch.clamp(every * cadence.grow,
+                                             max=cadence.max_every),
+                            torch.full_like(every, cadence.base))
+                        every = torch.where(do_rec, new_every, every)
+                        nxt = torch.where(do_rec, t + new_every, nxt)
+                        metrics[t] = torch.where(do_rec, row,
+                                                 torch.zeros_like(row))
+                        valid[t] = do_rec
+                        if has_stop:
+                            stopped = stopped | (do_rec & stop_fn(row))
+                    elif rec_all[t]:
+                        row = record_at(state, sched_t).to(torch.float32)
+                        metrics[row_i] = row
+                        valid[row_i] = ~stopped
+                        if has_stop:
+                            stopped = stopped | (~stopped & stop_fn(row))
+                        row_i += 1
             executed = stop
             start = stop
             # the host-side short-circuit: one scalar sync per block, only

@@ -104,6 +104,17 @@ class GapRecorder:
                              "recorder (the ratio is gap / eps)")
         return row[self.labels.index("gap")] / self.eps
 
+    def collective_footprint(self, k: int, d: int, n_k: int,
+                             itemsize: int = 4, comm: str = "dense",
+                             conn: int = 1) -> dict:
+        """Bytes per rank per record round by collective kind, one node per
+        rank (the reference's accounting, ``render_footprints``)."""
+        # the gathered (K, n_k) and (K, d) stacks, plus scalar reductions
+        # for the row
+        return {"all-gather": k * (d + n_k) * itemsize,
+                "all-reduce": 2 * len(self.labels) * itemsize,
+                "collective-permute": 0}
+
 
 @dataclasses.dataclass(frozen=True)
 class CertificateRecorder:
@@ -284,6 +295,20 @@ class CertificateRecorder:
                  / self.grad_thresh)
         return torch.maximum(gap_r, dis_r)
 
+    def collective_footprint(self, k: int, d: int, n_k: int,
+                             itemsize: int = 4, comm: str = "dense",
+                             conn: int = 1) -> dict:
+        """Bytes per rank per record round, one node per rank: scalar
+        psums and the one stacked (2, d) Lemma-1 invariant psum
+        (``invariant_sums``), O(d); on the ring 2*conn exchanges of one
+        (d,) gradient, on the dense fallback the round body's gather."""
+        scalars = (2 * len(self.labels) + 3) * itemsize + 2 * d * itemsize
+        if comm == "ring":
+            return {"all-gather": 0, "all-reduce": scalars,
+                    "collective-permute": 2 * conn * d * itemsize}
+        return {"all-gather": k * d * itemsize, "all-reduce": scalars,
+                "collective-permute": 0}
+
 
 @dataclasses.dataclass(frozen=True)
 class ComposedRecorder:
@@ -350,6 +375,15 @@ class ComposedRecorder:
             out = torch.minimum(out, r)
         return out
 
+    def collective_footprint(self, k, d, n_k, itemsize=4, comm="dense",
+                             conn=1) -> dict:
+        out: dict = {}
+        for p in self.parts:
+            for kind, b in p.collective_footprint(
+                    k, d, n_k, itemsize, comm, conn).items():
+                out[kind] = out.get(kind, 0) + b
+        return out
+
 
 @dataclasses.dataclass(frozen=True)
 class FnRecorder:
@@ -366,6 +400,10 @@ class FnRecorder:
     @property
     def stop_fn(self) -> Callable | None:
         return self.stop
+
+    def collective_footprint(self, k, d, n_k, itemsize=4, comm="dense",
+                             conn=1) -> dict:
+        return {"all-gather": 0, "all-reduce": 0, "collective-permute": 0}
 
 
 def _l_bound(problem) -> float:
@@ -587,3 +625,33 @@ def history_from(recorder, result) -> dict:
         history[name] = [float(v) for v in result.metrics[:, j]]
     history["stop_round"] = result.stop_round
     return annotate_violation(history)
+
+
+def render_footprints(k: int, d: int, n_k: int, itemsize: int = 4) -> str:
+    """Human-readable per-record-round collective footprint of the stock
+    recorders on K ranks, one node each (the reference's ``dryrun --plan``
+    section, line for line)."""
+    gap = GapRecorder(problem=None, part=Partition(num_nodes=k, n=k * n_k,
+                                                   block=n_k))
+    lines = [f"[cola recorder footprint] K={k} d={d} n_k={n_k} "
+             f"itemsize={itemsize} (bytes per device per record round)"]
+    rows = [("gap (gather)", "dense",
+             gap.collective_footprint(k, d, n_k, itemsize)),
+            ("certificate", "dense",
+             CertificateRecorder.collective_footprint(
+                 _FootprintOnly(), k, d, n_k, itemsize, "dense")),
+            ("certificate", "ring",
+             CertificateRecorder.collective_footprint(
+                 _FootprintOnly(), k, d, n_k, itemsize, "ring"))]
+    for name, comm, fp in rows:
+        body = "  ".join(f"{kind}={fp[kind]:,}" for kind in
+                         ("all-gather", "collective-permute", "all-reduce"))
+        lines.append(f"  {name:<16} comm={comm:<6} {body}")
+    return "\n".join(lines)
+
+
+class _FootprintOnly:
+    """Stand-in self for ``CertificateRecorder.collective_footprint``, so
+    the footprint renders without problem tensors."""
+
+    labels = CERT_METRICS

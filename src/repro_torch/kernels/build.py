@@ -45,6 +45,9 @@ SIGNATURES = {
 
 _LOADED: dict = {}
 LAST_BUILD_LOG: dict = {}
+# nvcc processes started and libraries loaded in this process: a warmed run
+# adds to neither (``repro_torch.analysis``'s retrace pass)
+BUILD_COUNTS = {"nvcc": 0, "load": 0}
 
 
 def _nvcc() -> str:
@@ -84,6 +87,7 @@ def build_all(names=None) -> dict:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        BUILD_COUNTS["nvcc"] += 1
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -102,6 +106,7 @@ def build_all(names=None) -> dict:
     for name in names:
         if name not in _LOADED:
             _LOADED[name] = _bind(name, _target(name))
+            BUILD_COUNTS["load"] += 1
     return seconds
 
 

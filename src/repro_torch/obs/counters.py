@@ -73,8 +73,9 @@ def round_increments(graph, d: int, cfg, itemsize: int = 4) -> dict:
 
     Returns ``{"bytes_per_round", "permutes_per_round", "contract",
     "contract_name"}`` — the same ``comm_budget`` numbers the plan's
-    ``CommContract`` holds the distributed runtime's exchanges to, so the
-    telemetry byte counter and the checked contract agree by construction.
+    ``CommContract`` (``repro_torch.analysis.contracts``) holds the
+    distributed runtime's exchanges to, so the telemetry byte counter and
+    the checked contract agree by construction.
     """
     from repro_torch.topo import compile_plan
     return _plan_increments(compile_plan(graph), d, cfg, itemsize)

@@ -37,67 +37,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import CommContract
 from repro_torch.core import quant, topology as topo
 from repro_torch.topo import coloring
 
 Edge = coloring.Edge
-
-#: collective kinds a neighbor-only program must not issue at all
-FORBID_NEIGHBOR_ONLY: Tuple[str, ...] = (
-    "all-gather", "all-reduce", "reduce-scatter", "all-to-all")
-
-
-@dataclasses.dataclass(frozen=True)
-class CommContract:
-    """The per-rank collective budget of one gossip round: at most
-    ``max_collective_permute_count`` exchanges moving at most
-    ``max_collective_permute_bytes`` bytes sent per rank, and none of the
-    ``forbid`` kinds. ``check`` holds a ``NodeAxis``'s counts to it."""
-
-    name: str
-    forbid: Tuple[str, ...] = FORBID_NEIGHBOR_ONLY
-    max_collective_permute_bytes: float | None = None
-    max_collective_permute_count: float | None = None
-    require_collective_permute: bool = False
-
-    def describe(self) -> str:
-        """One-line budget summary."""
-        parts = []
-        if self.max_collective_permute_count is not None:
-            parts.append(
-                f"<={int(self.max_collective_permute_count)} "
-                "collective-permute(s)")
-        if self.max_collective_permute_bytes is not None:
-            parts.append(
-                f"<={int(self.max_collective_permute_bytes):,} "
-                "ppermute bytes/device")
-        if self.forbid:
-            parts.append("zero " + "/".join(self.forbid))
-        return f"[contract {self.name}] " + ", ".join(parts)
-
-    def check(self, calls: dict, sent: dict) -> None:
-        """Raise ``AssertionError`` unless one round's counts (``calls`` and
-        ``sent`` bytes by kind, as ``NodeAxis.counts`` / ``sent_bytes``
-        hold them) meet the budget. ``require_collective_permute`` is the
-        program's promise across ranks; one rank may be unmatched in every
-        color (a block plan at M = 1 has none)."""
-        bad = []
-        n_perm, b_perm = calls.get("permute", 0), sent.get("permute", 0)
-        if (self.max_collective_permute_count is not None
-                and n_perm > self.max_collective_permute_count):
-            bad.append(f"{n_perm} permutes > "
-                       f"{self.max_collective_permute_count}")
-        if (self.max_collective_permute_bytes is not None
-                and b_perm > self.max_collective_permute_bytes):
-            bad.append(f"{b_perm} permute bytes > "
-                       f"{self.max_collective_permute_bytes}")
-        for kind in self.forbid:
-            if calls.get(kind, 0):
-                bad.append(f"{calls[kind]} {kind} call(s)")
-        if bad:
-            raise AssertionError(f"{self.describe()} violated: "
-                                 + "; ".join(bad))
-
 
 def _payload_bytes(d: int, itemsize: int, wire: str | None,
                    rows: int = 1) -> int:

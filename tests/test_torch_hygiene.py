@@ -4,7 +4,8 @@
   imports JAX or the reference package (an AST scan).
 * Importing the port leaves ``jax`` and ``repro`` out of ``sys.modules``.
 * Without a card, the entry points (``python -m repro_torch.obs smoke``
-  too) refuse to run unless ``device="cpu"`` is asked for.
+  and ``python -m repro_torch.analysis`` too) refuse to run unless
+  ``device="cpu"`` is asked for.
 """
 import ast
 import os
@@ -56,6 +57,9 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.optim.privacy, repro_torch.train.checkpoint; "
             "import repro_torch.topo, repro_torch.dist; "
             "import repro_torch.obs, repro_torch.obs.cli; "
+            "import repro_torch.analysis.drivers, "
+            "repro_torch.analysis.selftest, repro_torch.analysis.__main__, "
+            "repro_torch.launch.op_analysis; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -143,3 +147,16 @@ def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
     res = train_mod.gossip_train(cfg, hp, pipe, gcfg, 1, device="cpu")
     assert res.states.params["embed"].device.type == "cpu"
     assert res.states.params["embed"].shape[0] == 2
+
+
+def test_analysis_cli_refuses_without_a_card():
+    """``python -m repro_torch.analysis`` runs its drivers on the card
+    unless ``--device cpu`` is given; ``--list`` needs no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.analysis import __main__ as analysis_cli
+    for argv in (["--selftest"], ["--all"], ["--driver", "sim"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            analysis_cli.main(argv)
+    assert analysis_cli.main(["--list"]) == 0
+    assert analysis_cli.main(["--driver", "sim", "--device", "cpu"]) == 0
