@@ -142,6 +142,27 @@ line:
    step against a full forward, and profile the prefill and one decode
    step.
 10. serve_small — Qwen3-4B width, 2 layers, fp32: the card against the CPU.
+10b. serve_moe_a — Llama-4-Maverick at full width, 2 of 48 layers (one
+   group: a dense layer, then the MoE layer with 128 experts top-1 and the
+   shared expert), chunked-local attention (window 8,192), bf16, scatter
+   dispatch at capacity factor 1.25: 4 prompts of 2,048 tokens, 16 greedy
+   tokens through ``launch.serve.serve``. Checks the flash launches (2
+   ``flash_mma`` at the prefill, 2 ``flash_split`` + 2 ``flash_combine``
+   a decode step), finite logits, the forward under scatter with C >= T
+   against the forward under ``moe_mode="dense"`` on a 2 x 512 prefix,
+   and a dense decode step after a 511-token prefill against the dense
+   forward's last position (routes compared; a row whose route flips at
+   a near-tie is left out and shown). Reports parameters, init seconds
+   and peak, prefill and decode times, peak memory, and the MoE layer's
+   device ms in the prefill and in one decode step (profiler ranges)
+   against its bytes bound with all 128 experts read (the batched
+   product reads them all) and with the experts the call used.
+10c. serve_moe_small — a dbrx shape (16 experts top-4) and a llama4 shape
+   (128 experts top-1, shared expert, dense + MoE groups, chunked-local
+   window 64) at d_model 512, 2 groups, fp32: the card against the CPU,
+   teacher forced, 2 prompts of 120 tokens and 16 tokens; every router
+   call's routes compared (a flip allowed only at a CPU margin below
+   1e-4, its batch row then left out).
 11. attn_grad — the flash kernel with a gradient (``FlashAttention``) at
    the training shape (B=2, S=1,024, 32/8 heads, hd 128, causal): dq, dk,
    dv against autograd of the plain version on the card, bf16 and fp32;
@@ -2157,8 +2178,10 @@ def cache_bytes(cache: dict) -> int:
 
 def want_flash_launches(torch, fa, cfg, prompt_len: int, gen: int) -> dict:
     """Launches of each flash kernel in one ``serve``: the prefill's route
-    once per layer, the decode steps' route (split + combine) once per
+    once per attention layer (a MoE group's dense layers and its MoE
+    layer), the decode steps' route (split + combine) once per attention
     layer and step."""
+    from repro_torch.models.transformer import num_attn_layers
     g = cfg.num_heads // cfg.num_kv_heads
     dtype = getattr(torch, cfg.dtype)
     want = {name: 0 for name in fa.LAUNCHES}
@@ -2166,7 +2189,7 @@ def want_flash_launches(torch, fa, cfg, prompt_len: int, gen: int) -> dict:
         route = fa.select_route(dtype, sq, g)
         for kernel in (("flash_split", "flash_combine") if route == "split"
                        else (f"flash_{route}",)):
-            want[kernel] += cfg.num_layers * calls
+            want[kernel] += num_attn_layers(cfg) * calls
     return want
 
 
@@ -2270,15 +2293,14 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
     return out
 
 
-def serve_small_phase(torch, rt, fa, serve_mod, transformer, cfg) -> dict:
+def serve_small_phase(torch, rt, fa, serve_mod, cfg) -> dict:
     """The card (kernel) against the CPU (plain version) in fp32, teacher
     forced with the card's tokens: per-step logits at rtol 1e-4 and atol
     1e-4 * max|logits|."""
     api = rt.build_model(cfg, device="cuda")
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
     api_cpu = rt.build_model(cfg, device="cpu")
-    params_cpu = transformer.init_params(cfg, None, torch.device("cpu"))
-    params_cpu.load_state_dict(params.state_dict())
+    params_cpu = {name: t.cpu() for name, t in params.items()}
     prompt = torch.randint(0, cfg.vocab_size, (2, 64),
                            generator=torch.Generator().manual_seed(0))
     gen = 5
@@ -2308,6 +2330,375 @@ def serve_small_phase(torch, rt, fa, serve_mod, transformer, cfg) -> dict:
     del params, params_cpu
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE serving: Llama-4-Maverick at full width, card vs CPU at small widths
+# ---------------------------------------------------------------------------
+
+# serve_moe_a, bf16: the forward under scatter dispatch with C >= T
+# (nothing dropped) against the forward under moe_mode="dense", max|diff|
+# <= MOE_MODE_TOL * max|logits|. Both route identical inputs (the MoE
+# layer is the last of the one group) and run each expert on the same
+# rows through batched products of one shape; the combines add one
+# weighted term (top-1) in fp32. 1 % leaves room for a product the
+# library tiles differently and fails a wrong slot, which moves a token's
+# logits by their own size.
+MOE_MODE_TOL = 1e-2
+# serve_moe_small, fp32: a routing flip between the card and the CPU is
+# allowed only where the CPU's top-k margin (k-th minus (k+1)-th
+# probability) is below this, and that batch row is then left out of the
+# logits comparison; fp32 noise moves probabilities by ~1e-7
+FLIP_MARGIN = 1e-4
+# serve_moe_a: decode after a 511-token prefill against the forward's last
+# position, both dense, may route a token differently where bf16 rounding
+# moves the router's input across a near-tie (the paths round differently
+# shaped products, as FWD_TOL says); such a row is left out, and only
+# where the forward's top-1 margin is below this
+FLIP_MARGIN_BF16 = 2e-3
+
+
+class RouteTap:
+    """Records every ``mlp._router`` call while entered: the top-k indices
+    and the margin between the k-th and (k+1)-th probability of each
+    token, as host tensors (a sync per call: never inside a timed run)."""
+
+    def __init__(self, torch, mlp_mod):
+        self.torch, self.mlp, self.calls = torch, mlp_mod, []
+
+    def __enter__(self):
+        torch, orig = self.torch, self.mlp._router
+        self.orig = orig
+
+        def tapped(p, x_flat, k):
+            w, idx, aux = orig(p, x_flat, k)
+            probs = torch.softmax(x_flat.float() @ p["router"].float(), -1)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            self.calls.append((idx.cpu(), (top[:, k - 1] - top[:, k]).cpu()))
+            return w, idx, aux
+
+        self.mlp._router = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp._router = self.orig
+
+
+def route_flips(card: RouteTap, cpu: RouteTap, rows_of, margin: float,
+                name: str) -> tuple[list, list]:
+    """Token rows routed differently by the two taps (call by call):
+    (flips as dicts, the batch rows to leave out). A flip whose margin on
+    the ``cpu`` side is not below ``margin`` fails ``name``."""
+    if len(card.calls) != len(cpu.calls):
+        fail(f"{name}: {len(card.calls)} router calls against "
+             f"{len(cpu.calls)}")
+    flips, rows = [], set()
+    for i, ((ia, _), (ib, mb)) in enumerate(zip(card.calls, cpu.calls)):
+        for r in (ia != ib).any(dim=1).nonzero()[:, 0].tolist():
+            flip = {"call": i, "token_row": r, "batch_row": rows_of(i, r),
+                    "margin": float(mb[r])}
+            flips.append(flip)
+            if not flip["margin"] < margin:
+                fail(f"{name}: routing flip at a margin of "
+                     f"{flip['margin']} (allowed below {margin}): {flip}")
+            rows.add(flip["batch_row"])
+    return flips, sorted(rows)
+
+
+def moe_profile(torch, mlp_mod, fn, host_ms: float) -> dict:
+    """``fn`` once under ``torch.profiler`` with every ``moe_apply`` call
+    inside a ``record_function`` range: the device ms of the kernels
+    launched in those ranges (the MoE layer), of all kernels, and the
+    idle share of ``host_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    orig = mlp_mod.moe_apply
+
+    def annotated(*args, **kw):
+        with record_function("moe_apply"):
+            return orig(*args, **kw)
+
+    mlp_mod.moe_apply = annotated
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        mlp_mod.moe_apply = orig
+    dev = lambda e: getattr(e, "device_time_total", None) or getattr(
+        e, "cuda_time_total", 0.0)
+    events = prof.events()
+    moe_cpu = [e for e in events
+               if e.name == "moe_apply" and e.device_type == DeviceType.CPU]
+    moe_span = [e for e in events
+                if e.name == "moe_apply" and e.device_type != DeviceType.CPU]
+    kernels = [e for e in prof.key_averages()
+               if "CUDA" in str(e.device_type) and e.key != "moe_apply"]
+    device_ms = sum(dev(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -dev(e))[:6]
+    return {"host_ms": host_ms, "device_ms": device_ms,
+            "device_idle_share": (1.0 - device_ms / host_ms
+                                  if device_ms and host_ms else None),
+            "moe_calls": len(moe_cpu),
+            "moe_device_ms": sum(dev(e) for e in moe_cpu) / 1e3,
+            "moe_span_ms": (sum(e.time_range.elapsed_us() for e in moe_span)
+                            / 1e3 if moe_span else None),
+            "top_kernels": [{"name": e.key[:60], "ms": dev(e) / 1e3,
+                             "calls": e.count} for e in top]}
+
+
+def moe_bytes(cfg, tokens: int, experts: int) -> float:
+    """Bytes one MoE layer must move when ``experts`` of its experts are
+    read: their three (d, f) matrices, the shared expert's, the router,
+    and the layer's input and output rows (bf16)."""
+    item = 2
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return item * (3 * d * f * (experts + int(cfg.moe_shared_expert))
+                   + d * e + 2 * tokens * d)
+
+
+def serve_moe_a_phase(torch, rt, fa, serve_mod, mlp_mod, *, batch=4,
+                      prompt_len=2048, gen=16) -> dict:
+    """Llama-4-Maverick at full width, one group (a dense layer, then the
+    MoE layer: 128 experts top-1 and the shared expert), chunked-local
+    attention, bf16, scatter dispatch at capacity factor 1.25, through
+    ``launch.serve.serve``. Checks the flash launches, finite logits,
+    scatter (C >= T) against dense, and decode against forward; reports
+    init, memory, prefill and decode times, the MoE layer's device ms in
+    the prefill and in one decode step (profiler) against its bytes
+    bound."""
+    from repro_torch.models.blocks import ModelCtx
+    name = "serve_moe_a"
+    cfg = dataclasses.replace(rt.get_config("llama4_maverick_400b"),
+                              num_layers=2)
+    api = rt.build_model(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in params.values())
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=g, device="cuda")
+    serve_mod.serve(api, params, prompt, 2, device="cuda")   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    res = serve_mod.serve(api, params, prompt, gen, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = want_flash_launches(torch, fa, cfg, prompt_len, gen)
+    if launches != want:
+        fail(f"{name}: flash launches {launches}, want {want}")
+    if not bool(torch.isfinite(res.logits).all()):
+        fail(f"{name}: non-finite logits")
+
+    # scatter with C >= T (capacity factor E / k) against dense, and decode
+    # against forward, on a B = 2 x prefix
+    dense = ModelCtx(moe_mode="dense")
+    prefix = min(512, prompt_len)
+    nodrop = rt.build_model(dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token),
+        device="cuda")
+    x = prompt[:2, :prefix].contiguous()
+    with torch.no_grad(), RouteTap(torch, mlp_mod) as tap_s:
+        f_scatter, _ = nodrop.forward(params, {"tokens": x})
+    with torch.no_grad(), RouteTap(torch, mlp_mod) as tap_d:
+        f_dense, _ = api.forward(params, {"tokens": x}, dense)
+    route_flips(tap_s, tap_d, lambda i, r: r // prefix, 0.0,
+                f"{name} scatter vs dense")
+    scale = float(f_dense.abs().max())
+    mode_diff = float((f_scatter - f_dense).abs().max())
+    del f_scatter
+    if not mode_diff <= MOE_MODE_TOL * scale:
+        fail(f"{name}: scatter (nothing dropped) and dense disagree: max "
+             f"abs diff {mode_diff} > {MOE_MODE_TOL} * {scale}")
+    with torch.no_grad(), RouteTap(torch, mlp_mod) as tap_dec:
+        cache = api.init_cache(params, 2, prefix)
+        _, cache = api.prefill(params, {"tokens": x[:, :-1]}, cache, dense)
+        tap_dec.calls.clear()
+        dec, _ = api.decode_step(params, x[:, -1:], prefix - 1, cache,
+                                 ctx=dense)
+    # the forward's routes of the last position, as a decode step's call
+    last = RouteTap(torch, mlp_mod)
+    idx_f, margin_f = tap_d.calls[0]
+    last.calls = [(idx_f[prefix - 1::prefix],
+                   margin_f[prefix - 1::prefix])]
+    flips, left_out = route_flips(tap_dec, last, lambda i, r: r,
+                                  FLIP_MARGIN_BF16, f"{name} decode")
+    keep = [r for r in range(2) if r not in left_out]
+    dec_last, fwd_last = dec[keep, 0].float(), f_dense[keep, -1].float()
+    dec_diff = float((dec_last - fwd_last).abs().max()) if keep else None
+    dec_scale = float(fwd_last.abs().max()) if keep else None
+    if keep and not dec_diff <= FWD_TOL * dec_scale:
+        fail(f"{name}: decode disagrees with forward: max abs diff "
+             f"{dec_diff} > {FWD_TOL} * {dec_scale}")
+    del f_dense, dec, cache
+
+    # the MoE layer in the prefill and in one decode step: profiler, and
+    # the experts the step reads
+    with torch.no_grad():
+        cache = api.init_cache(params, batch, prompt_len + gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.prefill(params, {"tokens": prompt}, cache)
+        torch.cuda.synchronize()
+        prefill_host = (time.perf_counter() - t0) * 1e3
+        cache = api.init_cache(params, batch, prompt_len + gen)
+        prof_prefill = moe_profile(
+            torch, mlp_mod,
+            lambda: api.prefill(params, {"tokens": prompt}, cache),
+            prefill_host)
+        with RouteTap(torch, mlp_mod) as tap_pf:
+            api.prefill(params, {"tokens": prompt}, cache)
+        tok = res.tokens[:, -1:]
+        t_pos = prompt_len + gen - 1
+        step = lambda: api.decode_step(params, tok, t_pos, res.cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_host = (time.perf_counter() - t0) * 1e3
+        prof_decode = moe_profile(torch, mlp_mod, step, step_host)
+        with RouteTap(torch, mlp_mod) as tap_st:
+            step()
+    used_prefill = int(tap_pf.calls[0][0].unique().numel())
+    used_decode = int(tap_st.calls[0][0].unique().numel())
+    rows = lambda tokens, used: {
+        "tokens": tokens, "experts_read_by_product": cfg.num_experts,
+        "experts_used": used,
+        "bytes_all_experts": moe_bytes(cfg, tokens, cfg.num_experts),
+        "bound_ms_all_experts": moe_bytes(cfg, tokens, cfg.num_experts)
+        / HBM_BYTES_PER_S * 1e3,
+        "bytes_used_experts": moe_bytes(cfg, tokens, used),
+        "bound_ms_used_experts": moe_bytes(cfg, tokens, used)
+        / HBM_BYTES_PER_S * 1e3}
+    steps = len(res.decode_ms)
+    decode_ms = sum(res.decode_ms) / steps
+    out = {"phase": name, "model": cfg.name, "layers": cfg.num_layers,
+           "cut": "depth 48 -> 2 layers (one group: dense + MoE), full "
+                  "width", "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "attention": f"{cfg.attention} {cfg.window}",
+           "batch": batch, "prompt": prompt_len, "gen": gen,
+           "cache_slots": int(res.cache["k"].shape[2]),
+           "params": api.param_count(params), "weight_bytes": weight_bytes,
+           "init_s": init_s, "init_peak_memory_bytes": init_peak,
+           "launches": launches,
+           "prefill_ms": res.prefill_ms,
+           "prefill_tok_s": batch * prompt_len / res.prefill_ms * 1e3,
+           "decode_ms_per_step": decode_ms,
+           "decode_ms_min": min(res.decode_ms),
+           "decode_ms_max": max(res.decode_ms),
+           "decode_tok_s": batch / decode_ms * 1e3,
+           "kv_cache_bytes": cache_bytes(res.cache),
+           "peak_memory_bytes": peak, "logits_finite": True,
+           "scatter_vs_dense": {"max_abs_diff": mode_diff,
+                                "max_abs_logit": scale,
+                                "tolerance": f"{MOE_MODE_TOL} * "
+                                             "max|logits|",
+                                "prefix": f"2 x {prefix}",
+                                "capacity": 2 * prefix},
+           "decode_vs_forward": {"max_abs_diff": dec_diff,
+                                 "max_abs_logit": dec_scale,
+                                 "tolerance": f"{FWD_TOL} * max|logits|",
+                                 "route_flips": flips,
+                                 "rows_left_out": left_out},
+           "moe_prefill": {**rows(batch * prompt_len, used_prefill),
+                           "device_ms": prof_prefill["moe_device_ms"],
+                           "span_ms": prof_prefill["moe_span_ms"]},
+           "moe_decode_step": {**rows(batch, used_decode),
+                               "device_ms": prof_decode["moe_device_ms"],
+                               "span_ms": prof_decode["moe_span_ms"]},
+           "profile_prefill": prof_prefill,
+           "profile_decode_step": prof_decode}
+    emit(out)
+    del params, res, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_small_configs(rt) -> list:
+    """Two MoE shapes at d_model 512, d_ff 1,024, 2 groups, fp32: dbrx's
+    (16 experts top-4, G = 6) and llama4's (128 experts top-1, the shared
+    expert, a dense and an MoE layer per group, chunked-local attention
+    with window 64, G = 5)."""
+    small = dict(d_model=512, d_ff=1024, head_dim=64, num_kv_heads=2,
+                 vocab_size=32768, dtype="float32")
+    return [dataclasses.replace(rt.get_config("dbrx_132b"), num_layers=2,
+                                num_heads=12, num_experts=16, **small),
+            dataclasses.replace(rt.get_config("llama4_maverick_400b"),
+                                num_layers=4, num_heads=10, window=64,
+                                **small)]
+
+
+def serve_moe_small_phase(torch, rt, fa, serve_mod, mlp_mod, *, batch=2,
+                          prompt_len=120, gen=16) -> list:
+    """Each small MoE shape on the card (kernels) against the CPU (plain
+    versions) in fp32, teacher forced with the card's tokens: per-step
+    logits at rtol 1e-4 and atol 1e-4 * max|logits| (as serve_small), the
+    routes of every router call compared, a flip allowed only below
+    FLIP_MARGIN on the CPU and its batch row then left out."""
+    rows = []
+    for cfg in moe_small_configs(rt):
+        api = rt.build_model(cfg, device="cuda")
+        params = api.init(torch.Generator(device="cuda").manual_seed(0))
+        api_cpu = rt.build_model(cfg, device="cpu")
+        params_cpu = {n: t.cpu() for n, t in params.items()}
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               generator=torch.Generator().manual_seed(0))
+        fa.reset_launches()
+        with RouteTap(torch, mlp_mod) as tap:
+            res = serve_mod.serve(api, params, prompt, gen, device="cuda")
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        with RouteTap(torch, mlp_mod) as tap_cpu:
+            res_cpu = serve_mod.serve(api_cpu, params_cpu, prompt, gen,
+                                      device="cpu", feed=res.tokens.cpu())
+        want = want_flash_launches(torch, fa, cfg, prompt_len, gen)
+        if launches != want or fa.LAUNCHES != launches:
+            fail(f"serve_moe_small {cfg.name}: launches on the card "
+                 f"{launches} (want {want}), and the CPU run must launch "
+                 f"none ({fa.LAUNCHES})")
+        moe_calls = len(tap.calls) // gen      # MoE layers per forward
+        flips, left_out = route_flips(
+            tap, tap_cpu,
+            lambda i, r: r // prompt_len if i < moe_calls else r,
+            FLIP_MARGIN, f"serve_moe_small {cfg.name}")
+        keep = [r for r in range(batch) if r not in left_out]
+        a, b = res.logits.cpu()[keep], res_cpu.logits[keep]
+        atol = 1e-4 * float(b.abs().max())
+        diff = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=1e-4, atol=atol):
+            fail(f"serve_moe_small {cfg.name}: card and CPU logits "
+                 f"disagree: max abs diff {diff} (rtol 1e-4, atol {atol})")
+        margins = torch.cat([m for _, m in tap_cpu.calls])
+        row = {"phase": "serve_moe_small", "model": cfg.name,
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
+               "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+               "shared_expert": cfg.moe_shared_expert,
+               "moe_every": cfg.moe_every,
+               "attention": f"{cfg.attention} {cfg.window}",
+               "dtype": cfg.dtype, "batch": batch, "prompt": prompt_len,
+               "decode_steps": gen - 1, "launches": launches,
+               "router_calls": len(tap.calls), "route_flips": flips,
+               "rows_left_out": left_out,
+               "min_cpu_margin": float(margins.min()),
+               "max_abs_diff": diff, "max_abs_logit": float(b.abs().max()),
+               "rtol": 1e-4, "atol": atol}
+        emit(row)
+        rows.append(row)
+        del params, params_cpu
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3731,7 +4122,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import attention, transformer
+    from repro_torch.models import attention, mlp as mlp_mod
     from repro_torch.optim import gossip as gossip_mod, privacy
     from repro_torch.train import data as data_mod, steps as steps_mod
 
@@ -3915,9 +4306,12 @@ def main() -> int:
                 cut="depth 24 -> 4 layers (full width)")
     small_cfg = dataclasses.replace(rt.get_config("qwen3_4b"), num_layers=2,
                                     dtype="float32")
-    small = serve_small_phase(torch, rt, fa, serve_mod, transformer,
-                              small_cfg)
+    small = serve_small_phase(torch, rt, fa, serve_mod, small_cfg)
     torch.cuda.empty_cache()
+    # MoE serving: Llama-4-Maverick at full width (one group), then two
+    # small MoE shapes card vs CPU
+    moe_a = serve_moe_a_phase(torch, rt, fa, serve_mod, mlp_mod)
+    moe_small = serve_moe_small_phase(torch, rt, fa, serve_mod, mlp_mod)
 
     # training: the flash Function's gradient, card vs CPU at the smoke
     # width, then Qwen3-4B at full width through launch.train
@@ -3996,6 +4390,7 @@ def main() -> int:
         **timing(by_case[("prefill", "bfloat16")]),
         "shape": "prefill, bf16 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
                  "hd 128)",
+        "launches_serve_moe_a": moe_a["launches"]["flash_mma"],
         "launches_train_a": train_a["launches"]["flash_mma"],
         "launches_train_gossip": train_gossip["launches"]["flash_mma"],
         "launches_train_gossip_dp":
@@ -4008,6 +4403,9 @@ def main() -> int:
         "name": "flash_split", "route": "cuda", "source": flash_src,
         "replaces": flash_replaces,
         "launches": serve_a["launches"]["flash_split"],
+        "launches_serve_moe_a": moe_a["launches"]["flash_split"],
+        "launches_serve_moe_small": sum(r["launches"]["flash_split"]
+                                        for r in moe_small),
         "max_abs_err": max(split_comb["flash_split"]["max_abs_err"],
                            err_of("split", "bfloat16")),
         **timing(split_comb["flash_split"]),
@@ -4021,6 +4419,9 @@ def main() -> int:
         "name": "flash_combine", "route": "cuda", "source": flash_src,
         "replaces": flash_replaces,
         "launches": serve_a["launches"]["flash_combine"],
+        "launches_serve_moe_a": moe_a["launches"]["flash_combine"],
+        "launches_serve_moe_small": sum(r["launches"]["flash_combine"]
+                                        for r in moe_small),
         "max_abs_err": split_comb["flash_combine"]["max_abs_err"],
         **timing(split_comb["flash_combine"]),
         "shape": f"decode partials, {decode['splits']} splits of "
@@ -4032,6 +4433,8 @@ def main() -> int:
         "launches": small["launches"]["flash_tf32"],
         "launches_in": "serve_small (fp32: its route at prefill)",
         "launches_train_small": train_small["launches_cuda"]["flash_tf32"],
+        "launches_serve_moe_small": sum(r["launches"]["flash_tf32"]
+                                        for r in moe_small),
         "max_abs_err": err_of("tf32", "float32"),
         **timing(prefill32),
         "bound_peak": "3 x FLOPs at the TF32 tensor-core peak",

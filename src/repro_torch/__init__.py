@@ -4,7 +4,7 @@ The JAX package ``repro`` is the reference; this package mirrors its layout
 (``repro_torch.core.cola`` <-> ``repro.core.cola``, ...) and imports nothing
 of it. Entry points take ``device=`` and default to ``"cuda"``.
 
-The LM model zoo's dense family serves through ``build_model`` /
+The LM model zoo's dense and MoE families serve through ``build_model`` /
 ``launch.serve.serve`` (configs from ``get_config``). Attack scenarios
 for ``run_cola(attacks=...)`` are in ``repro_torch.attack``.
 """

@@ -10,12 +10,14 @@ array.
 
 For the model zoo: ``model_params_from_numpy`` takes the reference's
 parameter pytree as numpy arrays (layer-stacked, as ``_stack_init`` builds
-it), ``load_checkpoint`` reads an npz written by the reference's
+it; a MoE group's dense layers as a list) into the port's one flat dict
+(``transformer.param_paths``, shapes from ``transformer.param_leaves``),
+``load_checkpoint`` reads an npz written by the reference's
 ``train.checkpoint.save`` (leaves keyed by ``jax.tree_util.keystr`` paths,
-parsed here as strings), and ``cache_to_numpy`` hands a KV cache back. ``train_state_from_numpy`` /
-``train_state_to_numpy`` carry a training state (fp32 masters, the
-optimizer's moments, the step) across in the reference's layout, single
-or with a leading (K,) replica axis (gossip).
+parsed here as strings), and ``cache_to_numpy`` hands a KV cache back.
+``train_state_from_numpy`` / ``train_state_to_numpy`` carry a training
+state (fp32 masters, the optimizer's moments, the step) across in the
+reference's layout, single or with a leading (K,) replica axis (gossip).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.core.cola import ColaState
 from repro_torch.core.problems import PROBLEMS, Problem
 from repro_torch.device import resolve
 from repro_torch.models import transformer
+from repro_torch.models.common import nest
 from repro_torch.train.steps import TrainState
 
 
@@ -103,52 +106,40 @@ def _tree_leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def _tree_get(tree, path):
-    for key in path:
-        tree = tree[key]
-    return tree
-
-
-def _param_paths(name: str):
-    """Module parameter name -> (path in the reference tree, layer index or
-    None): ``layers.3.attn.wq`` -> (("layers", "attn", "wq"), 3)."""
-    parts = name.split(".")
-    if parts[0] == "layers":
-        return ("layers",) + tuple(parts[2:]), int(parts[1])
-    return tuple(parts), None
-
-
-def model_params_from_numpy(cfg, tree, *, device) -> transformer.Transformer:
-    """The port's parameters from the reference's parameter pytree as numpy
-    (``jax.tree.map(np.asarray, params)``): the layer leaves carry a leading
-    (num_layers,) axis. Every leaf is cast to ``cfg.dtype``; a missing,
-    extra or misshapen leaf raises."""
-    dev = resolve(device)
-    params = transformer.init_params(cfg, None, dev)
-    expected = set()
-    with torch.no_grad():
-        for name, p in params.named_parameters():
-            path, layer = _param_paths(name)
-            expected.add(path)
-            try:
-                arr = _tree_get(tree, path)
-            except (KeyError, IndexError, TypeError):
-                raise KeyError(f"parameter tree has no leaf {path}") from None
-            arr = np.asarray(arr)
-            if layer is not None:
-                if arr.shape[0] != cfg.num_layers:
-                    raise ValueError(f"{path}: leading axis {arr.shape[0]} "
-                                     f"!= num_layers {cfg.num_layers}")
-                arr = arr[layer]
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{path}: shape {arr.shape} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-    extra = sorted(str(path) for path, _ in _tree_leaves(tree)
-                   if path not in expected)
+def _leaves_from_numpy(cfg, tree, *, replicas: bool = False):
+    """(name, array) in ``transformer.param_paths`` order from the
+    reference's parameter tree (a list of layers, as ``layers.dense``, or
+    a dict with int keys, as ``load_checkpoint`` builds it). The shapes
+    come from ``transformer.param_leaves``; with ``replicas`` a leading
+    (K,) axis is allowed. A missing, extra or misshapen leaf raises."""
+    flat = _nested_to_flat(tree)
+    want = transformer.param_leaves(cfg)
+    missing = [name for name in want if name not in flat]
+    if missing:
+        raise KeyError(f"parameter tree has no leaf {missing}")
+    extra = sorted(set(flat) - set(want))
     if extra:
         raise ValueError(f"parameter tree has leaves the model lacks: {extra}")
-    return params
+    for name, leaf in want.items():
+        arr = np.asarray(flat[name])
+        lead = arr.ndim - len(leaf.shape)
+        if tuple(arr.shape[max(lead, 0):]) != leaf.shape \
+                or lead not in ((0, 1) if replicas else (0,)):
+            raise ValueError(f"{name}: shape {arr.shape} != {leaf.shape}"
+                             + (" nor (K,) + it" if replicas else ""))
+        yield name, arr
+
+
+def model_params_from_numpy(cfg, tree, *, device) -> dict:
+    """The port's serving parameters (``transformer.param_paths``, in
+    ``cfg.dtype``) from the reference's parameter pytree as numpy
+    (``jax.tree.map(np.asarray, params)``): the layer leaves carry a
+    leading (groups,) axis. A missing, extra or misshapen leaf raises."""
+    dev = resolve(device)
+    dtype = getattr(torch, cfg.dtype)
+    return {name: torch.from_numpy(np.array(arr, dtype=np.float32))
+            .to(dtype).to(dev)
+            for name, arr in _leaves_from_numpy(cfg, tree)}
 
 
 _KEYSTR = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]")
@@ -195,17 +186,6 @@ def _nested_to_flat(tree, prefix=()) -> dict:
             for path, leaf in _tree_leaves(tree, prefix)}
 
 
-def _flat_to_nested(flat: dict) -> dict:
-    tree: dict = {}
-    for name, leaf in flat.items():
-        node = tree
-        keys = name.split(".")
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = leaf
-    return tree
-
-
 def _field(tree, name):
     return tree[name] if isinstance(tree, dict) else getattr(tree, name)
 
@@ -216,22 +196,9 @@ def params_from_numpy(cfg, tree, *, device, dtype=torch.float32) -> dict:
     ``dtype``; a leading replica axis (K, ...) is kept. A missing, extra
     or misshapen leaf raises."""
     dev = resolve(device)
-    want = transformer.stack_params(
-        cfg, transformer.init_params(cfg, None, "meta", dtype=dtype))
-    flat = _nested_to_flat(tree)
-    if set(flat) != set(want):
-        raise ValueError(f"parameter tree leaves {sorted(flat)} != the "
-                         f"model's {sorted(want)}")
-    out = {}
-    for name, meta in want.items():
-        arr = np.asarray(flat[name])
-        if tuple(arr.shape[arr.ndim - meta.dim():]) != tuple(meta.shape) \
-                or arr.ndim - meta.dim() not in (0, 1):
-            raise ValueError(f"{name}: shape {arr.shape} is neither "
-                             f"{tuple(meta.shape)} nor (K,) + it")
-        out[name] = torch.tensor(np.asarray(arr, np.float32),
-                                 device=dev).to(dtype)
-    return out
+    return {name: torch.tensor(np.asarray(arr, np.float32),
+                               device=dev).to(dtype)
+            for name, arr in _leaves_from_numpy(cfg, tree, replicas=True)}
 
 
 def train_state_from_numpy(cfg, tree, *, device) -> TrainState:
@@ -260,8 +227,7 @@ def train_state_to_numpy(state: TrainState) -> dict:
     the reference's layout (bf16 moments as fp32: numpy has no bf16)."""
     arr = lambda t: (t.float() if t.dtype == torch.bfloat16 else t
                      ).detach().cpu().numpy()
-    nested = lambda flat: _flat_to_nested({n: arr(t) for n, t in
-                                           flat.items()})
+    nested = lambda flat: nest({n: arr(t) for n, t in flat.items()})
     return {"params": nested(state.params),
             "opt_state": {key: nested(sub)
                           for key, sub in state.opt_state.items()},

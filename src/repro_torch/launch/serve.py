@@ -5,9 +5,13 @@ through the KV cache (counterpart of ``repro.launch.serve``).
       --batch 8 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4_maverick_400b --layers 2 --batch 4 --prompt-len 2048
 
 ``--device`` defaults to ``cuda`` and the run raises without a card.
-``--ckpt`` serves the weights of an npz written by the reference's
+``--layers`` cuts the depth (Llama-4-Maverick: one group of a dense and an
+MoE layer, 18.6 B parameters, fits one 80 GB card). ``--ckpt`` serves the
+weights of an npz written by the reference's
 ``repro.train.checkpoint.save``.
 """
 from __future__ import annotations
@@ -69,8 +73,8 @@ def serve(api: ModelApi, params, prompt: torch.Tensor, gen: int, *,
     the greedy one (teacher forcing); the greedy tokens are still returned.
     """
     dev = resolve(device)
-    if params.embed.device != dev:
-        raise ValueError(f"serve: params are on {params.embed.device}, "
+    if params["embed"].device != dev:
+        raise ValueError(f"serve: params are on {params['embed'].device}, "
                          f"want {dev}")
     if gen < 1:
         raise ValueError(f"serve: gen must be >= 1, got {gen}")
@@ -102,6 +106,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -113,6 +118,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     api = build_model(cfg, device=args.device)
     gen = torch.Generator(device=api.device).manual_seed(args.seed)
     if args.ckpt:
@@ -127,7 +134,7 @@ def main(argv=None) -> None:
     steps = max(args.gen - 1, 1)
     t_decode = sum(res.decode_ms)
     print(f"arch={cfg.name} batch={b} prompt={s} gen={args.gen} "
-          f"device={api.device}")
+          f"device={api.device} layers={cfg.num_layers}")
     print(f"prefill: {res.prefill_ms:.1f} ms "
           f"({b * s / res.prefill_ms * 1e3:.0f} tok/s)")
     print(f"decode:  {t_decode / steps:.2f} ms/step "

@@ -1,16 +1,19 @@
-"""Transformer blocks of the dense family: the GQA attention block with its
-ring-buffer KV cache and the dense decoder layer (counterpart of
-``repro.models.blocks``).
+"""Transformer blocks of the dense and MoE families: the GQA attention block
+with its ring-buffer KV cache, the dense and MoE decoder layers and the
+interleaved MoE group (counterpart of ``repro.models.blocks``).
 
 Every block shares the signature
     apply(cfg, params, x, positions, cache, ctx) -> (y, new_cache, aux)
 where ``cache=None`` selects the cache-free path (full-sequence forward)
 and ``positions`` are absolute token positions (B, S) int32. Parameters are
-``nn.Module``s whose tensors carry the reference's names and layouts (or,
-in training, ``transformer.bind``'s attribute tree of the same names).
+nested dicts of tensors with the reference's names and layouts
+(``p["attn"]["wq"]``, ``p["moe"]["router"]``; a group's dense layers under
+``p["dense"][i]``): in a model, views of one group of the layer-stacked
+leaves (``transformer._group_trees``). ``*_leaves`` give each block's
+shapes and initializers.
 
-Not ported yet (ROADMAP queue 1 item 17): MoE layers and groups, xLSTM
-pairs, the Zamba2 hybrid group, encoder and cross-attention layers.
+Not ported yet (ROADMAP queue 1 item 17): xLSTM pairs, the Zamba2 hybrid
+group, encoder and cross-attention layers.
 """
 from __future__ import annotations
 
@@ -18,26 +21,35 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import (apply_rope, dense_init, head_rms_norm,
-                                       rms_norm)
-from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models import mlp
+from repro_torch.models.common import (Leaf, apply_rope, dense_leaf,
+                                       head_rms_norm, init_tree, rms_norm)
+
+SHARDING_TODO = ("ModelCtx's mesh, model_axis and act_spec (expert "
+                 "parallelism, activation sharding) are not ported yet: "
+                 "ROADMAP queue 1 item 17.6")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
-    """Runtime context, kept for signature parity with the reference. Its
-    fields serve expert parallelism and activation sharding, which the
-    dense single-card path does not use."""
+    """Runtime context. ``moe_mode`` ("scatter" | "dense") and
+    ``dispatch_groups`` (token-grouped scatter dispatch, ``mlp.moe_apply``)
+    take effect. ``mesh``, ``model_axis`` and ``act_spec`` serve expert
+    parallelism and activation sharding across devices; setting any of
+    them raises."""
 
     mesh: Any = None
     model_axis: str | None = None
-    moe_mode: str = "scatter"
-    act_spec: Any = None
-    dispatch_groups: int = 0
+    moe_mode: str = "scatter"   # "scatter" | "dense"
+    act_spec: Any = None        # PartitionSpec | None
+    dispatch_groups: int = 0    # token-grouped MoE dispatch (see mlp.py)
+
+    def __post_init__(self):
+        if (self.mesh, self.model_axis, self.act_spec) != (None,) * 3:
+            raise NotImplementedError(SHARDING_TODO)
 
 
 DEFAULT_CTX = ModelCtx()
@@ -61,40 +73,22 @@ def _attention(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *, mode: str,
                            grad_chunk=cfg.scan_chunk, **fresh)
 
 
-def _param(generator, shape, dtype, device, *, zeros: bool = False):
-    if zeros:
-        t = torch.zeros(shape, dtype=dtype, device=device)
-    elif generator is None:
-        t = torch.empty(shape, dtype=dtype, device=device)
-    else:
-        t = dense_init(generator, shape, dtype, device)
-    return nn.Parameter(t, requires_grad=False)
-
-
 # ---------------------------------------------------------------------------
 # GQA attention block with KV cache
 # ---------------------------------------------------------------------------
 
-class Attention(nn.Module):
+def attn_leaves(cfg: ModelConfig) -> dict:
     """wq (d, H hd), wk / wv (d, KV hd), wo (H hd, d); q_scale / k_scale
-    (hd,) with qk-norm. ``generator=None`` leaves the projections
-    uninitialised (for loading)."""
-
-    def __init__(self, cfg: ModelConfig, dtype, device,
-                 generator: torch.Generator | None = None):
-        super().__init__()
-        d, hd = cfg.d_model, cfg.resolved_head_dim
-        self.wq = _param(generator, (d, cfg.num_heads * hd), dtype, device)
-        self.wk = _param(generator, (d, cfg.num_kv_heads * hd), dtype, device)
-        self.wv = _param(generator, (d, cfg.num_kv_heads * hd), dtype, device)
-        self.wo = _param(generator, (cfg.num_heads * hd, d), dtype, device)
-        if cfg.qk_norm:
-            self.q_scale = _param(None, (hd,), dtype, device, zeros=True)
-            self.k_scale = _param(None, (hd,), dtype, device, zeros=True)
-
-
-def attn_init(generator, cfg: ModelConfig, dtype, device) -> Attention:
-    return Attention(cfg, dtype, device, generator)
+    (hd,) with qk-norm."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {"wq": dense_leaf((d, cfg.num_heads * hd)),
+         "wk": dense_leaf((d, cfg.num_kv_heads * hd)),
+         "wv": dense_leaf((d, cfg.num_kv_heads * hd)),
+         "wo": dense_leaf((cfg.num_heads * hd, d))}
+    if cfg.qk_norm:
+        p["q_scale"] = Leaf((hd,))
+        p["k_scale"] = Leaf((hd,))
+    return p
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -114,7 +108,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
-def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                positions: torch.Tensor, cache: dict | None = None, *,
                mode: str | None = None):
     """Self attention. x: (B, S, d); positions: (B, S) int32 absolute.
@@ -133,12 +127,12 @@ def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     mode = mode or _attn_mode(cfg)
-    q = (x @ p.wq).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p.wk).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p.wv).reshape(b, s, cfg.num_kv_heads, hd)
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
-        q = head_rms_norm(q, p.q_scale)
-        k = head_rms_norm(k, p.k_scale)
+        q = head_rms_norm(q, p["q_scale"])
+        k = head_rms_norm(k, p["k_scale"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -162,34 +156,77 @@ def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         cache["k"][bidx, slots] = k_w.to(cache["k"].dtype)
         cache["v"][bidx, slots] = v_w.to(cache["v"].dtype)
         cache["pos"][bidx, slots] = pos_w
-    y = out.reshape(b, s, cfg.num_heads * hd) @ p.wo
+    y = out.reshape(b, s, cfg.num_heads * hd) @ p["wo"]
     return y, cache
 
 
 # ---------------------------------------------------------------------------
-# Dense decoder layer
+# Decoder layers (dense & MoE)
 # ---------------------------------------------------------------------------
 
-class DenseLayer(nn.Module):
+def dense_layer_leaves(cfg: ModelConfig) -> dict:
     """Pre-norm attention + SwiGLU MLP with RMSNorm gains ln1 / ln2."""
-
-    def __init__(self, cfg: ModelConfig, dtype, device,
-                 generator: torch.Generator | None = None):
-        super().__init__()
-        self.ln1 = _param(None, (cfg.d_model,), dtype, device, zeros=True)
-        self.ln2 = _param(None, (cfg.d_model,), dtype, device, zeros=True)
-        self.attn = attn_init(generator, cfg, dtype, device)
-        self.mlp = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    return {"ln1": Leaf((cfg.d_model,)), "ln2": Leaf((cfg.d_model,)),
+            "attn": attn_leaves(cfg),
+            "mlp": mlp.mlp_leaves(cfg.d_model, cfg.d_ff)}
 
 
-def dense_layer_init(generator, cfg: ModelConfig, dtype, device) -> DenseLayer:
-    return DenseLayer(cfg, dtype, device, generator)
-
-
-def dense_layer_apply(cfg: ModelConfig, p: DenseLayer, x, positions, cache,
+def dense_layer_apply(cfg: ModelConfig, p: dict, x, positions, cache,
                       ctx: ModelCtx = DEFAULT_CTX):
-    h, new_cache = attn_apply(cfg, p.attn, rms_norm(x, p.ln1), positions,
-                              cache)
+    h, new_cache = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]),
+                              positions, cache)
     x = x + h
-    x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2))
+    x = x + mlp.mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
     return x, new_cache, 0.0
+
+
+def moe_layer_leaves(cfg: ModelConfig) -> dict:
+    """Pre-norm attention + MoE (``mlp.moe_leaves``)."""
+    return {"ln1": Leaf((cfg.d_model,)), "ln2": Leaf((cfg.d_model,)),
+            "attn": attn_leaves(cfg),
+            "moe": mlp.moe_leaves(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                  cfg.moe_shared_expert)}
+
+
+def moe_layer_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+    return init_tree(generator, moe_layer_leaves(cfg), dtype, device)
+
+
+def moe_layer_apply(cfg: ModelConfig, p: dict, x, positions, cache,
+                    ctx: ModelCtx = DEFAULT_CTX):
+    h, new_cache = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]),
+                              positions, cache)
+    x = x + h
+    y, aux = mlp.moe_apply(p["moe"], rms_norm(x, p["ln2"]),
+                           experts_per_token=cfg.experts_per_token,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           mode=ctx.moe_mode,
+                           dispatch_groups=ctx.dispatch_groups)
+    return x + y, new_cache, aux
+
+
+def moe_group_leaves(cfg: ModelConfig) -> dict:
+    """Interleaved group (cfg.moe_every > 1): (moe_every - 1) dense layers
+    followed by one MoE layer — llama4-style alternation."""
+    return {"dense": {i: dense_layer_leaves(cfg)
+                      for i in range(cfg.moe_every - 1)},
+            "moe": moe_layer_leaves(cfg)}
+
+
+def moe_group_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+    return init_tree(generator, moe_group_leaves(cfg), dtype, device)
+
+
+def moe_group_apply(cfg: ModelConfig, p: dict, x, positions, cache,
+                    ctx: ModelCtx = DEFAULT_CTX):
+    """``cache``: None, or the group's ``moe_every`` per-layer caches in
+    order (its dense layers, then the MoE layer), updated in place. The
+    reference nests them as ``{"dense": [...], "moe": ...}``."""
+    n = cfg.moe_every - 1
+    layer_caches = cache or [None] * (n + 1)
+    for i in range(n):
+        x, _, _ = dense_layer_apply(cfg, p["dense"][i], x, positions,
+                                    layer_caches[i], ctx)
+    x, _, aux = moe_layer_apply(cfg, p["moe"], x, positions,
+                                layer_caches[n], ctx)
+    return x, cache, aux

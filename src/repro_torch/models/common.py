@@ -4,6 +4,9 @@ Counterpart of ``repro.models.common``.
 """
 from __future__ import annotations
 
+import itertools
+from typing import NamedTuple
+
 import torch
 
 
@@ -70,6 +73,85 @@ def dense_init(generator: torch.Generator, shape: tuple[int, ...], dtype,
 def embed_init(generator: torch.Generator, shape: tuple[int, ...], dtype,
                device) -> torch.Tensor:
     return _truncated_normal(generator, shape, device).to(dtype)
+
+
+class Leaf(NamedTuple):
+    """A parameter's shape and initializer, as the reference's ``*_init``
+    draws it: ``"dense"`` (``dense_init`` with ``fan_in``), ``"embed"``
+    (``embed_init``) or ``"zeros"``."""
+
+    shape: tuple
+    init: str = "zeros"
+    fan_in: int = 0
+
+
+def dense_leaf(shape: tuple, fan_in: int | None = None) -> Leaf:
+    return Leaf(tuple(shape), "dense", fan_in or shape[0])
+
+
+def new_leaf(generator: torch.Generator | None, leaf: Leaf, dtype,
+             device) -> torch.Tensor:
+    """``leaf`` as a tensor in ``dtype``, drawn by ``draw_``;
+    ``generator=None`` leaves a drawn leaf uninitialised, for loading."""
+    if leaf.init == "zeros":
+        return torch.zeros(leaf.shape, dtype=dtype, device=device)
+    out = torch.empty(leaf.shape, dtype=dtype, device=device)
+    if generator is not None:
+        draw_(generator, out, leaf)
+    return out
+
+
+def draw_(generator: torch.Generator, out: torch.Tensor, leaf: Leaf) -> None:
+    """Fill ``out`` (``leaf``'s shape, or one group's slice of a stack) from
+    ``leaf``'s initializer, one matrix at a time (the trailing two axes: one
+    expert), so the fp32 draw never exceeds one matrix."""
+    if leaf.init == "zeros":
+        return
+    for idx in itertools.product(*map(range, out.shape[:-2])):
+        if leaf.init == "embed":
+            out[idx] = embed_init(generator, out.shape[-2:], out.dtype,
+                                  out.device)
+        else:
+            out[idx] = dense_init(generator, out.shape[-2:], out.dtype,
+                                  out.device, fan_in=leaf.fan_in)
+
+
+def init_tree(generator, leaves: dict, dtype, device) -> dict:
+    """A nested dict of new tensors from a nested dict of ``Leaf``s."""
+    return {name: (init_tree(generator, sub, dtype, device)
+                   if isinstance(sub, dict)
+                   else new_leaf(generator, sub, dtype, device))
+            for name, sub in leaves.items()}
+
+
+def flatten(tree: dict, prefix: str = "", *, sort: bool = True) -> dict:
+    """A nested dict -> {dotted name: leaf} in the reference's flatten
+    order (sorted keys at every level; integer keys, a group's list of
+    layers, in numeric order), or with ``sort=False`` in the dicts' own
+    order."""
+    out = {}
+    keys = sorted(tree, key=lambda k: (isinstance(k, int), k)) if sort \
+        else tree
+    for key in keys:
+        sub, name = tree[key], f"{prefix}{key}"
+        if isinstance(sub, dict):
+            out.update(flatten(sub, name + ".", sort=sort))
+        else:
+            out[name] = sub
+    return out
+
+
+def nest(flat: dict) -> dict:
+    """{dotted name: leaf} -> a nested dict; a numeric segment is an int
+    key (``"dense.0.ln1"`` -> ``tree["dense"][0]["ln1"]``)."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        keys = [int(k) if k.isdigit() else k for k in name.split(".")]
+        node = tree
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf
+    return tree
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -17,7 +17,7 @@ from repro_torch.models import transformer
 class ModelApi:
     cfg: ModelConfig
     device: torch.device
-    init: Callable             # (generator=None) -> params (nn.Module)
+    init: Callable             # (generator=None) -> params {name: tensor}
     forward: Callable          # (params, batch, ctx=) -> (logits, aux)
     init_cache: Callable       # (params, batch_size, max_len) -> cache
     prefill: Callable          # (params, batch, cache, ctx=) -> (logits, cache)
@@ -30,10 +30,11 @@ def build_model(cfg: ModelConfig, *, device=None,
                 generator: torch.Generator | None = None) -> ModelApi:
     """The model API on ``device`` (default ``"cuda"``; raises without a
     card unless ``device="cpu"`` is asked for). ``api.init()`` draws the
-    weights from ``generator`` (default: a generator on ``device`` seeded
-    with 0); ``api.init(g)`` from another one."""
+    weights, the flat dict of ``transformer.param_paths`` in ``cfg.dtype``,
+    from ``generator`` (default: a generator on ``device`` seeded with 0);
+    ``api.init(g)`` from another one."""
     dev = resolve(device)
-    transformer._require_dense(cfg)
+    transformer._require_ported(cfg)
 
     def init(gen: torch.Generator | None = None):
         gen = gen or generator

@@ -1,4 +1,4 @@
-"""Model assembly for the dense family and the entry points every
+"""Model assembly for the dense and MoE families and the entry points every
 architecture exposes (counterpart of ``repro.models.transformer``):
 
   * ``forward``      — full-sequence logits
@@ -7,21 +7,22 @@ architecture exposes (counterpart of ``repro.models.transformer``):
     position's logits
   * ``decode_step``  — one token in, one token's logits out, cache updated
 
-The layers are an ``nn.ModuleList`` walked in a Python loop, where the
-reference scans stacked params under ``lax.scan``. The other families (moe,
-xlstm, hybrid, encdec, vlm) raise ``NotImplementedError`` naming their
-ROADMAP item.
+A model's parameters are ONE flat dict ``{dotted name: tensor}``, named and
+ordered as ``param_paths`` says: the reference's leaves in its
+``jax.tree`` flatten order, the layer leaves stacked over the groups on a
+leading axis, as the reference's ``_stack_init`` stacks them. Serving,
+training, checkpoints and gossip all read it. Serving holds it in
+``cfg.dtype`` (the reference's ``compute_cast``, once, at build or load);
+training holds fp32 masters (``cfg.param_dtype``) and casts them on every
+forward, differentiably (``train.steps``).
 
-Serving keeps the weights in ONE copy, in ``cfg.dtype``, cast once at
-build (``compute_cast``). Training keeps fp32 masters (``cfg.param_dtype``)
-in the reference's layout (``param_paths``: the reference's leaf names and
-order, layer leaves stacked on a leading (num_layers,) axis) and casts them
-to ``cfg.dtype`` on every forward, differentiably (``cast_masters``), as
-the reference's ``compute_cast`` does. ``bind`` gives such a flat dict the
-attribute layout the forward reads. With a gradient, each layer runs under
+The groups run in a Python loop where the reference scans them under
+``lax.scan``; each group reads views ``t[i]`` of the stacked leaves
+(``_group_trees``). With a gradient, each group runs under
 ``torch.utils.checkpoint`` as ``cfg.remat_policy`` says: ``full`` keeps
-the layer's input only, ``dots`` also the outputs of its matrix products,
-``none`` (or ``remat=False``) everything.
+the group's input only, ``dots`` also the outputs of its matrix products,
+``none`` (or ``remat=False``) everything. The xlstm, hybrid, encdec and vlm
+families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,24 +30,24 @@ import functools
 
 import torch
 import torch.utils.checkpoint
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.blocks import DEFAULT_CTX, ModelCtx
-from repro_torch.models.common import dense_init, embed_init, rms_norm
+from repro_torch.models.common import (Leaf, dense_leaf, draw_, flatten,
+                                       nest, new_leaf, rms_norm)
 
 FAMILY_TODO = {
-    "moe": "ROADMAP queue 1 item 17 (MoE: repro.models.mlp.moe_*)",
-    "xlstm": "ROADMAP queue 1 item 17 (ssm: xLSTM)",
-    "hybrid": "ROADMAP queue 1 item 17 (ssm: Mamba2 and the hybrid family)",
-    "encdec": "ROADMAP queue 1 item 17 (encdec: cross attention)",
-    "vlm": "ROADMAP queue 1 item 17 (vlm)",
+    "xlstm": "ROADMAP queue 1 item 17.3 (ssm: xLSTM)",
+    "hybrid": "ROADMAP queue 1 item 17.3 (ssm: Mamba2 and the hybrid "
+              "family)",
+    "encdec": "ROADMAP queue 1 item 17.4 (encdec: cross attention)",
+    "vlm": "ROADMAP queue 1 item 17.5 (vlm)",
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         todo = FAMILY_TODO.get(cfg.family)
         if todo is None:
             raise ValueError(f"unknown family {cfg.family}")
@@ -54,138 +55,90 @@ def _require_dense(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: {todo}")
 
 
-class Transformer(nn.Module):
-    """Parameters of a dense-family model: embed (V, d), ln_f (d,),
-    unembed (d, V) and ``layers``, a ModuleList of DenseLayer."""
-
-    def __init__(self, cfg: ModelConfig, device,
-                 generator: torch.Generator | None = None, dtype=None):
-        super().__init__()
-        _require_dense(cfg)
-        dtype = dtype or getattr(torch, cfg.dtype)
-        shape_e, shape_u = (cfg.vocab_size, cfg.d_model), (cfg.d_model,
-                                                            cfg.vocab_size)
-        if generator is None:
-            embed = torch.empty(shape_e, dtype=dtype, device=device)
-            unembed = torch.empty(shape_u, dtype=dtype, device=device)
-        else:
-            embed = embed_init(generator, shape_e, dtype, device)
-            unembed = dense_init(generator, shape_u, dtype, device)
-        self.embed = nn.Parameter(embed, requires_grad=False)
-        self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), dtype=dtype,
-                                             device=device),
-                                 requires_grad=False)
-        self.unembed = nn.Parameter(unembed, requires_grad=False)
-        self.layers = nn.ModuleList(
-            blocks.dense_layer_init(generator, cfg, dtype, device)
-            for _ in range(cfg.num_layers))
+def _num_groups(cfg: ModelConfig) -> int:
+    if cfg.family == "moe" and cfg.moe_every > 1:
+        return max(1, cfg.num_layers // cfg.moe_every)
+    return cfg.num_layers
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator | None,
-                device, dtype=None) -> Transformer:
-    """Random weights from ``generator`` (truncated normal, as the
-    reference draws them), in ``dtype`` (default ``cfg.dtype``).
-    ``generator=None`` allocates them uninitialised, for loading
-    (``convert.model_params_from_numpy``)."""
-    return Transformer(cfg, device, generator, dtype)
+def _layers_per_group(cfg: ModelConfig) -> int:
+    return cfg.moe_every if cfg.family == "moe" and cfg.moe_every > 1 else 1
 
 
-# ---------------------------------------------------------------------------
-# the training layout: flat dicts of the reference's leaves
-# ---------------------------------------------------------------------------
+def num_attn_layers(cfg: ModelConfig) -> int:
+    """Attention layers of the stack: the leading axis of the KV cache."""
+    return _num_groups(cfg) * _layers_per_group(cfg)
 
-class ParamTree(dict):
-    """A dict read by attribute: ``bind``'s stand-in for the module tree
-    the forward reads (``params.layers[i].attn.wq``)."""
 
-    def __getattr__(self, name):
-        try:
-            return self[name]
-        except KeyError:
-            raise AttributeError(name) from None
+def _group_leaves(cfg: ModelConfig) -> dict:
+    if cfg.family == "dense":
+        return blocks.dense_layer_leaves(cfg)
+    if cfg.moe_every > 1:
+        return blocks.moe_group_leaves(cfg)
+    return blocks.moe_layer_leaves(cfg)
+
+
+def param_leaves(cfg: ModelConfig) -> dict:
+    """{dotted name: Leaf} in ``param_paths`` order; layer leaves carry the
+    leading (groups,) axis."""
+    _require_ported(cfg)
+    lead = (_num_groups(cfg),)
+    layers = {name: Leaf(lead + leaf.shape, leaf.init, leaf.fan_in)
+              for name, leaf in flatten(_group_leaves(cfg)).items()}
+    return flatten({"embed": Leaf((cfg.vocab_size, cfg.d_model), "embed"),
+                    "ln_f": Leaf((cfg.d_model,)),
+                    "unembed": dense_leaf((cfg.d_model, cfg.vocab_size)),
+                    "layers": nest(layers)})
 
 
 def param_paths(cfg: ModelConfig) -> list:
     """Dotted names of the reference's parameter leaves in its flatten
-    order (sorted keys): ``embed``, ``layers.attn.k_scale``, ...,
-    ``unembed``. Names under ``layers.`` are stacked over the layers."""
-    _require_dense(cfg)
-    attn = ["wk", "wo", "wq", "wv"]
-    if cfg.qk_norm:
-        attn = ["k_scale", "q_scale"] + attn
-    return (["embed"] + [f"layers.attn.{n}" for n in attn]
-            + ["layers.ln1", "layers.ln2"]
-            + [f"layers.mlp.{n}" for n in ("w_down", "w_gate", "w_up")]
-            + ["ln_f", "unembed"])
+    order (sorted keys, a group's dense layers by index): ``embed``,
+    ``layers.attn.k_scale``, ..., ``unembed``. Names under ``layers.`` are
+    stacked over the groups."""
+    return list(param_leaves(cfg))
 
 
-def _module_name(path: str, layer: int | None) -> str:
-    return path if layer is None else path.replace("layers.",
-                                                   f"layers.{layer}.", 1)
+def init_params(cfg: ModelConfig, generator: torch.Generator | None,
+                device, dtype=None) -> dict:
+    """The flat parameter dict, drawn from ``generator`` (truncated normal,
+    as the reference draws it, one matrix at a time: an expert of a group
+    is the largest fp32 temporary) in ``dtype`` (default ``cfg.dtype``).
+    ``generator=None`` leaves the drawn leaves uninitialised, for loading.
+    Built under ``no_grad``.
+
+    The draws go embed, unembed, then group by group in the order the
+    blocks' ``*_leaves`` list their leaves: for the dense family the
+    stream of the per-layer modules this layout replaced, so a seed gives
+    the weights it gave before."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    leaves = param_leaves(cfg)
+    with torch.no_grad():
+        params = {name: new_leaf(None, leaf, dtype, device)
+                  for name, leaf in leaves.items()}
+        if generator is None:
+            return params
+        for name in ("embed", "unembed"):
+            draw_(generator, params[name], leaves[name])
+        group = flatten(_group_leaves(cfg), sort=False)
+        for g in range(_num_groups(cfg)):
+            for name, leaf in group.items():
+                draw_(generator, params["layers." + name][g], leaf)
+    return params
 
 
-def stack_params(cfg: ModelConfig, module: Transformer) -> dict:
-    """A module's weights as the flat training dict (``param_paths``),
-    layer leaves stacked: copies, in the module's dtype."""
-    named = dict(module.named_parameters())
-    out = {}
-    for path in param_paths(cfg):
-        if path.startswith("layers."):
-            out[path] = torch.stack([named[_module_name(path, i)].detach()
-                                     for i in range(len(module.layers))])
-        else:
-            out[path] = named[path].detach().clone()
-    return out
+def _group_trees(params: dict, n: int) -> list:
+    """One nested tree per group of views ``t[i]`` of the stacked layer
+    leaves (``unbind``: views, and one stacked gradient per leaf)."""
+    views = {name[len("layers."):]: t.unbind(0)
+             for name, t in params.items() if name.startswith("layers.")}
+    return [nest({name: v[i] for name, v in views.items()})
+            for i in range(n)]
 
 
-def explode(params: dict) -> dict:
-    """The flat training dict with each stacked layer leaf split into its
-    per-layer views (``"layers.attn.wq"`` -> a list of (d, H hd) views
-    sharing the stack's storage); other leaves pass through."""
-    return {name: (list(p.unbind(0)) if name.startswith("layers.") else p)
-            for name, p in params.items()}
-
-
-def bind(leaves: dict) -> ParamTree:
-    """Attribute layout of the forward (``params.layers[i].attn.wq``) over
-    an exploded dict (``explode``), or over stacked leaves, which are
-    indexed per layer."""
-    root = ParamTree()
-    layers = None
-    for name, val in leaves.items():
-        parts = name.split(".")
-        if parts[0] != "layers":
-            root[name] = val
-            continue
-        if layers is None:
-            layers = [ParamTree() for _ in range(len(val))]
-        for i, t in enumerate(val):
-            node = layers[i]
-            for key in parts[1:-1]:
-                node = node.setdefault(key, ParamTree())
-            node[parts[-1]] = t
-    root["layers"] = layers or []
-    return root
-
-
-def cast_masters(cfg: ModelConfig, leaves: dict) -> dict:
-    """Exploded masters cast to ``cfg.dtype`` (differentiable; the same
-    tensors where the dtypes agree)."""
-    dtype = getattr(torch, cfg.dtype)
-    cast = lambda t: t.to(dtype) if t.is_floating_point() else t
-    return {name: ([cast(t) for t in val] if isinstance(val, list)
-                   else cast(val)) for name, val in leaves.items()}
-
-
-def compute_cast(cfg: ModelConfig, params: Transformer) -> Transformer:
-    """Cast every floating parameter to the activation dtype ``cfg.dtype``,
-    in place (once, at build or load: serving keeps no fp32 masters)."""
-    return params.to(getattr(torch, cfg.dtype))
-
-
-def embed_tokens(cfg: ModelConfig, params: Transformer,
+def embed_tokens(cfg: ModelConfig, params: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens].to(getattr(torch, cfg.dtype))
+    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
 
 
 def _positions(b: int, start, s: int, device) -> torch.Tensor:
@@ -194,34 +147,48 @@ def _positions(b: int, start, s: int, device) -> torch.Tensor:
     return pos.repeat(b, 1)                              # (B, S) contiguous
 
 
-def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
+def _group_fn(cfg: ModelConfig):
+    """The per-group apply fn (looked up per call: tests patch blocks)."""
+    if cfg.family == "dense":
+        return blocks.dense_layer_apply
+    if cfg.moe_every > 1:
+        return blocks.moe_group_apply
+    return blocks.moe_layer_apply
+
+
+def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, caches: dict | None,
                ctx: ModelCtx):
-    """Walk the layers; ``caches`` (the layer-stacked cache dict) may be
-    None (cache-free forward). Layer i reads and writes views of the
-    stacked tensors."""
+    """Walk the groups, summing their aux terms; ``caches`` (the per-layer
+    stacked cache dict) may be None (cache-free forward). Group i reads
+    views of the stacked parameters and of its layers' caches."""
+    fn = _group_fn(cfg)
+    per = _layers_per_group(cfg)
+    groups = _group_trees(params, _num_groups(cfg))
     aux = 0.0
     remat = caches is None and torch.is_grad_enabled() and _remat_on(cfg)
-    for i, layer in enumerate(params.layers):
-        c = None if caches is None else {key: t[i] for key, t in
-                                         caches.items()}
+    for i, group in enumerate(groups):
+        c = None
+        if caches is not None:
+            c = [{key: t[i * per + j] for key, t in caches.items()}
+                 for j in range(per)]
+            c = c[0] if per == 1 else c
         if remat:
-            # the layer's weights are closed over: the recompute in the
+            # the group's weights are closed over: the recompute in the
             # backward reads the same tensors
             x, aux_l = torch.utils.checkpoint.checkpoint(
-                functools.partial(_layer_out, cfg, layer, positions, ctx),
+                functools.partial(_group_out, fn, cfg, group, positions,
+                                  ctx),
                 x, use_reentrant=False, context_fn=_remat_context(cfg))
         else:
-            x, _, aux_l = blocks.dense_layer_apply(cfg, layer, x, positions,
-                                                   c, ctx)
+            x, _, aux_l = fn(cfg, group, x, positions, c, ctx)
         aux = aux + aux_l
     return x, caches, aux
 
 
-def _layer_out(cfg, layer, positions, ctx, x):
-    """A layer's output and its aux term, without a cache."""
-    y, _, aux_l = blocks.dense_layer_apply(cfg, layer, x, positions, None,
-                                           ctx)
+def _group_out(fn, cfg, group, positions, ctx, x):
+    """A group's output and its aux term, without a cache."""
+    y, _, aux_l = fn(cfg, group, x, positions, None, ctx)
     return y, aux_l
 
 
@@ -250,17 +217,18 @@ def _remat_context(cfg: ModelConfig):
                              _save_matmuls)
 
 
-def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
-    return (rms_norm(x, params.ln_f) @ params.unembed).float()
+def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return (rms_norm(x, params["ln_f"]) @ params["unembed"]).float()
 
 
-def forward(cfg: ModelConfig, params: Transformer, batch: dict,
+def forward(cfg: ModelConfig, params: dict, batch: dict,
             ctx: ModelCtx = DEFAULT_CTX):
     """Full-sequence logits. batch: {"tokens": (B, S)}.
 
-    Returns (logits (B, S, V) float32, aux_loss scalar).
+    Returns (logits (B, S, V) float32, aux_loss scalar: the sum of the MoE
+    layers' load-balance terms, 0 for the dense family).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
@@ -272,28 +240,29 @@ def forward(cfg: ModelConfig, params: Transformer, batch: dict,
     return _logits(params, x), aux
 
 
-def init_cache(cfg: ModelConfig, params: Transformer, batch: int,
+def init_cache(cfg: ModelConfig, params: dict, batch: int,
                max_len: int) -> dict:
     """Decode state of the whole stack: k, v (layers, B, L, KV, hd) and pos
-    (layers, B, L), on the parameters' device. Sliding and chunked-local
-    attention keep a ring buffer of L = min(max_len, window) slots: both
-    attend only to keys within the last ``window`` positions."""
-    _require_dense(cfg)
+    (layers, B, L), one entry per attention layer (a MoE group's dense
+    layers, then its MoE layer), on the parameters' device. Sliding and
+    chunked-local attention keep a ring buffer of L = min(max_len, window)
+    slots: both attend only to keys within the last ``window`` positions."""
+    _require_ported(cfg)
     cache_len = max_len
     if cfg.attention in ("sliding", "chunked_local"):
         cache_len = min(max_len, cfg.window)
     return blocks.init_kv_cache(cfg, batch, cache_len,
                                 getattr(torch, cfg.dtype),
-                                params.embed.device,
-                                num_layers=len(params.layers))
+                                params["embed"].device,
+                                num_layers=num_attn_layers(cfg))
 
 
-def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 t, cache: dict, *, ctx: ModelCtx = DEFAULT_CTX):
     """One decode step. tokens: (B, 1); t: the position (int or 0-d int32
     tensor). Updates ``cache`` in place and returns (logits (B, 1, V) f32,
     cache)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     b = tokens.shape[0]
     x = embed_tokens(cfg, params, tokens)
     positions = _positions(b, t, 1, tokens.device)
@@ -301,11 +270,11 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     return _logits(params, x), cache
 
 
-def prefill(cfg: ModelConfig, params: Transformer, batch: dict, cache: dict,
+def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
             ctx: ModelCtx = DEFAULT_CTX):
     """Process a full prompt against a cache (updated in place); returns
     (last-position logits (B, 1, V) f32, cache)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
@@ -314,8 +283,5 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: dict, cache: dict,
     return _logits(params, x[:, -1:]), cache
 
 
-def param_count(params) -> int:
-    """Parameters of a module or of a flat training dict."""
-    tensors = (params.values() if isinstance(params, dict)
-               else params.parameters())
-    return sum(p.numel() for p in tensors)
+def param_count(params: dict) -> int:
+    return sum(p.numel() for p in params.values())

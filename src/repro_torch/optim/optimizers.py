@@ -1,13 +1,13 @@
 """AdamW and SGD with momentum over flat parameter dicts (counterpart of
 ``repro.optim.optimizers``).
 
-A parameter tree here is a dict whose values are tensors or lists of
-tensors (``transformer.explode`` splits stacked layer leaves into lists of
-views). Each optimizer is an ``(init, update)`` pair. Unlike the
-reference's, ``update`` works IN PLACE: it writes the new parameters and
-moments into the tensors it is given (views write through to the stacks
-they view) and returns them, so a step holds one leaf's temporaries at a
-time instead of a second copy of the whole state. ``commit`` (a 0-d bool
+A parameter tree here is a flat dict of tensors
+(``transformer.param_paths``: layer leaves stacked). Each optimizer is an
+``(init, update)`` pair. Unlike the reference's, ``update`` works IN
+PLACE: it writes the new parameters and moments into the tensors it is
+given (views write through to the stacks they view) and returns them, so
+a step holds one leaf's temporaries at a time instead of a second copy of
+the whole state. ``commit`` (a 0-d bool
 tensor, or None for always) keeps a leaf's old values where it is False,
 with no host sync: a frozen gossip node runs its step and keeps its state.
 The arithmetic is the reference's, in fp32, with the step counter a device
@@ -27,20 +27,14 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
-def leaves(tree) -> list:
+def leaves(tree: dict) -> list:
     """The tensors of a parameter tree, in order."""
-    out = []
-    for val in tree.values():
-        out.extend(val if isinstance(val, (list, tuple)) else [val])
-    return out
+    return list(tree.values())
 
 
-def _zeros_like(tree, dtype):
-    return {name: ([torch.zeros(t.shape, dtype=dtype, device=t.device)
-                    for t in val] if isinstance(val, (list, tuple))
-                   else torch.zeros(val.shape, dtype=dtype,
-                                    device=val.device))
-            for name, val in tree.items()}
+def _zeros_like(tree: dict, dtype) -> dict:
+    return {name: torch.zeros(t.shape, dtype=dtype, device=t.device)
+            for name, t in tree.items()}
 
 
 def _write(dst: torch.Tensor, new: torch.Tensor, commit) -> None:
@@ -109,8 +103,5 @@ def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to global norm <= max_norm, the norm before)."""
     norm = global_norm(grads)
     scale = clip_scale(norm, max_norm)
-    scaled = {name: ([g * scale.to(g.dtype) for g in val]
-                     if isinstance(val, (list, tuple))
-                     else val * scale.to(val.dtype))
-              for name, val in grads.items()}
+    scaled = {name: g * scale.to(g.dtype) for name, g in grads.items()}
     return scaled, norm

@@ -4,7 +4,8 @@ Leaves are stored under the reference's ``jax.tree_util.keystr`` paths:
 ``['embed']`` for a dict key, ``[0]`` for a list or tuple index,
 ``.params`` for a NamedTuple field. A dotted key of the port's flat
 parameter dicts (``"layers.attn.wq"``) is a nested path
-(``['layers']['attn']['wq']``), the reference's layout. So each package
+(``['layers']['attn']['wq']``; a numeric part, ``"layers.dense.0.ln1"``,
+a list index), the reference's layout. So each package
 restores the other's files: ``restore`` validates names and shapes against
 a tree of the same structure.
 """
@@ -19,7 +20,10 @@ import torch
 
 def _segments(key) -> list:
     if isinstance(key, str):
-        return [f"['{part}']" for part in key.split(".")]
+        # a numeric part of a dotted name is a list index
+        # ("layers.dense.0.ln1" -> ['layers']['dense'][0]['ln1'])
+        return [f"[{part}]" if part.isdigit() else f"['{part}']"
+                for part in key.split(".")]
     return [f"[{key}]"]
 
 

@@ -1,5 +1,5 @@
-"""Training and serving steps of the dense family (counterpart of
-``repro.train.steps``).
+"""Training steps of the dense family and serving steps of the dense and
+MoE families (counterpart of ``repro.train.steps``).
 
 ``make_train_step`` builds the canonical data-parallel step: forward,
 backward, global-norm clip, AdamW. The state is a ``TrainState`` of flat
@@ -10,8 +10,9 @@ value back to the host: the loss, the norm and the bias correction stay on
 the device.
 
 ``make_prefill_step`` / ``make_decode_step`` / ``greedy_generate`` are
-thin wrappers over the serve path; they take a serving module or the
-masters of a ``TrainState``.
+thin wrappers over the serve path; they take a serving dict or the masters
+of a ``TrainState``. Training the MoE family raises (ROADMAP queue 1 item
+17.2, MoE training).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.models import transformer
 from repro_torch.models.blocks import DEFAULT_CTX, ModelCtx
 from repro_torch.models.common import softmax_cross_entropy
 from repro_torch.optim.optimizers import (Optimizer, adamw, clip_scale,
-                                          global_norm, leaves)
+                                          global_norm)
 
 
 class TrainState(NamedTuple):
@@ -50,33 +51,48 @@ def _optimizer(hp: TrainHParams) -> Optimizer:
                  state_dtype=getattr(torch, hp.state_dtype))
 
 
+MOE_TRAINING_TODO = ("training the MoE family (the load-balance aux loss "
+                     "through remat) is not ported yet: ROADMAP queue 1 "
+                     "item 17.2 (MoE training)")
+
+
+def _require_trainable(cfg: ModelConfig) -> None:
+    if cfg.family == "moe":
+        raise NotImplementedError(MOE_TRAINING_TODO)
+
+
 def init_train_state(cfg: ModelConfig, generator: torch.Generator | None,
                      hp: TrainHParams = TrainHParams(), *,
                      device=None) -> TrainState:
     """Masters drawn from ``generator`` in ``cfg.param_dtype`` on
     ``device`` (default ``"cuda"``; raises without a card unless
     ``device="cpu"``), zero moments, step 0."""
+    _require_trainable(cfg)
     dev = resolve(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    module = transformer.init_params(cfg, generator, dev,
+    params = transformer.init_params(cfg, generator, dev,
                                      dtype=getattr(torch, cfg.param_dtype))
-    params = transformer.stack_params(cfg, module)
-    del module
     return TrainState(params=params, opt_state=_optimizer(hp).init(params),
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _model(cfg: ModelConfig, params: dict) -> dict:
+    """The parameter dict cast to ``cfg.dtype`` (differentiable; the same
+    tensors where the dtypes agree, as for a serving dict)."""
+    dtype = getattr(torch, cfg.dtype)
+    return {name: (t.to(dtype) if t.is_floating_point() else t)
+            for name, t in params.items()}
+
+
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, ctx: ModelCtx,
             aux_weight: float):
-    """Next-token cross entropy + aux loss over a flat dict of masters
-    (stacked or exploded), cast to ``cfg.dtype`` differentiably. Without
-    ``labels`` in ``batch`` the labels are the tokens shifted by one and
-    the last position is masked out. Returns (loss, (ce, aux))."""
-    cast = transformer.cast_masters(cfg, transformer.explode(params)
-                                    if _stacked(params) else params)
-    logits, aux = transformer.forward(cfg, transformer.bind(cast), batch,
-                                      ctx)
+    """Next-token cross entropy + aux loss over the dict of masters, cast
+    to ``cfg.dtype`` differentiably. Without ``labels`` in ``batch`` the
+    labels are the tokens shifted by one and the last position is masked
+    out. Returns (loss, (ce, aux))."""
+    _require_trainable(cfg)
+    logits, aux = transformer.forward(cfg, _model(cfg, params), batch, ctx)
     tokens = batch["tokens"]
     logits = logits[:, -tokens.shape[1]:]
     labels = batch.get("labels")
@@ -88,23 +104,6 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, ctx: ModelCtx,
         mask[:, -1] = 0.0
     ce = softmax_cross_entropy(logits, labels, mask)
     return ce + aux_weight * aux, (ce, aux)
-
-
-def _stacked(params: dict) -> bool:
-    return not any(isinstance(v, (list, tuple)) for v in params.values())
-
-
-def _grad_leaves(exploded: dict) -> dict:
-    """Detached leaves that require grad, sharing the masters' storage."""
-    req = lambda t: t.detach().requires_grad_()
-    return {name: ([req(t) for t in val] if isinstance(val, list)
-                   else req(val)) for name, val in exploded.items()}
-
-
-def _like(tree: dict, flat: list) -> dict:
-    it = iter(flat)
-    return {name: ([next(it) for _ in val] if isinstance(val, list)
-                   else next(it)) for name, val in tree.items()}
 
 
 def _chunk(batch: dict, m: int, j: int) -> dict:
@@ -120,12 +119,14 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(),
     in fp32 and divided by m. ``commit`` (0-d bool tensor) keeps the state
     unchanged where False (the step still runs; its metrics are
     returned). Metrics: loss, ce, aux, grad_norm (0-d device tensors)."""
+    _require_trainable(cfg)
     opt = _optimizer(hp)
 
     def train_step(state: TrainState, batch: dict, commit=None):
-        views = transformer.explode(state.params)
-        req = _grad_leaves(views)
-        flat = leaves(req)
+        # leaves that require grad, sharing the masters' storage
+        req = {name: t.detach().requires_grad_()
+               for name, t in state.params.items()}
+        flat = list(req.values())
         m = hp.microbatches
         grads = loss = ce = aux = None
         for j in range(m):
@@ -143,15 +144,14 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(),
         if m > 1:
             grads = [g / m for g in grads]
             loss, ce, aux = loss / m, ce / m, aux / m
+        grads = dict(zip(req, grads))
         del req, flat
-        grads = _like(views, grads)
         gnorm = global_norm(grads)
         scale = clip_scale(gnorm, hp.grad_clip)
-        for g in leaves(grads):
+        for g in grads.values():
             g.mul_(scale.to(g.dtype))
-        opt.update(grads, {key: transformer.explode(val) for key, val in
-                           state.opt_state.items()},
-                   views, state.step, hp.lr, commit)
+        opt.update(grads, state.opt_state, state.params, state.step, hp.lr,
+                   commit)
         state.step.add_(1 if commit is None else commit.to(torch.int32))
         metrics = {"loss": loss, "ce": ce, "aux": aux, "grad_norm": gnorm}
         return state, metrics
@@ -162,16 +162,6 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(),
 # ---------------------------------------------------------------------------
 # serving steps
 # ---------------------------------------------------------------------------
-
-def _model(cfg: ModelConfig, params):
-    """A serving module as is; a flat dict of masters bound and cast."""
-    if isinstance(params, dict) and not isinstance(params,
-                                                   transformer.ParamTree):
-        exploded = transformer.explode(params) if _stacked(params) \
-            else params
-        return transformer.bind(transformer.cast_masters(cfg, exploded))
-    return params
-
 
 def make_prefill_step(cfg: ModelConfig,
                       ctx: ModelCtx = DEFAULT_CTX) -> Callable:

@@ -1,14 +1,20 @@
-"""The port's model zoo (dense family) against the JAX reference on the CPU.
+"""The port's model zoo (dense and MoE families) against the JAX reference
+on the CPU.
 
 Weights are drawn by the reference (``api.init``) and carried across with
-``convert.model_params_from_numpy``; tokens come from numpy. Tolerances:
+``convert.model_params_from_numpy``; tokens come from numpy. For the MoE
+family every router call of both packages is recorded
+(``_torch_moe.RouteLog``): the top-k indices are equal and no top-k margin
+is within 1e-5 of a tie. Tolerances:
 
 * configs: equal field by field;
 * ``rms_norm`` / ``head_rms_norm`` / ``apply_rope``: atol 1e-6 (the same
   fp32 formula, evaluated by two libraries);
 * ``forward``, ``prefill`` and ``decode_step`` logits: atol 3e-5, rtol 1e-4,
   the bar ``tests/test_pallas_backend.py`` sets between the reference's two
-  attention backends; caches (k, v) the same, positions exactly.
+  attention backends; caches (k, v) the same, positions exactly (the
+  reference's nested MoE-group cache converted to the port's one stacked
+  entry per attention layer); the MoE aux loss atol 1e-6.
 """
 import dataclasses
 
@@ -18,18 +24,24 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_moe import RouteLog, ref_cache_to_port
 from repro.configs import base as jbase
 from repro.models import common as jcommon
+from repro.models import mlp as jmlp
 from repro.models import transformer as jtransformer
 from repro.models.model import build_model as jbuild
 from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.models import common as tcommon
 from repro_torch.models import mlp as tmlp
+from repro_torch.models import transformer as ttransformer
 from repro_torch.models.model import build_model as tbuild
 
 ATOL, RTOL = 3e-5, 1e-4
 DENSE = ["qwen3_4b", "h2o_danube3_4b", "stablelm_12b", "mistral_large_123b"]
+MOE = ["dbrx_132b", "llama4_maverick_400b"]
+# the families that still raise; the MoE ids keep their test ids and check
+# the ported behaviour instead
 NOT_PORTED = {"dbrx_132b": "MoE", "llama4_maverick_400b": "MoE",
               "xlstm_125m": "xLSTM", "zamba2_7b": "hybrid",
               "seamless_m4t_medium": "encdec", "internvl2_26b": "vlm"}
@@ -137,20 +149,32 @@ def test_dense_init_is_seeded_truncated_normal():
 # model entry points
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_forward_matches_reference(arch):
+def _forward_pair(arch, monkeypatch):
+    """Both packages' forward on the same tokens: logits atol 3e-5 / rtol
+    1e-4, aux atol 1e-6, the MoE routes equal (away from ties)."""
     cfg, japi, jparams, tapi, tparams = _pair(arch)
+    log = RouteLog(monkeypatch) if cfg.family == "moe" else None
     tokens = _tokens(cfg, 2, 24, seed=1)
     lj, auxj = japi.forward(jparams, {"tokens": jnp.asarray(tokens)})
     lt, auxt = tapi.forward(tparams, {"tokens": torch.as_tensor(tokens)})
     assert lt.shape == (2, 24, cfg.vocab_size) and lt.dtype == torch.float32
     _close(lt, lj)
-    assert float(auxt) == float(auxj) == 0.0
+    _close(auxt, auxj, atol=1e-6, rtol=0)
+    if log is not None:
+        log.check(calls=ttransformer._num_groups(cfg))
+        assert float(auxt) > 0.0
+    else:
+        assert float(auxt) == float(auxj) == 0.0
     assert tapi.param_count(tparams) == jtransformer.param_count(jparams)
 
 
-def _check_cache(cache_t, cache_j):
-    cj = jax.tree.map(np.asarray, cache_j)
+@pytest.mark.parametrize("arch", DENSE + MOE)
+def test_forward_matches_reference(arch, monkeypatch):
+    _forward_pair(arch, monkeypatch)
+
+
+def _check_cache(cfg, cache_t, cache_j):
+    cj = ref_cache_to_port(cfg, cache_j)
     ct = convert.cache_to_numpy(cache_t)
     assert set(ct) == set(cj)
     np.testing.assert_array_equal(ct["pos"], cj["pos"])
@@ -162,24 +186,29 @@ def _check_cache(cache_t, cache_j):
     ("qwen3_4b", 12, 16),
     ("h2o_danube3_4b", 12, 16),
     ("h2o_danube3_4b", 24, 28),   # prompt > window 16: the ring wraps
+    ("dbrx_132b", 12, 16),
+    ("llama4_maverick_400b", 12, 16),
+    ("llama4_maverick_400b", 24, 28),   # chunked-local ring of 16 wraps
 ])
-def test_prefill_and_decode_match_reference(arch, prompt, max_len):
+def test_prefill_and_decode_match_reference(arch, prompt, max_len,
+                                            monkeypatch):
     cfg, japi, jparams, tapi, tparams = _pair(arch, seed=2)
+    log = RouteLog(monkeypatch) if cfg.family == "moe" else None
     tokens = _tokens(cfg, 2, prompt + 4, seed=3)
     cj = japi.init_cache(jparams, 2, max_len)
     ct = tapi.init_cache(tparams, 2, max_len)
-    want_len = min(max_len, cfg.window) if cfg.attention == "sliding" \
-        else max_len
+    want_len = max_len if cfg.attention == "full" \
+        else min(max_len, cfg.window)
     assert ct["k"].shape == (cfg.num_layers, 2, want_len, cfg.num_kv_heads,
                              cfg.resolved_head_dim)
-    _check_cache(ct, cj)
+    _check_cache(cfg, ct, cj)
     lj, cj = japi.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :prompt])},
                           cj)
     lt, ct = tapi.prefill(tparams,
                           {"tokens": torch.as_tensor(tokens[:, :prompt])}, ct)
     assert lt.shape == (2, 1, cfg.vocab_size)
     _close(lt, lj)
-    _check_cache(ct, cj)
+    _check_cache(cfg, ct, cj)
     for i in range(4):
         t = prompt + i
         tok = tokens[:, t:t + 1]
@@ -187,7 +216,9 @@ def test_prefill_and_decode_match_reference(arch, prompt, max_len):
                                   jnp.asarray(t, jnp.int32), cj)
         lt, ct = tapi.decode_step(tparams, torch.as_tensor(tok), t, ct)
         _close(lt, lj)
-        _check_cache(ct, cj)
+        _check_cache(cfg, ct, cj)
+    if log is not None:   # the prefill and 4 steps through every group
+        log.check(calls=5 * ttransformer._num_groups(cfg))
     if prompt > cfg.window:   # the ring holds exactly the last window slots
         pos = convert.cache_to_numpy(ct)["pos"]
         assert sorted(pos[0, 0].tolist()) == list(
@@ -211,7 +242,8 @@ def test_weights_are_kept_in_cfg_dtype():
         "qwen3_4b")), dtype="bfloat16")
     api = tbuild(cfg, device="cpu")
     params = api.init(torch.Generator().manual_seed(0))
-    assert {p.dtype for p in params.parameters()} == {torch.bfloat16}
+    assert list(params) == ttransformer.param_paths(cfg)
+    assert {p.dtype for p in params.values()} == {torch.bfloat16}
     cache = api.init_cache(params, 1, 8)
     assert cache["k"].dtype == torch.bfloat16
     assert cache["pos"].dtype == torch.int32
@@ -223,16 +255,68 @@ def test_weights_are_kept_in_cfg_dtype():
 
 
 @pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_families_raise(arch):
+def test_unported_families_raise(arch, monkeypatch):
+    """The families not ported yet raise, naming their ROADMAP item. The
+    MoE family is ported: its ids check the forward against the
+    reference (logits, aux, routes) instead."""
     cfg = tbase.smoke_variant(tbase.get_config(arch))
+    if cfg.family == "moe":
+        _forward_pair(arch, monkeypatch)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
         tbuild(cfg, device="cpu")
 
 
-def test_moe_layers_raise():
-    for fn in (tmlp.moe_init, tmlp.moe_apply):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            fn()
+def test_moe_layers_raise(monkeypatch):
+    """Ported: ``moe_init`` gives the reference's leaves, shapes and
+    initializer scales, and ``moe_apply`` the reference's output, aux and
+    routes (the id is kept from when the MoE layers raised)."""
+    jp = jmlp.moe_init(jax.random.PRNGKey(0), 32, 48, 8, jnp.float32,
+                       shared_expert=True)
+    tp = tmlp.moe_init(torch.Generator().manual_seed(0), 32, 48, 8,
+                       torch.float32, "cpu", shared_expert=True)
+    want = convert._nested_to_flat(jax.tree.map(np.asarray, jp))
+    got = tcommon.flatten(tp)
+    assert list(got) == list(want)
+    for name, arr in want.items():
+        assert tuple(got[name].shape) == arr.shape, name
+        # truncated normal on [-2, 2] (std 0.8796) / sqrt(fan_in), fan_in
+        # the matrices' input width, in both packages; the spread within
+        # 0.15 (>= 256 draws: 3.4 standard errors)
+        fan_in = arr.shape[-2]
+        for a in (got[name].numpy(), arr):
+            assert np.abs(a).max() <= 2.0 * fan_in ** -0.5 + 1e-7, name
+            assert abs(a.std() * fan_in ** 0.5 - 0.8796) < 0.15, name
+    log = RouteLog(monkeypatch)
+    x = np.random.default_rng(1).normal(size=(2, 6, 32)).astype(np.float32)
+    yj, auxj = jmlp.moe_apply(jp, jnp.asarray(x), experts_per_token=2)
+    yt, auxt = tmlp.moe_apply(
+        jax.tree.map(lambda a: torch.tensor(np.asarray(a)), jp),
+        torch.as_tensor(x), experts_per_token=2)
+    _close(yt, yj)
+    _close(auxt, auxj, atol=1e-6, rtol=0)
+    log.check(calls=1)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", DENSE + MOE)
+def test_param_paths_match_reference_flatten_order(arch, smoke):
+    """The one parameter layout: ``param_paths`` is the reference's
+    ``jax.tree`` flatten order and ``param_leaves`` its shapes (the
+    reference's init traced abstractly, full configs included)."""
+    jcfg, tcfg = jbase.get_config(arch), tbase.get_config(arch)
+    if smoke:
+        jcfg, tcfg = jbase.smoke_variant(jcfg), tbase.smoke_variant(tcfg)
+    shapes = jax.eval_shape(lambda k: jtransformer.init_params(jcfg, k),
+                            jax.random.PRNGKey(0))
+    want = [(".".join(str(getattr(k, "key", getattr(k, "idx", None)))
+                      for k in path), tuple(leaf.shape))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                shapes)[0]]
+    got = [(name, leaf.shape)
+           for name, leaf in ttransformer.param_leaves(tcfg).items()]
+    assert got == want
+    assert ttransformer.param_paths(tcfg) == [name for name, _ in want]
 
 
 def test_convert_rejects_bad_trees():

@@ -9,6 +9,10 @@ atol 3e-5, rtol 1e-4 (the bar of ``tests/test_pallas_backend.py``).
 
 A checkpoint written by the reference's ``repro.train.checkpoint.save`` is
 served by both packages: the port reads the npz's keystr paths as strings.
+The MoE smoke variants (dbrx: 4 experts top-2; llama4: 4 experts top-1, a
+shared expert, a dense and an MoE layer per group, chunked-local
+attention) run too, with both packages' routes recorded and held equal
+(``_torch_moe.RouteLog``).
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_moe import RouteLog
 from repro.configs import base as jbase
 from repro.models.model import build_model as jbuild
 from repro.train import checkpoint
@@ -59,9 +64,12 @@ def _setup(arch, seed):
     ("h2o_danube3_4b", 2, 10, 6),
     ("h2o_danube3_4b", 3, 20, 8),   # 20 + 8 > window 16: the ring wraps
     ("mistral_large_123b", 1, 7, 4),
+    ("dbrx_132b", 2, 10, 6),
+    ("llama4_maverick_400b", 2, 20, 8),   # the chunked-local ring wraps
 ])
-def test_serve_matches_reference_loop(arch, b, s, gen):
+def test_serve_matches_reference_loop(arch, b, s, gen, monkeypatch):
     cfg, japi, jparams, tapi, tparams = _setup(arch, seed=b + s)
+    log = RouteLog(monkeypatch) if cfg.family == "moe" else None
     prompt = np.random.default_rng(s).integers(
         0, cfg.vocab_size, size=(b, s)).astype(np.int32)
     res = tserve.serve(tapi, tparams, torch.as_tensor(prompt), gen,
@@ -74,6 +82,8 @@ def test_serve_matches_reference_loop(arch, b, s, gen):
                            s + gen)
     np.testing.assert_allclose(res.logits.numpy(), want, atol=ATOL,
                                rtol=RTOL)
+    if log is not None:
+        log.check(calls=gen * cfg.num_layers // max(cfg.moe_every, 1))
 
 
 def test_serve_feed_forces_the_tokens():
@@ -143,3 +153,36 @@ def test_checkpoint_served_by_both_packages(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "arch=qwen3-4b batch=2 prompt=6 gen=3 device=cpu" in out
     assert "sample tokens:" in out
+
+
+def test_moe_checkpoint_served_by_both_packages(tmp_path, capsys,
+                                                monkeypatch):
+    """A llama4-shaped MoE checkpoint (a group's dense layers as a list)
+    saved by the reference serves the same logits and routes in both
+    packages; the port's CLI serves it too."""
+    arch = "llama4_maverick_400b"
+    jcfg = jbase.smoke_variant(jbase.get_config(arch))
+    japi = jbuild(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(9))
+    path = str(tmp_path / "moe.npz")
+    checkpoint.save(path, jparams)
+    tcfg = tbase.smoke_variant(tbase.get_config(arch))
+    tapi = tbuild(tcfg, device="cpu")
+    tree = convert.load_checkpoint(path)
+    assert sorted(tree["layers"]["dense"]) == [0]
+    tparams = convert.model_params_from_numpy(tcfg, tree, device="cpu")
+    log = RouteLog(monkeypatch)
+    prompt = np.random.default_rng(3).integers(
+        0, tcfg.vocab_size, size=(2, 9)).astype(np.int32)
+    res = tserve.serve(tapi, tparams, torch.as_tensor(prompt), 4,
+                       device="cpu")
+    want = _reference_loop(japi, jparams, prompt, res.tokens.numpy(), 4, 13)
+    np.testing.assert_allclose(res.logits.numpy(), want, atol=ATOL,
+                               rtol=RTOL)
+    log.check(calls=4)
+
+    tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--ckpt",
+                 path, "--batch", "2", "--prompt-len", "6", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "arch=llama4-maverick-400b-a17b batch=2 prompt=6 gen=3 " \
+        "device=cpu layers=2" in out
