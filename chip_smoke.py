@@ -163,11 +163,20 @@ line:
    teacher forced, 2 prompts of 120 tokens and 16 tokens; every router
    call's routes compared (a flip allowed only at a CPU margin below
    1e-4, its batch row then left out).
+10d. serve_hybrid_a — Zamba2-7B at full width and depth (81 blocks: 27
+   groups of 2 Mamba2 blocks and the shared attention + MLP, sliding
+   window 4,096), bf16, 2 prompts of 4,096 tokens and 16 tokens: as
+   serve_a; then decode after a 511-token prefill against the forward in
+   bf16, and both decode checks in fp32 (serve_hybrid_a_decode_checks).
+10e. ssm_small — xLSTM's and Zamba2's smoke variants (fp32), the card
+   against the CPU: the forward, a prefill then 4 decode steps (logits
+   and states), every gradient.
 11. attn_grad — the flash kernel with a gradient (``FlashAttention``) at
    the training shape (B=2, S=1,024, 32/8 heads, hd 128, causal): dq, dk,
    dv against autograd of the plain version on the card, bf16 and fp32;
    the forward, the backward, the plain forward + backward and SDPA's
-   forward + backward timed.
+   forward + backward timed; and at Zamba2's (B=4, 32/32 heads, hd 112,
+   sliding), bf16.
 12. train_small — Qwen3-4B's smoke variant (fp32: ``flash_tf32``), the
    card against the CPU from the same weights: the loss and every
    gradient leaf, 3 AdamW steps, 3 gossip rounds over ring(4) plain, with
@@ -184,6 +193,15 @@ line:
    the draws', the codec's and the DP mix's ms per gossip step and the
    final epsilon against the accountant's closed form. At 1 layer on
    out-of-memory (a ``_cut`` row).
+14b. train_moe_small — serve_moe_small's two shapes in training (fp32),
+   the card against the CPU: loss, ce, aux, every gradient, every route.
+14c. train_moe_a / train_hybrid_a / train_xlstm_a — through
+   ``launch.train.train`` as train_a: dbrx at full width, 1 layer, 8 of
+   16 experts top-4 (the MoE layer's forward and backward device ms in
+   profiler ranges of the profiled step against their bounds); Zamba2-7B
+   at full width, 9 of 27 groups; xLSTM-125M whole at B=8 (the sLSTM
+   blocks' host share of the profiled step, the idle share from the
+   device's kernels alone).
 15. total   — the script's seconds so far.
 16. kernels — one line listing every kernel with its launches on the main
    path, error, times and bound (``flash_mma`` also with its launches in
@@ -203,6 +221,7 @@ fp32 bar.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -238,6 +257,16 @@ SMALL_RTOL = 1e-4
 # an H100; 5 % leaves room for that and fails a wrong cache or mask, which
 # moves logits by their own size.
 FWD_TOL = 0.05
+# the same check after a long prompt through a deep recurrent stack:
+# Zamba2-7B's last decode step after a 4,096-token prefill and 15 steps,
+# 81 blocks in bf16. serve_hybrid_a's fp32 twin holds the same decode path
+# to HYBRID_FP32_TOL (measured 3.1e-5 relative on an H100 80GB HBM3 at
+# 700 W), so what bf16 adds is rounding, which grows with depth and
+# length: measured 6.7 % of max|logits| there (2.4 % after a 511-token
+# prefill, which FWD_TOL holds). A wrong state or ring moves logits by
+# their own size.
+FWD_TOL_DEEP = 0.1
+HYBRID_FP32_TOL = 1e-3
 # quantized wire, card vs CPU: |probe difference| above which a rounding
 # decision flipped between the two (fp32 noise keeps the probes ~1e-5
 # apart at the small runs' sizes, one flipped int8/fp8 step moves them
@@ -636,11 +665,14 @@ def round_profile(torch, prob, graph, cfg, rounds: int,
                             for r in prof["top_kernels"]], **coll}
 
 
-def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
+def device_profile(torch, fn, host_ms: float, top: int = 8,
+                   ranges: tuple = ()) -> dict:
     """``fn`` once under ``torch.profiler``: device ms by kernel (summed
     over the window), and the device's idle share of ``host_ms`` (the
     window's synchronised host-clock time, measured outside the
-    profiler)."""
+    profiler); with ``ranges``, the calls, device ms and host ms of each
+    ``record_function`` range of that name opened in the window."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -649,7 +681,8 @@ def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
         torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
-        if "CUDA" not in str(ev.device_type):
+        # a range is also recorded on the device (its span, not a kernel)
+        if "CUDA" not in str(ev.device_type) or ev.key in ranges:
             continue
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
@@ -673,7 +706,19 @@ def device_profile(torch, fn, host_ms: float, top: int = 8) -> dict:
             "device_idle_share": (1.0 - device_ms / host_ms
                                   if device_ms and host_ms else None),
             "top_kernels": [{"name": n, "ms": m, "calls": c}
-                            for n, m, c in kernels[:top]]}
+                            for n, m, c in kernels[:top]],
+            **({"ranges": {name: range_times(prof, name, DeviceType.CPU)
+                           for name in ranges}} if ranges else {})}
+
+
+def range_times(prof, name: str, cpu) -> dict:
+    """The calls, summed device ms and host ms of the ``record_function``
+    ranges called ``name`` in ``prof``."""
+    evs = [e for e in prof.events() if e.name == name and e.device_type == cpu]
+    dev = lambda e: getattr(e, "device_time_total", None) or getattr(
+        e, "cuda_time_total", 0.0)
+    return {"calls": len(evs), "device_ms": sum(dev(e) for e in evs) / 1e3,
+            "host_ms": sum(e.time_range.elapsed_us() for e in evs) / 1e3}
 
 
 def executed_rounds(h, rounds: int, block: int) -> int:
@@ -1979,6 +2024,15 @@ def attn_cases(torch):
     ring_d = [4855 - ((4855 - j) % 4096) for j in range(4096)]
     cases.append(("decode_sliding_2src", 2, 32, 8, 120, "sliding", 4096,
                   rows(2, [4856]), rows(2, ring_d + [4856]), 4096))
+    # Zamba2-7B's shared attention (32 / 32 heads, G = 1, hd 112, padded
+    # to 128 inside the kernel), sliding window 4,096: the same wrapped
+    # ring and chunk, and its decode
+    cases.append(("sliding_hd112", 2, 32, 32, 112, "sliding", 4096,
+                  rows(2, fresh), kv, None))
+    cases.append(("sliding_hd112_2src", 2, 32, 32, 112, "sliding", 4096,
+                  rows(2, fresh), kv, 4096))
+    cases.append(("decode_sliding_hd112_2src", 2, 32, 32, 112, "sliding",
+                  4096, rows(2, [4856]), rows(2, ring_d + [4856]), 4096))
     # Llama-4-style chunked-local (window 8,192, G = 5): queries 7,900 ..
     # 8,411 straddle a chunk boundary
     cases.append(("chunked_local", 2, 40, 8, 128, "chunked_local", 8192,
@@ -2101,13 +2155,15 @@ def attn_kernel_phase(torch, fa, mask_fn) -> list:
     return rows
 
 
-def split_combine_phase(torch, fa, mask_fn) -> dict:
+def split_combine_phase(torch, fa, mask_fn, case: str = "decode") -> dict:
     """The split-KV kernel and the combine kernel each against its plain
-    version on the same inputs, at Qwen3-4B's decode shape in bf16: the
-    split kernel's partials against ``flash_split_plain``, the combine
-    kernel against ``flash_combine_plain`` on the kernel's partials."""
+    version on the same inputs, at a decode shape of ``attn_cases`` in
+    bf16 (Qwen3-4B's by default; keys as one source): the split kernel's
+    partials against ``flash_split_plain``, the combine kernel against
+    ``flash_combine_plain`` on the kernel's partials."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    _, b, h, kvh, hd, mode, window, q_pos, kv_pos, _ = attn_cases(torch)[1]
+    _, b, h, kvh, hd, mode, window, q_pos, kv_pos, _ = next(
+        c for c in attn_cases(torch) if c[0] == case)
     q_pos, kv_pos = q_pos.cuda(), kv_pos.cuda()
     sq, skv = q_pos.shape[1], kv_pos.shape[1]
     pairs = int(mask_fn(mode, q_pos, kv_pos, window).sum())
@@ -2166,14 +2222,20 @@ def split_combine_phase(torch, fa, mask_fn) -> dict:
             "max_abs_err": max(comb_err, float(
                 (out.float() - ref.float()).abs().max())),
             "library_ms": None}}
-    emit({"phase": "split_combine", "shape": "decode, bf16 (B=8, Sq=1, "
-          f"Skv={skv}, 32/8 heads, hd 128)", "splits": splits,
+    emit({"phase": "split_combine", "case": case,
+          "shape": f"decode, bf16 (B={b}, Sq=1, Skv={skv}, {h}/{kvh} heads, "
+                   f"hd {hd}, {mode})", "splits": splits,
           "split_max_rel_err": split_err, **res})
     return res
 
 
-def cache_bytes(cache: dict) -> int:
-    return sum(t.numel() * t.element_size() for t in cache.values())
+def cache_bytes(cache) -> int:
+    """Bytes of a cache: a KV cache, or a recurrent family's nested tree."""
+    if isinstance(cache, dict):
+        return sum(cache_bytes(t) for t in cache.values())
+    if isinstance(cache, list):
+        return sum(cache_bytes(t) for t in cache)
+    return cache.numel() * cache.element_size()
 
 
 def want_flash_launches(torch, fa, cfg, prompt_len: int, gen: int) -> dict:
@@ -2193,18 +2255,40 @@ def want_flash_launches(torch, fa, cfg, prompt_len: int, gen: int) -> dict:
     return want
 
 
+def decode_vs_forward(torch, api, params, tokens, prompt: int) -> dict:
+    """The decode steps after a prefill of ``prompt`` tokens (teacher
+    forced with ``tokens``) against the forward over all of ``tokens``:
+    the last position's logits."""
+    with torch.no_grad():
+        full, _ = api.forward(params, {"tokens": tokens})
+        cache = api.init_cache(params, tokens.shape[0], tokens.shape[1])
+        _, cache = api.prefill(params, {"tokens": tokens[:, :prompt]}, cache)
+        for t in range(prompt, tokens.shape[1]):
+            dec, cache = api.decode_step(params, tokens[:, t:t + 1], t,
+                                         cache)
+    a, b = dec[:, 0].float(), full[:, -1].float()
+    return {"prompt": prompt, "decode_steps": tokens.shape[1] - prompt,
+            "max_abs_diff": float((a - b).abs().max()),
+            "max_abs_logit": float(b.abs().max()),
+            "rel_l2": float((a - b).norm() / b.norm())}
+
+
 def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
                 gen, fwd_tol, cut=None) -> dict:
     """Serve ``cfg`` once through ``launch.serve.serve`` with the flash
     count zeroed just before and read just after; check the launches, the
     logits' finiteness, the last step against a full ``forward``, and
-    profile one decode step and the prefill."""
+    profile one decode step and the prefill. A hybrid model's KV cache is
+    its cache's "attn"."""
     api = rt.build_model(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init(g)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=g, device="cuda")
     serve_mod.serve(api, params, prompt, 2, device="cuda")   # warm-up
@@ -2237,8 +2321,9 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
     if not diff <= fwd_tol * scale:
         fail(f"{name}: last decode step disagrees with forward: max abs "
              f"diff {diff} > {fwd_tol} * max|logits| ({scale})")
+    kv = res.cache.get("attn", res.cache)
     if cfg.attention == "sliding" and prompt_len + gen > cfg.window:
-        pos = res.cache["pos"][0, 0]
+        pos = kv["pos"][0, 0]
         total = prompt_len + gen - 1
         if sorted(pos.tolist()) != list(range(total - cfg.window, total)):
             fail(f"{name}: the ring does not hold the last {cfg.window} "
@@ -2270,9 +2355,9 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
     out = {"phase": name, "model": cfg.name, "layers": cfg.num_layers,
            "cut": cut, "d_model": cfg.d_model, "dtype": cfg.dtype,
            "batch": batch, "prompt": prompt_len, "gen": gen,
-           "cache_slots": int(res.cache["k"].shape[2]),
+           "cache_slots": int(kv["k"].shape[2]),
            "params": api.param_count(params), "init_s": init_s,
-           "launches": launches,
+           "init_peak_memory_bytes": init_peak, "launches": launches,
            "prefill_ms": res.prefill_ms,
            "prefill_tok_s": batch * prompt_len / res.prefill_ms * 1e3,
            "decode_ms_per_step": decode_ms,
@@ -2856,10 +2941,68 @@ def attn_grad_phase(torch, fa) -> dict:
         out_rows[row["dtype"]] = row
         del q, k, v, qr, kr, vr, qp, kp, vp, out, ref_out, grads, ref
         torch.cuda.empty_cache()
+    out_rows["bfloat16_hd112"] = attn_grad_hd112(torch, fa, gen, chunk)
     res = {"phase": "attn_grad", "shape": "B=2, S=1024, 32/8 heads, hd 128, "
            "causal", "grad_chunk": chunk, **out_rows}
     emit(res)
     return res
+
+
+def attn_grad_hd112(torch, fa, gen, chunk: int) -> dict:
+    """Zamba2-7B's shared attention at train_hybrid_a's shape (B=4,
+    S=1,024, 32/32 heads, hd 112, sliding window 4,096), bf16: the
+    Function's forward (``flash_mma``, hd padded to 128 in the kernel)
+    and gradient against autograd of the plain version on the card, and
+    the forward's device ms."""
+    b, s, h, kvh, hd = 4, 1024, 32, 32, 112
+    kw = dict(mode="sliding", window=4096)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").repeat(b, 1)
+    q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda"
+                                 ).to(torch.bfloat16)
+                     for sh in ((b, s, h, hd), (b, s, kvh, hd),
+                                (b, s, kvh, hd), (b, s, h, hd)))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(qr, kr, vr, pos, pos, grad_chunk=chunk, **kw)
+    grads = torch.autograd.grad(out, (qr, kr, vr), dout)
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES
+                if fa.LAUNCHES[n] != before[n]}
+    if launched != {"flash_mma": 1}:
+        fail(f"attn_grad hd 112: launches {launched}, want one flash_mma")
+    qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+    ref_out = fa.flash_attention_plain(qp, kp, vp, pos, pos, **kw)
+    ref = torch.autograd.grad(ref_out, (qp, kp, vp), dout)
+    ok_out, excess = attn_within_tolerance(torch, out.detach(),
+                                           ref_out.detach())
+    if not ok_out:
+        fail(f"attn_grad hd 112: forward disagrees with the plain version "
+             f"(worst excess {excess})")
+    errs = {}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        ok, rel = grads_close(g, r, ATTN_GRAD_TOL)
+        errs[name] = {"max_abs_err": float((g.float() - r.float())
+                                           .abs().max()),
+                      "max_err_over_max_ref": rel}
+        if not ok or not math.isfinite(rel):
+            fail(f"attn_grad hd 112 {name}: the Function's gradient "
+                 f"disagrees with autograd of the plain version (max err "
+                 f"{rel} of max|ref|, tolerance {ATTN_GRAD_TOL})")
+    with torch.no_grad():
+        fwd = lambda: fa.flash_attention(q, k, v, pos, pos, **kw)
+        fwd_dev = device_ms(torch, fwd, 5)
+    pairs = b * s * (s + 1) // 2
+    fwd_bound = bound(2 * (2 * q.numel() + 2 * k.numel()) + 8 * pos.numel(),
+                      4 * hd * pairs * h, BF16_TC_FLOPS)
+    row = {"dtype": "bfloat16", "route": "flash_mma",
+           "shape": "B=4, S=1024, 32/32 heads, hd 112, sliding 4096",
+           "tolerance": f"|g - ref| <= {ATTN_GRAD_TOL} |ref| + "
+                        f"{ATTN_GRAD_TOL} max|ref|; forward 2 bf16 ulps",
+           "errors": errs, "forward_device_ms": fwd_dev,
+           "forward_bound_ms": fwd_bound[0],
+           "forward_bound_by": fwd_bound[1]}
+    del q, k, v, dout, qr, kr, vr, qp, kp, vp, out, ref_out, grads, ref
+    torch.cuda.empty_cache()
+    return row
 
 
 def train_small_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
@@ -3179,6 +3322,531 @@ def gossip_phase_or_cut(torch, *args, name: str, layers: int, **kw) -> dict:
         emit({"phase": f"{name}_cut", "layers": layers, "cut_to": 1,
               "reason": "out of device memory"})
         return train_gossip_phase(torch, *args, name=name, layers=1, **kw)
+
+
+# ---------------------------------------------------------------------------
+# MoE training and the recurrent families (xLSTM-125M, Zamba2-7B)
+# ---------------------------------------------------------------------------
+
+def active_mm_params(cfg) -> int:
+    """Matrix-product weights a token passes through in one forward: the
+    unembed (not the embed), attention and MLP projections, a MoE layer's
+    router and its k experts (and the shared one), an xLSTM pair's and a
+    Mamba2 block's projections, the hybrid's shared block once per
+    group."""
+    d, hd, v = cfg.d_model, cfg.resolved_head_dim, cfg.vocab_size
+    attn = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+    mlp = 3 * d * cfg.d_ff
+    if cfg.family == "xlstm":
+        h = cfg.num_heads
+        pair = (5 * d * d + 2 * h * d          # mLSTM: q k v o out, gates
+                + 4 * d * d + 4 * d * d // h + d * d)   # sLSTM: in, r, out
+        return d * v + (cfg.num_layers // 2) * pair
+    if cfg.family == "hybrid":
+        di = cfg.ssm_expand * d
+        heads = di // cfg.ssm_head_dim
+        mamba = d * (2 * di + 2 * cfg.ssm_state + heads) + di * d
+        groups = cfg.num_layers // (cfg.blocks_per_attn + 1)
+        return d * v + groups * (cfg.blocks_per_attn * mamba + attn + mlp)
+    if cfg.family == "moe":
+        moe = (cfg.experts_per_token + int(cfg.moe_shared_expert)) * mlp \
+            + d * cfg.num_experts
+        per = max(cfg.moe_every, 1)
+        groups = cfg.num_layers // per
+        return d * v + groups * ((per - 1) * (attn + mlp) + attn + moe)
+    return d * v + cfg.num_layers * (attn + mlp)
+
+
+def train_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one train step, no recompute counted: 3 x (2 x the
+    active matrix-product weights x tokens + 4 hd H per admissible (query,
+    key) pair per attention layer). The SSM scans are not counted."""
+    from repro_torch.models.transformer import num_attn_layers
+    span = s if cfg.attention == "full" else min(s, cfg.window)
+    pairs = b * sum(min(i + 1, span) for i in range(s))
+    attn = num_attn_layers(cfg) * 4.0 * cfg.resolved_head_dim \
+        * cfg.num_heads * pairs
+    return 3.0 * (2.0 * active_mm_params(cfg) * b * s + attn)
+
+
+def kernel_busy_ms(torch, fn) -> tuple[float, int, float]:
+    """``fn`` once under ``torch.profiler`` with device activity only
+    (cheap where a step launches hundreds of thousands of kernels): the
+    summed device ms of its kernels, copies and fills, their count, and
+    the window's synchronised host ms (profiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    total_ns, count = 0, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            total_ns += ev.duration_ns()
+            count += 1
+    return total_ns / 1e6, count, host_ms
+
+
+@contextlib.contextmanager
+def moe_ranges(torch, mlp_mod):
+    """While open, each MoE layer's forward runs in a ``moe_forward``
+    ``record_function`` range and its backward in a ``moe_backward`` one,
+    opened by a hook on the layer's output gradient and closed by one on
+    its input gradient (the autograd thread). With remat the forward runs
+    twice (the forward and the recompute)."""
+    from torch.autograd.profiler import record_function
+    orig = mlp_mod.moe_apply
+
+    def annotated(p, x, **kw):
+        with record_function("moe_forward"):
+            y, aux = orig(p, x, **kw)
+        if torch.is_grad_enabled() and y.requires_grad and x.requires_grad:
+            rng = record_function("moe_backward")
+
+            def opened(g):
+                rng.__enter__()
+                return g
+
+            def closed(g):
+                rng.__exit__(None, None, None)
+                return g
+
+            y.register_hook(opened)
+            x.register_hook(closed)
+        return y, aux
+
+    mlp_mod.moe_apply = annotated
+    try:
+        yield {}
+    finally:
+        mlp_mod.moe_apply = orig
+
+
+def moe_train_bounds(cfg, tokens: int) -> dict:
+    """The MoE layer's least time in training, bf16: the forward reads the
+    used experts' matrices, the router and the rows in and out once, and
+    does 2 x tokens x k x 3 d f operations; the backward reads the
+    matrices and the rows' gradients and writes the matrices' gradients
+    (twice the forward's bytes) for twice its operations."""
+    e_used = min(cfg.num_experts, tokens * cfg.experts_per_token)
+    nbytes = moe_bytes(cfg, tokens, e_used)
+    ops = 2.0 * tokens * cfg.experts_per_token * 3 * cfg.d_model * cfg.d_ff
+    fwd, bwd = (bound(nbytes, ops, BF16_TC_FLOPS),
+                bound(2 * nbytes, 2 * ops, BF16_TC_FLOPS))
+    return {"forward_bytes": nbytes, "forward_bytes_ms":
+            nbytes / HBM_BYTES_PER_S * 1e3, "forward_bound_ms": fwd[0],
+            "forward_bound_by": fwd[1], "backward_bytes": 2 * nbytes,
+            "backward_bytes_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+            "backward_bound_ms": bwd[0], "backward_bound_by": bwd[1]}
+
+
+@contextlib.contextmanager
+def slstm_clock(torch, ssm_mod):
+    """While open, the host-clock ms of the sLSTM blocks in the step: each
+    block's forward (``slstm_apply``) and its backward window, from a hook
+    on its output gradient to one on its input gradient (the autograd
+    thread). Under remat the window also holds the group's recompute
+    (mLSTM, then sLSTM, which may stop early once the backward has what it
+    needs): the mLSTM's part is timed and left out. The loop is
+    host-bound, so its host time is the time it holds the step."""
+    origs = {kind: getattr(ssm_mod, f"{kind}_apply")
+             for kind in ("slstm", "mlstm")}
+    out = {"forward_calls": 0, "forward_ms": 0.0, "backward_calls": 0,
+           "backward_window_ms": 0.0, "slstm_recompute_calls": 0,
+           "mlstm_recompute_calls": 0, "mlstm_recompute_ms": 0.0}
+    start = []                     # the open backward window (at most one)
+
+    def opened(g):
+        start.append(time.perf_counter())
+        return g
+
+    def closed(g):
+        out["backward_window_ms"] += (time.perf_counter()
+                                      - start.pop()) * 1e3
+        out["backward_calls"] += 1
+        return g
+
+    def timed(kind):
+        def call(p, x, **kw):
+            recompute = bool(start)
+            t0 = time.perf_counter()
+            try:
+                y, state = origs[kind](p, x, **kw)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                if recompute:
+                    out[f"{kind}_recompute_calls"] += 1
+                    if kind == "mlstm":
+                        out["mlstm_recompute_ms"] += ms
+                elif kind == "slstm":
+                    out["forward_calls"] += 1
+                    out["forward_ms"] += ms
+            if kind == "slstm" and not recompute and \
+                    torch.is_grad_enabled() and y.requires_grad and \
+                    x.requires_grad:
+                y.register_hook(opened)
+                x.register_hook(closed)
+            return y, state
+        return call
+
+    for kind in origs:
+        setattr(ssm_mod, f"{kind}_apply", timed(kind))
+    try:
+        yield out
+    finally:
+        for kind, fn in origs.items():
+            setattr(ssm_mod, f"{kind}_apply", fn)
+    out["loop_ms"] = (out["forward_ms"] + out["backward_window_ms"]
+                      - out["mlstm_recompute_ms"])
+
+
+def train_family_phase(torch, rt, fa, train_mod, steps_mod, data_mod, name,
+                       cfg, *, b: int, s: int, cut: str, mma_per_step: int,
+                       steps: int = 6, profile: str = "full",
+                       annotate=None, ranges: tuple = (),
+                       extra=None) -> dict:
+    """``cfg`` through ``launch.train.train`` (the all-reduce path): bf16
+    compute, fp32 masters and AdamW moments, remat full, B x S from
+    ``TokenBatches``, lr 3e-4. The flash counts are zeroed just before
+    the run and read just after (remat runs each attention layer's
+    forward twice). Reports ms per step (CUDA events, the median of
+    steps 2-6), tokens/s, MFU (``train_flops`` over the bf16 dense peak),
+    init and step peak memory, loss, ce and aux per step (all finite),
+    and one more step profiled: by kernel (``profile="full"``, with the
+    ``record_function`` ``ranges``) or as the kernels' summed device time
+    only (``"busy"``), each against the timed steps' median. That step
+    runs inside ``annotate()`` where given; ``extra(probe, prof,
+    ms_step)`` adds rows from what the context yielded and the profile."""
+    hp = steps_mod.TrainHParams(lr=3e-4)
+    pipe = data_mod.TokenBatches(cfg.vocab_size, b, s, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps_mod.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), hp,
+        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in state.params.values())
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    res = train_mod.train(cfg, hp, pipe, steps, device="cuda", state=state)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict({n: 0 for n in fa.LAUNCHES},
+                flash_mma=mma_per_step * steps)
+    if launches != want:
+        fail(f"{name}: flash launches {launches}, want {want} (the "
+             "forward and the recompute of each attention layer)")
+    curves = {key: [float(m[key]) for m in res.metrics]
+              for key in ("loss", "ce", "aux", "grad_norm")}
+    if not all(math.isfinite(x) for xs in curves.values() for x in xs):
+        fail(f"{name}: non-finite metrics {curves}")
+    ms_step = float(statistics.median(res.step_ms[1:]))
+    flops = train_flops(cfg, b, s)
+    batch = train_mod.to_device(pipe(steps), torch.device("cuda"))
+    step_fn = steps_mod.make_train_step(cfg, hp)
+    one = lambda: step_fn(res.state, batch)
+    with (annotate() if annotate else contextlib.nullcontext({})) as probe:
+        if profile == "full":
+            prof = device_profile(torch, one, ms_step, top=10,
+                                  ranges=ranges)
+        else:
+            busy, count, prof_ms = kernel_busy_ms(torch, one)
+            prof = {"host_ms": ms_step, "device_ms": busy, "kernels": count,
+                    "device_idle_share": 1.0 - busy / ms_step,
+                    "profiled_step_host_ms": prof_ms,
+                    "method": "torch.profiler, device activity only: summed "
+                              "durations of one more step's kernels, "
+                              "copies and fills against the median of the "
+                              "timed steps"}
+    out = {"phase": name, "model": cfg.name, "family": cfg.family,
+           "layers": cfg.num_layers, "cut": cut, "d_model": cfg.d_model,
+           "heads": f"{cfg.num_heads}/{cfg.num_kv_heads}", "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "remat": cfg.remat_policy,
+           "optimizer": "AdamW, fp32 moments, lr 3e-4", "batch": b,
+           "seq": s, "steps": steps, "params": n_params,
+           "active_mm_params": active_mm_params(cfg), "init_s": init_s,
+           "init_peak_memory_bytes": init_peak,
+           **{f"{key}_per_step": xs for key, xs in curves.items()},
+           "step_ms": res.step_ms, "ms_per_step": ms_step,
+           "ms_per_step_of": "median of steps 2-6",
+           "tokens_per_s": b * s / ms_step * 1e3,
+           "model_flops_per_step": flops,
+           "mfu_bf16_dense_peak": flops / (ms_step / 1e3) / BF16_TC_FLOPS,
+           "launches": launches,
+           "flash_mma_per_step": launches["flash_mma"] / steps,
+           "peak_memory_bytes": peak, "profile_step": prof}
+    if extra is not None:
+        out.update(extra(probe, prof, ms_step))
+    emit(out)
+    del res, state, batch, one
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
+                      mlp_mod) -> dict:
+    """dbrx at full width (d 6,144, 48/8 heads, hd 128, d_ff 10,752,
+    vocab 100,352), one layer, 8 of its 16 experts, top-4, scatter at
+    capacity factor 1.25: 2.9 B parameters, ~46.5 GB of fp32 AdamW state.
+    Adds the MoE layer's forward and backward device ms (profiler ranges)
+    against their bounds."""
+    cfg = dataclasses.replace(rt.get_config("dbrx_132b"), num_layers=1,
+                              num_experts=8)
+    b, s = 4, 1024
+
+    def moe_rows(probe, prof, ms_step):
+        bounds = moe_train_bounds(cfg, b * s)
+        fwd, bwd = (prof["ranges"]["moe_forward"],
+                    prof["ranges"]["moe_backward"])
+        return {"moe_layer": {
+            **bounds, "tokens": b * s,
+            "capacity": mlp_mod.moe_capacity(b * s, cfg.experts_per_token,
+                                              cfg.num_experts,
+                                              cfg.moe_capacity_factor),
+            "forward_calls": fwd["calls"],
+            "forward_device_ms_per_call": fwd["device_ms"]
+            / max(fwd["calls"], 1),
+            "backward_calls": bwd["calls"],
+            "backward_device_ms": bwd["device_ms"],
+            "backward_host_ms": bwd["host_ms"],
+            "share_of_step": (fwd["device_ms"] + bwd["device_ms"])
+            / ms_step,
+            "note": "forward ranges: the forward and remat's recompute"}}
+
+    return train_family_phase(
+        torch, rt, fa, train_mod, steps_mod, data_mod, "train_moe_a", cfg,
+        b=b, s=s, mma_per_step=2,
+        cut="depth 40 -> 1 layer, experts 16 -> 8 (top-4 kept), full "
+            "width", annotate=lambda: moe_ranges(torch, mlp_mod),
+        ranges=("moe_forward", "moe_backward"), extra=moe_rows)
+
+
+def train_hybrid_a_phase(torch, rt, fa, train_mod, steps_mod,
+                         data_mod) -> dict:
+    """Zamba2-7B at full width, 9 of its 27 groups (27 blocks): ~1.84 B
+    parameters, ~29 GB of fp32 AdamW state."""
+    cfg = dataclasses.replace(rt.get_config("zamba2_7b"), num_layers=27)
+    return train_family_phase(
+        torch, rt, fa, train_mod, steps_mod, data_mod, "train_hybrid_a",
+        cfg, b=4, s=1024, mma_per_step=2 * 9,
+        cut="depth 81 -> 27 blocks (9 of 27 groups), full width")
+
+
+def train_xlstm_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
+                        ssm_mod) -> dict:
+    """xLSTM-125M at full width and depth (6 mLSTM + sLSTM pairs), B=8 x
+    S=1,024. Adds the sLSTM loop's share of a step, read in the profiled
+    step itself (``slstm_clock``): the host ms of its sLSTM blocks'
+    forwards, recomputes and backwards over that step's host ms."""
+    cfg = rt.get_config("xlstm_125m")
+    b, s = 8, 1024
+    blocks = cfg.num_layers // 2
+
+    def slstm_rows(probe, prof, ms_step):
+        # remat full: one forward, recompute and backward per block
+        calls = ("forward_calls", "backward_calls", "slstm_recompute_calls",
+                 "mlstm_recompute_calls")
+        if any(probe[c] != blocks for c in calls):
+            fail(f"train_xlstm_a: sLSTM calls {probe}, want {blocks} of "
+                 f"each of {calls} in one step")
+        loop_ms = probe["loop_ms"]
+        return {"slstm_blocks": blocks, "slstm_in_step": probe,
+                "slstm_loop_ms_per_step": loop_ms,
+                "slstm_share_of_step": loop_ms
+                / prof["profiled_step_host_ms"],
+                "slstm_share_of": "host ms of the sLSTM blocks over the "
+                                  "host ms of the same (profiled) step"}
+
+    return train_family_phase(
+        torch, rt, fa, train_mod, steps_mod, data_mod, "train_xlstm_a",
+        cfg, b=b, s=s, mma_per_step=0, profile="busy", cut=None,
+        annotate=lambda: slstm_clock(torch, ssm_mod), extra=slstm_rows)
+
+
+def train_moe_small_phase(torch, rt, fa, steps_mod, mlp_mod) -> list:
+    """dbrx's and llama4's shapes at d_model 512 (``moe_small_configs``),
+    fp32, the card against the CPU from the same masters on the same
+    batch: loss, ce, aux and every leaf's gradient at rtol 1e-4 (atol
+    1e-4 x the leaf's largest), every router call's routes compared (a
+    flip allowed only below FLIP_MARGIN on the CPU; with one, the
+    gradients are reported, not held)."""
+    from repro_torch.models.blocks import DEFAULT_CTX
+    rows = []
+    for cfg in moe_small_configs(rt):
+        state = steps_mod.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                               generator=torch.Generator().manual_seed(1))
+        res, taps, launches = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            req = {n: p.detach().to(dev).clone().requires_grad_()
+                   for n, p in state.params.items()}
+            fa.reset_launches()
+            with RouteTap(torch, mlp_mod) as tap:
+                loss, (ce, aux) = steps_mod.loss_fn(
+                    cfg, req, {"tokens": tokens.to(dev)}, DEFAULT_CTX, 0.01)
+                loss.backward()
+            launches[dev] = dict(fa.LAUNCHES)
+            taps[dev] = tap
+            res[dev] = ([float(loss), float(ce), float(aux)],
+                        {n: p.grad for n, p in req.items()})
+        groups = cfg.num_layers // max(cfg.moe_every, 1)
+        # remat runs each attention layer's forward twice
+        passes = 2 if cfg.remat and cfg.remat_policy != "none" else 1
+        if launches["cuda"]["flash_tf32"] != passes * cfg.num_layers or \
+                any(launches["cpu"].values()):
+            fail(f"train_moe_small {cfg.name}: launches {launches}, want "
+                 f"{passes * cfg.num_layers} flash_tf32 on the card (the "
+                 "forward and the recompute), none on the CPU")
+        flips, _ = route_flips(taps["cuda"], taps["cpu"], lambda i, r: r,
+                               FLIP_MARGIN, f"train_moe_small {cfg.name}")
+        vals, valc = res["cuda"][0], res["cpu"][0]
+        worst = 0.0
+        for n, g in res["cpu"][1].items():
+            ok, rel = grads_close(res["cuda"][1][n], g, TRAIN_RTOL)
+            worst = max(worst, rel)
+            if not ok and not flips:
+                fail(f"train_moe_small {cfg.name}: gradient {n} card vs CPU:"
+                     f" max err {rel} of max|g| (rtol {TRAIN_RTOL})")
+        if not flips and not all(abs(a - c) <= TRAIN_RTOL * abs(c) + 1e-7
+                                 for a, c in zip(vals, valc)):
+            fail(f"train_moe_small {cfg.name}: loss, ce, aux {vals} vs "
+                 f"{valc}")
+        margins = torch.cat([m for _, m in taps["cpu"].calls])
+        row = {"phase": "train_moe_small", "model": cfg.name,
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
+               "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+               "dtype": cfg.dtype, "tokens": "2 x 64",
+               "loss_ce_aux": vals, "loss_ce_aux_cpu": valc,
+               "grad_max_err_over_max": worst, "rtol": TRAIN_RTOL,
+               "router_calls": len(taps["cuda"].calls),
+               "router_calls_want": passes * groups,
+               "route_flips": flips, "held": not flips,
+               "min_cpu_margin": float(margins.min()),
+               "launches": launches["cuda"]}
+        emit(row)
+        rows.append(row)
+        del state, res
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tree_close(torch, a, b, rtol) -> float:
+    """Worst max|a - b| / max|b| over two nested trees of tensors; fails
+    where a leaf is off rtol |b| + rtol max|b|."""
+    if isinstance(b, dict):
+        return max([tree_close(torch, a[k], b[k], rtol) for k in b] or [0.0])
+    if isinstance(b, list):
+        return max([tree_close(torch, x, y, rtol) for x, y in zip(a, b)]
+                   or [0.0])
+    ok, rel = grads_close(a, b, rtol)
+    if not ok:
+        fail(f"ssm_small: card and CPU differ by {rel} of max|ref| "
+             f"(rtol {rtol})")
+    return rel
+
+
+def ssm_small_phase(torch, rt, fa, steps_mod) -> list:
+    """xLSTM's and Zamba2's smoke variants (fp32), the card against the
+    CPU from the same weights: the forward's logits, a prefill then 4
+    decode steps (logits and every cached state), and every leaf's
+    gradient of the loss, each at rtol 1e-4 (atol 1e-4 x max|ref|)."""
+    from repro_torch.models.blocks import DEFAULT_CTX
+    rows = []
+    for arch in ("xlstm_125m", "zamba2_7b"):
+        cfg = rt.smoke_variant(rt.get_config(arch))
+        api = rt.build_model(cfg, device="cuda")
+        params = api.init(torch.Generator(device="cuda").manual_seed(0))
+        api_cpu = rt.build_model(cfg, device="cpu")
+        params_cpu = {n: t.cpu() for n, t in params.items()}
+        tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                               generator=torch.Generator().manual_seed(2))
+        out, worst = {}, {}
+        fa.reset_launches()
+        for dev, a, p in (("cuda", api, params), ("cpu", api_cpu,
+                                                  params_cpu)):
+            tok = tokens.to(dev)
+            with torch.no_grad():
+                logits, _ = a.forward(p, {"tokens": tok})
+                cache = a.init_cache(p, 2, 40)
+                steps = [a.prefill(p, {"tokens": tok[:, :36]}, cache)[0]]
+                for i in range(4):
+                    steps.append(a.decode_step(p, tok[:, 36 + i:37 + i],
+                                               36 + i, cache)[0])
+            req = {n: t.detach().clone().requires_grad_()
+                   for n, t in p.items()}
+            loss, _ = steps_mod.loss_fn(cfg, req, {"tokens": tok},
+                                        DEFAULT_CTX, 0.01)
+            loss.backward()
+            out[dev] = {"forward": logits, "steps": torch.cat(steps, 1),
+                        "cache": cache, "loss": loss.detach(),
+                        "grads": {n: t.grad for n, t in req.items()}}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(fa.LAUNCHES)
+        for key in ("forward", "steps", "cache", "loss", "grads"):
+            worst[key] = tree_close(torch, out["cuda"][key],
+                                    out["cpu"][key], TRAIN_RTOL)
+        if fa.LAUNCHES != launches:
+            fail(f"ssm_small {arch}: the CPU run launched a kernel")
+        row = {"phase": "ssm_small", "model": cfg.name,
+               "family": cfg.family, "d_model": cfg.d_model,
+               "layers": cfg.num_layers, "dtype": cfg.dtype,
+               "scan_chunk": cfg.scan_chunk, "tokens": "2 x 40 (prefill "
+               "36, 4 decode steps)", "rtol": TRAIN_RTOL,
+               "max_err_over_max": worst, "launches": launches}
+        emit(row)
+        rows.append(row)
+        del params, params_cpu, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_hybrid_a_phase(torch, rt, fa, serve_mod) -> dict:
+    """Zamba2-7B at full width and depth (81 blocks, 27 groups of 2 Mamba2
+    blocks and the shared attention + MLP, sliding window 4,096), bf16,
+    B=2 x 4,096 prompt, 16 tokens, through ``serve_phase``, its last step
+    against the full forward at FWD_TOL_DEEP. Then decode after a
+    511-token prefill against the full forward, in bf16 at FWD_TOL, and
+    the fp32 twin (18.6 GB of weights): that check and the one after the
+    4,096-token prefill at HYBRID_FP32_TOL, which shows the decode path
+    exact and the bf16 difference rounding."""
+    cfg = rt.get_config("zamba2_7b")
+    out = serve_phase(torch, rt, fa, serve_mod, "serve_hybrid_a", cfg,
+                      batch=2, prompt_len=4096, gen=16, fwd_tol=FWD_TOL_DEEP)
+    checks = {}
+    for dtype, tol, lens in (("bfloat16", FWD_TOL, (511,)),
+                             ("float32", HYBRID_FP32_TOL, (511, 4096))):
+        api = rt.build_model(dataclasses.replace(cfg, dtype=dtype),
+                             device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        params = api.init(g)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 4096 + 15),
+                               generator=g, device="cuda")
+        rows = [decode_vs_forward(torch, api, params,
+                                  tokens[:, :n + 1] if n < 4096 else tokens,
+                                  n) for n in lens]
+        for row in rows:
+            if not row["max_abs_diff"] <= tol * row["max_abs_logit"]:
+                fail(f"serve_hybrid_a {dtype}: decode disagrees with "
+                     f"forward: {row} (tolerance {tol} * max|logits|)")
+        checks[dtype] = {"tolerance": f"{tol} * max|logits|",
+                         "checks": rows}
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_hybrid_a_decode_checks", "model": cfg.name,
+          "layers": cfg.num_layers, **checks})
+    out["decode_checks"] = checks
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3714,7 +4382,6 @@ def obs_trace_phase(torch, rt, obs_trace, lasso, ring, logdir) -> dict:
     call, matched by correlation id, inside a ``block-*`` annotation of
     the exported trace), and its coverage: that time over the CUDA-event
     device ms of the same rounds."""
-    import contextlib
     import os
 
     class EventTracer(obs_trace.Tracer):
@@ -3786,7 +4453,6 @@ def obs_phase(torch, rt, cd_glm, bl, dist_mod, topo, axis, lasso, ring,
     the trace and profiler rows, then the run registry these runs filled
     (a temporary directory, removed at the end) through the CLI's list,
     show, diff and timeline, and run_a's off / on twin diffed."""
-    import contextlib
     import dataclasses as dc
     import io
     import os
@@ -4122,7 +4788,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import attention, mlp as mlp_mod
+    from repro_torch.models import attention, mlp as mlp_mod, ssm as ssm_mod
     from repro_torch.optim import gossip as gossip_mod, privacy
     from repro_torch.train import data as data_mod, steps as steps_mod
 
@@ -4142,6 +4808,8 @@ def main() -> int:
     checks = kernel_phase(torch, cd_glm)
     attn = attn_kernel_phase(torch, fa, attention._mode_mask)
     split_comb = split_combine_phase(torch, fa, attention._mode_mask)
+    split_comb_112 = split_combine_phase(torch, fa, attention._mode_mask,
+                                         case="decode_sliding_hd112_2src")
     gvr = gram_vs_residual_phase(torch, cd_glm, subproblem)
     small_phase(torch, rt, topology, synthetic, cd_glm)
     small_churn_phase(torch, rt, topology, synthetic, cd_glm)
@@ -4312,6 +4980,10 @@ def main() -> int:
     # small MoE shapes card vs CPU
     moe_a = serve_moe_a_phase(torch, rt, fa, serve_mod, mlp_mod)
     moe_small = serve_moe_small_phase(torch, rt, fa, serve_mod, mlp_mod)
+    # the recurrent families: Zamba2-7B at full width and depth, then the
+    # xLSTM and Zamba2 smoke variants card vs CPU
+    hybrid_a = serve_hybrid_a_phase(torch, rt, fa, serve_mod)
+    ssm_small = ssm_small_phase(torch, rt, fa, steps_mod)
 
     # training: the flash Function's gradient, card vs CPU at the smoke
     # width, then Qwen3-4B at full width through launch.train
@@ -4326,6 +4998,17 @@ def main() -> int:
     train_gossip_dp = gossip_phase_or_cut(torch, *gossip_args,
                                           name="train_gossip_dp", layers=2,
                                           dp=True)
+    # MoE training (dbrx: small shapes card vs CPU, then full width, one
+    # layer, 8 experts) and the recurrent families' training (Zamba2 at 9
+    # of 27 groups, xLSTM-125M whole)
+    moe_train_small = train_moe_small_phase(torch, rt, fa, steps_mod,
+                                            mlp_mod)
+    train_moe_a = train_moe_a_phase(torch, rt, fa, train_mod, steps_mod,
+                                    data_mod, mlp_mod)
+    train_hybrid_a = train_hybrid_a_phase(torch, rt, fa, train_mod,
+                                          steps_mod, data_mod)
+    train_xlstm_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
+                        ssm_mod)
 
     src = "src/repro_torch/kernels/csrc/cd_glm.cu"
     kernels = []
@@ -4395,6 +5078,12 @@ def main() -> int:
         "launches_train_gossip": train_gossip["launches"]["flash_mma"],
         "launches_train_gossip_dp":
             train_gossip_dp["launches"]["flash_mma"],
+        "launches_serve_hybrid_a": hybrid_a["launches"]["flash_mma"],
+        "launches_train_moe_a": train_moe_a["launches"]["flash_mma"],
+        "launches_train_hybrid_a": train_hybrid_a["launches"]["flash_mma"],
+        "hd112": {key: by_case[("sliding_hd112", "bfloat16")][key]
+                  for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "max_abs_err")},
         "training": {key: attn_grad["bfloat16"][key] for key in (
             "forward_ms", "forward_device_ms", "backward_ms",
             "backward_device_ms", "backward_bound_ms", "backward_bound_by",
@@ -4406,8 +5095,13 @@ def main() -> int:
         "launches_serve_moe_a": moe_a["launches"]["flash_split"],
         "launches_serve_moe_small": sum(r["launches"]["flash_split"]
                                         for r in moe_small),
+        "launches_serve_hybrid_a": hybrid_a["launches"]["flash_split"],
+        "launches_ssm_small": sum(r["launches"]["flash_split"]
+                                  for r in ssm_small),
         "max_abs_err": max(split_comb["flash_split"]["max_abs_err"],
+                           split_comb_112["flash_split"]["max_abs_err"],
                            err_of("split", "bfloat16")),
+        "hd112": timing(split_comb_112["flash_split"]),
         **timing(split_comb["flash_split"]),
         "with_combine": {**timing(decode), "splits": decode["splits"],
                          "shape": "decode, bf16, cache ++ fresh key "
@@ -4422,7 +5116,12 @@ def main() -> int:
         "launches_serve_moe_a": moe_a["launches"]["flash_combine"],
         "launches_serve_moe_small": sum(r["launches"]["flash_combine"]
                                         for r in moe_small),
-        "max_abs_err": split_comb["flash_combine"]["max_abs_err"],
+        "launches_serve_hybrid_a": hybrid_a["launches"]["flash_combine"],
+        "launches_ssm_small": sum(r["launches"]["flash_combine"]
+                                  for r in ssm_small),
+        "max_abs_err": max(split_comb["flash_combine"]["max_abs_err"],
+                           split_comb_112["flash_combine"]["max_abs_err"]),
+        "hd112": timing(split_comb_112["flash_combine"]),
         **timing(split_comb["flash_combine"]),
         "shape": f"decode partials, {decode['splits']} splits of "
                  "(8, 8, 4 rows, 128)"})
@@ -4435,6 +5134,10 @@ def main() -> int:
         "launches_train_small": train_small["launches_cuda"]["flash_tf32"],
         "launches_serve_moe_small": sum(r["launches"]["flash_tf32"]
                                         for r in moe_small),
+        "launches_ssm_small": sum(r["launches"]["flash_tf32"]
+                                  for r in ssm_small),
+        "launches_train_moe_small": sum(r["launches"]["flash_tf32"]
+                                        for r in moe_train_small),
         "max_abs_err": err_of("tf32", "float32"),
         **timing(prefill32),
         "bound_peak": "3 x FLOPs at the TF32 tensor-core peak",
@@ -4442,9 +5145,10 @@ def main() -> int:
         "shape": "prefill, fp32 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
                  "hd 128)"})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
-    if not next(k for k in kernels
-                if k["name"] == "flash_mma")["launches_train_a"] > 0:
-        idle.append("flash_mma (train_a)")
+    for key in ("launches_train_a", "launches_serve_hybrid_a",
+                "launches_train_moe_a", "launches_train_hybrid_a"):
+        if not next(k for k in kernels if k["name"] == "flash_mma")[key] > 0:
+            idle.append(f"flash_mma ({key[len('launches_'):]})")
     if idle:
         fail(f"kernels not launched on their main path: {idle}")
     import torch.distributed

@@ -10,11 +10,12 @@ array.
 
 For the model zoo: ``model_params_from_numpy`` takes the reference's
 parameter pytree as numpy arrays (layer-stacked, as ``_stack_init`` builds
-it; a MoE group's dense layers as a list) into the port's one flat dict
-(``transformer.param_paths``, shapes from ``transformer.param_leaves``),
+it; a MoE group's dense layers and a hybrid group's Mamba2 blocks as
+lists; the hybrid's unstacked ``shared`` block) into the port's one flat
+dict (``transformer.param_paths``, shapes from ``transformer.param_leaves``),
 ``load_checkpoint`` reads an npz written by the reference's
 ``train.checkpoint.save`` (leaves keyed by ``jax.tree_util.keystr`` paths,
-parsed here as strings), and ``cache_to_numpy`` hands a KV cache back.
+parsed here as strings), and ``cache_to_numpy`` hands a decode cache back.
 ``train_state_from_numpy`` / ``train_state_to_numpy`` carry a training
 state (fp32 masters, the optimizer's moments, the step) across in the
 reference's layout, single or with a leading (K,) replica axis (gossip).
@@ -173,11 +174,16 @@ def load_checkpoint(path: str) -> dict:
     return tree
 
 
-def cache_to_numpy(cache: dict) -> dict:
-    """A KV cache as numpy in the reference's layout (k, v as float32 —
-    numpy has no bf16 — and pos as int32)."""
-    return {key: (t.float() if t.is_floating_point() else t).cpu().numpy()
-            for key, t in cache.items()}
+def cache_to_numpy(cache):
+    """A decode cache as numpy in the reference's layout: a KV cache (k, v
+    as float32 — numpy has no bf16 — and pos as int32), or a recurrent
+    family's nested tree of states (lists stay lists)."""
+    if isinstance(cache, dict):
+        return {key: cache_to_numpy(t) for key, t in cache.items()}
+    if isinstance(cache, list):
+        return [cache_to_numpy(t) for t in cache]
+    return (cache.float() if cache.is_floating_point() else cache
+            ).cpu().numpy()
 
 
 def _nested_to_flat(tree, prefix=()) -> dict:

@@ -1,5 +1,8 @@
 """Batched serving driver: prefill a batch of prompts, then greedy decode
-through the KV cache (counterpart of ``repro.launch.serve``).
+through the decode cache (counterpart of ``repro.launch.serve``): the KV
+cache of the dense and MoE families; for xlstm and hybrid an O(1)
+recurrent state per group, and the hybrid's shared attention's ring of
+min(max_len, window) slots.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \\
       --batch 8 --prompt-len 1024 --gen 32
@@ -7,6 +10,8 @@ through the KV cache (counterpart of ``repro.launch.serve``).
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama4_maverick_400b --layers 2 --batch 4 --prompt-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \\
+      --batch 2 --prompt-len 4096 --gen 16
 
 ``--device`` defaults to ``cuda`` and the run raises without a card.
 ``--layers`` cuts the depth (Llama-4-Maverick: one group of a dense and an
@@ -34,7 +39,7 @@ class ServeResult:
     logits: torch.Tensor        # (B, gen, V) f32: prefill's, then each step's
     prefill_ms: float
     decode_ms: list             # one entry per decode step (gen - 1)
-    cache: dict                 # the KV cache after the last step
+    cache: dict                 # the decode cache after the last step
 
 
 class _Clock:

@@ -1,5 +1,5 @@
-"""Training driver of the dense family (counterpart of
-``repro.launch.train``). Two modes:
+"""Training driver of the dense, MoE, xlstm and hybrid families
+(counterpart of ``repro.launch.train``). Two modes:
 
   * all-reduce data-parallel training (one replica here: ``train``);
   * ``--gossip K``: gossip data-parallelism, K replicas taking local AdamW
@@ -11,6 +11,8 @@
       --smoke --device cpu --steps 20 --batch 8 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --smoke --device cpu --gossip 4 --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_125m \\
+      --smoke --device cpu --steps 5
 
 ``--device`` defaults to ``cuda`` and the run raises without a card.
 ``--ckpt`` writes the parameters (gossip: their node average) as an npz

@@ -1,6 +1,7 @@
-"""Transformer blocks of the dense and MoE families: the GQA attention block
-with its ring-buffer KV cache, the dense and MoE decoder layers and the
-interleaved MoE group (counterpart of ``repro.models.blocks``).
+"""Per-family blocks: the GQA attention block with its ring-buffer KV
+cache, the dense and MoE decoder layers, the interleaved MoE group, the
+xLSTM pair and the Zamba2 hybrid group (counterpart of
+``repro.models.blocks``).
 
 Every block shares the signature
     apply(cfg, params, x, positions, cache, ctx) -> (y, new_cache, aux)
@@ -12,8 +13,10 @@ nested dicts of tensors with the reference's names and layouts
 leaves (``transformer._group_trees``). ``*_leaves`` give each block's
 shapes and initializers.
 
-Not ported yet (ROADMAP queue 1 item 17): xLSTM pairs, the Zamba2 hybrid
-group, encoder and cross-attention layers.
+A recurrent block's cache is its state dict (``ssm.*_init_state``); the
+block returns new state tensors, which ``transformer._run_stack`` copies
+into the stacked cache. Not ported yet (ROADMAP queue 1 item 17.4):
+encoder and cross-attention layers.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import mlp
+from repro_torch.models import mlp, ssm
 from repro_torch.models.common import (Leaf, apply_rope, dense_leaf,
                                        head_rms_norm, init_tree, rms_norm)
 
@@ -230,3 +233,105 @@ def moe_group_apply(cfg: ModelConfig, p: dict, x, positions, cache,
     x, _, aux = moe_layer_apply(cfg, p["moe"], x, positions,
                                 layer_caches[n], ctx)
     return x, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# xLSTM pair (mLSTM block + sLSTM block), each pre-norm residual
+# ---------------------------------------------------------------------------
+
+def xlstm_pair_leaves(cfg: ModelConfig) -> dict:
+    return {"ln_m": Leaf((cfg.d_model,)), "ln_s": Leaf((cfg.d_model,)),
+            "mlstm": ssm.mlstm_leaves(cfg.d_model, cfg.num_heads),
+            "slstm": ssm.slstm_leaves(cfg.d_model, cfg.num_heads)}
+
+
+def xlstm_pair_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+    return init_tree(generator, xlstm_pair_leaves(cfg), dtype, device)
+
+
+def xlstm_pair_apply(cfg: ModelConfig, p: dict, x, positions, cache,
+                     ctx: ModelCtx = DEFAULT_CTX):
+    cache = cache or {"mlstm": None, "slstm": None}
+    h, m_state = ssm.mlstm_apply(p["mlstm"], rms_norm(x, p["ln_m"]),
+                                 num_heads=cfg.num_heads,
+                                 chunk=cfg.scan_chunk, state=cache["mlstm"])
+    x = x + h
+    h, s_state = ssm.slstm_apply(p["slstm"], rms_norm(x, p["ln_s"]),
+                                 num_heads=cfg.num_heads,
+                                 state=cache["slstm"])
+    x = x + h
+    return x, {"mlstm": m_state, "slstm": s_state}, 0.0
+
+
+def xlstm_init_cache(cfg: ModelConfig, p: dict, batch: int) -> dict:
+    return {"mlstm": ssm.mlstm_init_state(p["mlstm"], batch, cfg.num_heads),
+            "slstm": ssm.slstm_init_state(p["slstm"], batch, cfg.num_heads)}
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid group: N mamba2 blocks + one SHARED attention block
+# ---------------------------------------------------------------------------
+
+def mamba_block_leaves(cfg: ModelConfig) -> dict:
+    return {"ln": Leaf((cfg.d_model,)),
+            "mamba": ssm.mamba2_leaves(cfg.d_model, cfg.ssm_state,
+                                       expand=cfg.ssm_expand,
+                                       head_dim=cfg.ssm_head_dim)}
+
+
+def mamba_block_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+    return init_tree(generator, mamba_block_leaves(cfg), dtype, device)
+
+
+def hybrid_group_leaves(cfg: ModelConfig) -> dict:
+    """One group: ``blocks_per_attn`` mamba blocks (the reference's list,
+    int keys here) and the norms feeding the SHARED attention + MLP block,
+    whose leaves live outside the groups (Zamba2's parameter sharing)."""
+    return {"mamba_blocks": {i: mamba_block_leaves(cfg)
+                             for i in range(cfg.blocks_per_attn)},
+            "ln_attn": Leaf((cfg.d_model,)), "ln_mlp": Leaf((cfg.d_model,))}
+
+
+def hybrid_group_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+    return init_tree(generator, hybrid_group_leaves(cfg), dtype, device)
+
+
+def hybrid_shared_leaves(cfg: ModelConfig) -> dict:
+    return {"attn": attn_leaves(cfg),
+            "mlp": mlp.mlp_leaves(cfg.d_model, cfg.d_ff)}
+
+
+def hybrid_shared_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+    return init_tree(generator, hybrid_shared_leaves(cfg), dtype, device)
+
+
+def hybrid_group_apply(cfg: ModelConfig, p: dict, shared: dict, x,
+                       positions, cache, ctx: ModelCtx = DEFAULT_CTX):
+    """``cache``: None, or {"mamba": [state per block], "attn": KV cache}
+    (the attention cache updated in place)."""
+    n = cfg.blocks_per_attn
+    cache = cache or {"mamba": [None] * n, "attn": None}
+    new_mamba = []
+    for i in range(n):
+        blk = p["mamba_blocks"][i]
+        h, st = ssm.mamba2_apply(blk["mamba"], rms_norm(x, blk["ln"]),
+                                 ssm_state=cfg.ssm_state,
+                                 chunk=cfg.scan_chunk,
+                                 state=cache["mamba"][i])
+        x = x + h
+        new_mamba.append(st)
+    h, attn_cache = attn_apply(cfg, shared["attn"],
+                               rms_norm(x, p["ln_attn"]), positions,
+                               cache["attn"])
+    x = x + h
+    x = x + mlp.mlp_apply(shared["mlp"], rms_norm(x, p["ln_mlp"]))
+    return x, {"mamba": new_mamba, "attn": attn_cache}, 0.0
+
+
+def hybrid_init_cache(cfg: ModelConfig, p: dict, batch: int, max_len: int,
+                      dtype) -> dict:
+    return {"mamba": [ssm.mamba2_init_state(p["mamba_blocks"][i]["mamba"],
+                                            batch, cfg.ssm_state)
+                      for i in range(cfg.blocks_per_attn)],
+            "attn": init_kv_cache(cfg, batch, max_len, dtype,
+                                  p["ln_attn"].device)}

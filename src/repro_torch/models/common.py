@@ -78,11 +78,13 @@ def embed_init(generator: torch.Generator, shape: tuple[int, ...], dtype,
 class Leaf(NamedTuple):
     """A parameter's shape and initializer, as the reference's ``*_init``
     draws it: ``"dense"`` (``dense_init`` with ``fan_in``), ``"embed"``
-    (``embed_init``) or ``"zeros"``."""
+    (``embed_init``), ``"zeros"``, or ``"fill"``: constant runs along the
+    last axis, ``fill`` = ((count, value), ...) (the SSM biases)."""
 
     shape: tuple
     init: str = "zeros"
     fan_in: int = 0
+    fill: tuple = ()
 
 
 def dense_leaf(shape: tuple, fan_in: int | None = None) -> Leaf:
@@ -95,6 +97,10 @@ def new_leaf(generator: torch.Generator | None, leaf: Leaf, dtype,
     ``generator=None`` leaves a drawn leaf uninitialised, for loading."""
     if leaf.init == "zeros":
         return torch.zeros(leaf.shape, dtype=dtype, device=device)
+    if leaf.init == "fill":
+        row = torch.cat([torch.full((n,), v, dtype=dtype, device=device)
+                         for n, v in leaf.fill])
+        return row.expand(leaf.shape).clone()
     out = torch.empty(leaf.shape, dtype=dtype, device=device)
     if generator is not None:
         draw_(generator, out, leaf)
@@ -104,8 +110,9 @@ def new_leaf(generator: torch.Generator | None, leaf: Leaf, dtype,
 def draw_(generator: torch.Generator, out: torch.Tensor, leaf: Leaf) -> None:
     """Fill ``out`` (``leaf``'s shape, or one group's slice of a stack) from
     ``leaf``'s initializer, one matrix at a time (the trailing two axes: one
-    expert), so the fp32 draw never exceeds one matrix."""
-    if leaf.init == "zeros":
+    expert), so the fp32 draw never exceeds one matrix. A constant leaf
+    is set when it is made (``new_leaf``)."""
+    if leaf.init in ("zeros", "fill"):
         return
     for idx in itertools.product(*map(range, out.shape[:-2])):
         if leaf.init == "embed":

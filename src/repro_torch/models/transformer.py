@@ -1,8 +1,10 @@
-"""Model assembly for the dense and MoE families and the entry points every
-architecture exposes (counterpart of ``repro.models.transformer``):
+"""Model assembly for the dense, MoE, xlstm and hybrid families and the
+entry points every architecture exposes (counterpart of
+``repro.models.transformer``):
 
   * ``forward``      — full-sequence logits
-  * ``init_cache``   — decode state (KV caches / ring buffers)
+  * ``init_cache``   — decode state (KV caches / ring buffers / recurrent
+    states)
   * ``prefill``      — a prompt against a cache: fills it, returns the last
     position's logits
   * ``decode_step``  — one token in, one token's logits out, cache updated
@@ -10,19 +12,20 @@ architecture exposes (counterpart of ``repro.models.transformer``):
 A model's parameters are ONE flat dict ``{dotted name: tensor}``, named and
 ordered as ``param_paths`` says: the reference's leaves in its
 ``jax.tree`` flatten order, the layer leaves stacked over the groups on a
-leading axis, as the reference's ``_stack_init`` stacks them. Serving,
-training, checkpoints and gossip all read it. Serving holds it in
-``cfg.dtype`` (the reference's ``compute_cast``, once, at build or load);
-training holds fp32 masters (``cfg.param_dtype``) and casts them on every
-forward, differentiably (``train.steps``).
+leading axis, as the reference's ``_stack_init`` stacks them (the hybrid
+family's ``shared`` attention + MLP block is not stacked: every group
+reads it). Serving, training, checkpoints and gossip all read it. Serving
+holds it in ``cfg.dtype`` (the reference's ``compute_cast``, once, at
+build or load); training holds fp32 masters (``cfg.param_dtype``) and
+casts them on every forward, differentiably (``train.steps``).
 
 The groups run in a Python loop where the reference scans them under
 ``lax.scan``; each group reads views ``t[i]`` of the stacked leaves
 (``_group_trees``). With a gradient, each group runs under
 ``torch.utils.checkpoint`` as ``cfg.remat_policy`` says: ``full`` keeps
 the group's input only, ``dots`` also the outputs of its matrix products,
-``none`` (or ``remat=False``) everything. The xlstm, hybrid, encdec and vlm
-families raise ``NotImplementedError`` naming their ROADMAP item.
+``none`` (or ``remat=False``) everything. The encdec and vlm families
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,17 +40,17 @@ from repro_torch.models.blocks import DEFAULT_CTX, ModelCtx
 from repro_torch.models.common import (Leaf, dense_leaf, draw_, flatten,
                                        nest, new_leaf, rms_norm)
 
+# the families whose groups carry a recurrent state
+RECURRENT = ("xlstm", "hybrid")
+
 FAMILY_TODO = {
-    "xlstm": "ROADMAP queue 1 item 17.3 (ssm: xLSTM)",
-    "hybrid": "ROADMAP queue 1 item 17.3 (ssm: Mamba2 and the hybrid "
-              "family)",
     "encdec": "ROADMAP queue 1 item 17.4 (encdec: cross attention)",
     "vlm": "ROADMAP queue 1 item 17.5 (vlm)",
 }
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in RECURRENT + ("dense", "moe"):
         todo = FAMILY_TODO.get(cfg.family)
         if todo is None:
             raise ValueError(f"unknown family {cfg.family}")
@@ -56,6 +59,10 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 def _num_groups(cfg: ModelConfig) -> int:
+    if cfg.family == "xlstm":
+        return max(1, cfg.num_layers // 2)      # one group = mLSTM + sLSTM
+    if cfg.family == "hybrid":
+        return max(1, cfg.num_layers // (cfg.blocks_per_attn + 1))
     if cfg.family == "moe" and cfg.moe_every > 1:
         return max(1, cfg.num_layers // cfg.moe_every)
     return cfg.num_layers
@@ -66,11 +73,18 @@ def _layers_per_group(cfg: ModelConfig) -> int:
 
 
 def num_attn_layers(cfg: ModelConfig) -> int:
-    """Attention layers of the stack: the leading axis of the KV cache."""
+    """Attention layers of the stack: the leading axis of the KV cache
+    (one shared-block call per hybrid group, none in an xLSTM)."""
+    if cfg.family == "xlstm":
+        return 0
     return _num_groups(cfg) * _layers_per_group(cfg)
 
 
 def _group_leaves(cfg: ModelConfig) -> dict:
+    if cfg.family == "xlstm":
+        return blocks.xlstm_pair_leaves(cfg)
+    if cfg.family == "hybrid":
+        return blocks.hybrid_group_leaves(cfg)
     if cfg.family == "dense":
         return blocks.dense_layer_leaves(cfg)
     if cfg.moe_every > 1:
@@ -80,15 +94,18 @@ def _group_leaves(cfg: ModelConfig) -> dict:
 
 def param_leaves(cfg: ModelConfig) -> dict:
     """{dotted name: Leaf} in ``param_paths`` order; layer leaves carry the
-    leading (groups,) axis."""
+    leading (groups,) axis, the hybrid's ``shared`` leaves do not."""
     _require_ported(cfg)
     lead = (_num_groups(cfg),)
-    layers = {name: Leaf(lead + leaf.shape, leaf.init, leaf.fan_in)
+    layers = {name: leaf._replace(shape=lead + leaf.shape)
               for name, leaf in flatten(_group_leaves(cfg)).items()}
-    return flatten({"embed": Leaf((cfg.vocab_size, cfg.d_model), "embed"),
-                    "ln_f": Leaf((cfg.d_model,)),
-                    "unembed": dense_leaf((cfg.d_model, cfg.vocab_size)),
-                    "layers": nest(layers)})
+    tree = {"embed": Leaf((cfg.vocab_size, cfg.d_model), "embed"),
+            "ln_f": Leaf((cfg.d_model,)),
+            "unembed": dense_leaf((cfg.d_model, cfg.vocab_size)),
+            "layers": nest(layers)}
+    if cfg.family == "hybrid":
+        tree["shared"] = blocks.hybrid_shared_leaves(cfg)
+    return flatten(tree)
 
 
 def param_paths(cfg: ModelConfig) -> list:
@@ -108,9 +125,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     Built under ``no_grad``.
 
     The draws go embed, unembed, then group by group in the order the
-    blocks' ``*_leaves`` list their leaves: for the dense family the
-    stream of the per-layer modules this layout replaced, so a seed gives
-    the weights it gave before."""
+    blocks' ``*_leaves`` list their leaves, then the hybrid's shared
+    block: for the dense family the stream of the per-layer modules this
+    layout replaced, so a seed gives the weights it gave before."""
     dtype = dtype or getattr(torch, cfg.dtype)
     leaves = param_leaves(cfg)
     with torch.no_grad():
@@ -124,6 +141,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
         for g in range(_num_groups(cfg)):
             for name, leaf in group.items():
                 draw_(generator, params["layers." + name][g], leaf)
+        for name, leaf in leaves.items():
+            if name.startswith("shared."):
+                draw_(generator, params[name], leaf)
     return params
 
 
@@ -147,8 +167,24 @@ def _positions(b: int, start, s: int, device) -> torch.Tensor:
     return pos.repeat(b, 1)                              # (B, S) contiguous
 
 
-def _group_fn(cfg: ModelConfig):
-    """The per-group apply fn (looked up per call: tests patch blocks)."""
+def _shared_tree(params: dict) -> dict:
+    """The hybrid's shared block as a nested tree (the same tensors)."""
+    return nest({name[len("shared."):]: t for name, t in params.items()
+                 if name.startswith("shared.")})
+
+
+def _hybrid_apply(shared, cfg, p, x, positions, cache, ctx):
+    return blocks.hybrid_group_apply(cfg, p, shared, x, positions, cache,
+                                     ctx)
+
+
+def _group_fn(cfg: ModelConfig, params: dict):
+    """The per-group apply fn (looked up per call: tests patch blocks);
+    the hybrid's closes over the shared block."""
+    if cfg.family == "xlstm":
+        return blocks.xlstm_pair_apply
+    if cfg.family == "hybrid":
+        return functools.partial(_hybrid_apply, _shared_tree(params))
     if cfg.family == "dense":
         return blocks.dense_layer_apply
     if cfg.moe_every > 1:
@@ -160,15 +196,22 @@ def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, caches: dict | None,
                ctx: ModelCtx):
     """Walk the groups, summing their aux terms; ``caches`` (the per-layer
-    stacked cache dict) may be None (cache-free forward). Group i reads
-    views of the stacked parameters and of its layers' caches."""
-    fn = _group_fn(cfg)
+    stacked cache dict, or the recurrent families' tree stacked over
+    groups) may be None (cache-free forward). Group i reads views of the
+    stacked parameters and of its caches; a recurrent group's new states
+    are copied into its views."""
+    fn = _group_fn(cfg, params)
     per = _layers_per_group(cfg)
     groups = _group_trees(params, _num_groups(cfg))
     aux = 0.0
     remat = caches is None and torch.is_grad_enabled() and _remat_on(cfg)
     for i, group in enumerate(groups):
         c = None
+        if caches is not None and cfg.family in RECURRENT:
+            c = _tree_map(lambda t: t[i], caches)
+            x, new, _ = fn(cfg, group, x, positions, c, ctx)
+            _copy_into(c, new)
+            continue
         if caches is not None:
             c = [{key: t[i * per + j] for key, t in caches.items()}
                  for j in range(per)]
@@ -184,6 +227,28 @@ def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
             x, _, aux_l = fn(cfg, group, x, positions, c, ctx)
         aux = aux + aux_l
     return x, caches, aux
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a nested dict / list."""
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, sub) for key, sub in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, sub) for sub in tree]
+    return fn(tree)
+
+
+def _copy_into(dst, src) -> None:
+    """Copy each tensor of ``src`` into the one of ``dst`` at its path
+    (skipping those updated in place already: the same tensor)."""
+    if isinstance(dst, dict):
+        for key in dst:
+            _copy_into(dst[key], src[key])
+    elif isinstance(dst, list):
+        for d, s_ in zip(dst, src):
+            _copy_into(d, s_)
+    elif src is not dst:
+        dst.copy_(src)
 
 
 def _group_out(fn, cfg, group, positions, ctx, x):
@@ -226,7 +291,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     """Full-sequence logits. batch: {"tokens": (B, S)}.
 
     Returns (logits (B, S, V) float32, aux_loss scalar: the sum of the MoE
-    layers' load-balance terms, 0 for the dense family).
+    layers' load-balance terms, 0 for the other families).
     """
     _require_ported(cfg)
     tokens = batch["tokens"]
@@ -242,12 +307,31 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
 
 def init_cache(cfg: ModelConfig, params: dict, batch: int,
                max_len: int) -> dict:
-    """Decode state of the whole stack: k, v (layers, B, L, KV, hd) and pos
-    (layers, B, L), one entry per attention layer (a MoE group's dense
-    layers, then its MoE layer), on the parameters' device. Sliding and
-    chunked-local attention keep a ring buffer of L = min(max_len, window)
-    slots: both attend only to keys within the last ``window`` positions."""
+    """Decode state of the whole stack, on the parameters' device.
+
+    Dense and MoE: k, v (layers, B, L, KV, hd) and pos (layers, B, L), one
+    entry per attention layer (a MoE group's dense layers, then its MoE
+    layer). Sliding and chunked-local attention keep a ring buffer of
+    L = min(max_len, window) slots: both attend only to keys within the
+    last ``window`` positions.
+
+    xlstm and hybrid: the reference's tree, each tensor stacked over the
+    groups: {"mlstm": {c, n, m}, "slstm": {c, n, h, m}} (O(1) in the
+    sequence), or {"mamba": [{conv, ssm} per block], "attn": {k, v, pos}}
+    with the shared attention's ring of min(max_len, window) slots under
+    sliding attention."""
     _require_ported(cfg)
+    if cfg.family in RECURRENT:
+        g0 = _group_trees(params, 1)[0]
+        if cfg.family == "xlstm":
+            one = blocks.xlstm_init_cache(cfg, g0, batch)
+        else:
+            attn_len = min(max_len, cfg.window) \
+                if cfg.attention == "sliding" else max_len
+            one = blocks.hybrid_init_cache(cfg, g0, batch, attn_len,
+                                           getattr(torch, cfg.dtype))
+        n = _num_groups(cfg)
+        return _tree_map(lambda t: t.expand(n, *t.shape).clone(), one)
     cache_len = max_len
     if cfg.attention in ("sliding", "chunked_local"):
         cache_len = min(max_len, cfg.window)

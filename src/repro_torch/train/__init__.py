@@ -1,5 +1,5 @@
-"""Training of the model zoo's dense family (counterpart of
-``repro.train``): train and serving steps, the token pipeline and
+"""Training of the model zoo: the dense, MoE, xlstm and hybrid families
+(counterpart of ``repro.train``): train and serving steps, the token pipeline and
 checkpoints."""
 from repro_torch.train.steps import (  # noqa: F401
     TrainHParams,

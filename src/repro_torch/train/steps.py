@@ -1,8 +1,8 @@
-"""Training steps of the dense family and serving steps of the dense and
-MoE families (counterpart of ``repro.train.steps``).
+"""Training and serving steps of the dense, MoE, xlstm and hybrid families
+(counterpart of ``repro.train.steps``).
 
-``make_train_step`` builds the canonical data-parallel step: forward,
-backward, global-norm clip, AdamW. The state is a ``TrainState`` of flat
+``make_train_step`` builds the canonical data-parallel step: forward (+ the
+MoE load-balance aux loss), backward, global-norm clip, AdamW. The state is a ``TrainState`` of flat
 dicts in the reference's layout (``transformer.param_paths``: fp32
 masters, layer leaves stacked) and a 0-d int32 step counter on the device.
 The step updates the state IN PLACE and returns it, and it never reads a
@@ -11,8 +11,7 @@ the device.
 
 ``make_prefill_step`` / ``make_decode_step`` / ``greedy_generate`` are
 thin wrappers over the serve path; they take a serving dict or the masters
-of a ``TrainState``. Training the MoE family raises (ROADMAP queue 1 item
-17.2, MoE training).
+of a ``TrainState``.
 """
 from __future__ import annotations
 
@@ -51,23 +50,12 @@ def _optimizer(hp: TrainHParams) -> Optimizer:
                  state_dtype=getattr(torch, hp.state_dtype))
 
 
-MOE_TRAINING_TODO = ("training the MoE family (the load-balance aux loss "
-                     "through remat) is not ported yet: ROADMAP queue 1 "
-                     "item 17.2 (MoE training)")
-
-
-def _require_trainable(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(MOE_TRAINING_TODO)
-
-
 def init_train_state(cfg: ModelConfig, generator: torch.Generator | None,
                      hp: TrainHParams = TrainHParams(), *,
                      device=None) -> TrainState:
     """Masters drawn from ``generator`` in ``cfg.param_dtype`` on
     ``device`` (default ``"cuda"``; raises without a card unless
     ``device="cpu"``), zero moments, step 0."""
-    _require_trainable(cfg)
     dev = resolve(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -79,7 +67,10 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator | None,
 
 def _model(cfg: ModelConfig, params: dict) -> dict:
     """The parameter dict cast to ``cfg.dtype`` (differentiable; the same
-    tensors where the dtypes agree, as for a serving dict)."""
+    tensors where the dtypes agree, as for a serving dict). Every float
+    leaf is cast, the MoE router too, as the reference's ``compute_cast``:
+    in a bf16 run the router's gradient reaches its fp32 master through a
+    bf16 round."""
     dtype = getattr(torch, cfg.dtype)
     return {name: (t.to(dtype) if t.is_floating_point() else t)
             for name, t in params.items()}
@@ -87,11 +78,11 @@ def _model(cfg: ModelConfig, params: dict) -> dict:
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, ctx: ModelCtx,
             aux_weight: float):
-    """Next-token cross entropy + aux loss over the dict of masters, cast
-    to ``cfg.dtype`` differentiably. Without ``labels`` in ``batch`` the
-    labels are the tokens shifted by one and the last position is masked
-    out. Returns (loss, (ce, aux))."""
-    _require_trainable(cfg)
+    """Next-token cross entropy + ``aux_weight`` x the MoE layers' summed
+    load-balance terms, over the dict of masters cast to ``cfg.dtype``
+    differentiably. Without ``labels`` in ``batch`` the labels are the
+    tokens shifted by one and the last position is masked out. Returns
+    (loss, (ce, aux))."""
     logits, aux = transformer.forward(cfg, _model(cfg, params), batch, ctx)
     tokens = batch["tokens"]
     logits = logits[:, -tokens.shape[1]:]
@@ -116,10 +107,11 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(),
     canonical all-reduce DP step, in place. ``batch``: {"tokens" (B, S)
     int, optional "labels"} tensors on the state's device. With
     ``microbatches`` m > 1 the gradients of m equal row chunks are summed
-    in fp32 and divided by m. ``commit`` (0-d bool tensor) keeps the state
+    in fp32 and divided by m, and so are loss, ce and aux; each chunk's
+    MoE layers size their capacity from the chunk's own tokens, as the
+    reference's chunks do. ``commit`` (0-d bool tensor) keeps the state
     unchanged where False (the step still runs; its metrics are
     returned). Metrics: loss, ce, aux, grad_norm (0-d device tensors)."""
-    _require_trainable(cfg)
     opt = _optimizer(hp)
 
     def train_step(state: TrainState, batch: dict, commit=None):

@@ -27,6 +27,7 @@ seeded jaxpr fixtures and its CLI fail with this JAX version (ROADMAP
 "Reference caveats"), so the port's selftests are held to catching their
 violations, not to the reference's output.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import dataclasses
 import os
 import pathlib

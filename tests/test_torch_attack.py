@@ -21,6 +21,7 @@ on the CPU.
 * Taps, ``attackify`` rows, the audit helpers and robust DGD / DIGing
   against the reference; rejections as the reference raises them.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import functools
 
 import jax.numpy as jnp

@@ -14,6 +14,7 @@
 Inputs are made with numpy from a seed; bf16 inputs are the fp32 draws
 rounded to bf16 by each framework (both round to nearest even).
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ runs: ``objective`` at rtol=1e-4, ``consensus`` at rtol=1e-4 with atol
 products sum in another order, 60 rounds). The port's two executors are
 compared bitwise.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import functools
 
 import jax.numpy as jnp

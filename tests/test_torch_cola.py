@@ -5,6 +5,7 @@ with rtol=1e-4 and atol=1e-4 * max|primal| (fp32 runs of the same algorithm
 whose CD dot products and mixing products sum in another order), and
 ``stop_round`` exactly. The port's two executors are compared bitwise.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

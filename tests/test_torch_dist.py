@@ -21,6 +21,7 @@ The process group is made by a fixture on a file store under the test's
 ``tmp_path`` and destroyed after the test, so no other test of the worker
 inherits it.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import datetime
 import types
 

@@ -13,6 +13,7 @@ counts of one gossip step and one certificate record: at most
 ``comm_budget`` exchanges and bytes per rank per gossip step, no gather or
 reduction in a round, O(colors (K/M) d) bytes a certificate record.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import json
 
 import numpy as np

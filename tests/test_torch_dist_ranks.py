@@ -21,6 +21,7 @@ The cases and their claims are that module's ``CASES``:
 A hang fails the fixture: the subprocess has a time limit, and every
 collective a 120 s timeout.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import json
 import os
 import subprocess

@@ -27,6 +27,7 @@ that module's ``CASES``:
   1e-6 of the port's dense step, and of the reference's dense
   ``make_gossip_step`` at ``tests/test_torch_gossip.py``'s tolerance.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import json
 import types
 

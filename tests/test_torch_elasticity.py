@@ -10,6 +10,7 @@ runs of the same algorithm whose products sum in another order),
 thresholds at rtol=1e-6 (the same float64 formula on the same float32
 inputs). The port's two executors are compared bitwise.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import functools
 
 import jax.numpy as jnp

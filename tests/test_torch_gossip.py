@@ -2,9 +2,10 @@
 ``repro_torch.optim.privacy``, ``quant.wire_view_pytree``) against the
 JAX reference on the CPU: the twin of ``tests/test_gossip_dp.py``.
 
-The reference's own gossip tests train xLSTM-125M, which the port does not
-have yet; these run both packages at Qwen3-4B's ``smoke_variant`` (the
-dense family) from the same parameters (the reference's draw, carried
+The reference's own gossip tests train xLSTM-125M's smoke variant; so
+does ``test_xlstm_gossip_training_matches_reference`` here. The others
+run both packages at Qwen3-4B's ``smoke_variant`` (the dense family)
+from the same parameters (the reference's draw, carried
 across with ``convert``) and the same numpy batches. The local step is the
 train step with SGD + momentum in both packages (smooth in the gradient;
 AdamW's first step is sign-sensitive, see ``test_torch_train.py``).
@@ -17,6 +18,7 @@ the accountant exactly (host float arithmetic); the port's own Gaussian
 stream by its moments (mean within 5 standard errors of 0, std within
 1 %), its links uncorrelated (|r| < 5 / sqrt(n)).
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import dataclasses
 import types
 
@@ -557,3 +559,45 @@ def test_dp_block_runner_history_carries_epsilon(setup):
     # clipped emissions: every replica ends near the clip ball
     flat = torch.cat([p.reshape(K, -1) for p in tst.params.values()], 1)
     assert bool(torch.isfinite(flat).all())
+
+
+def test_xlstm_gossip_training_matches_reference(setup, monkeypatch):
+    """xLSTM-125M's smoke variant (the reference's gossip model), K = 4
+    replicas on ring(4), 3 gossip steps with SGD + momentum local steps:
+    losses, every replica's parameters and the consensus distance against
+    the reference's ``make_gossip_step``. The parameters at atol 1e-5 x
+    max|param| (the gradient bar of ``test_torch_ssm.py``), not 1e-6: the
+    norm gains start at 0, so their max after 3 steps is the size of 3
+    updates, of which the sLSTM's recurrence carries fp32 rounding of a
+    few 1e-6 (measured 2e-6 on ``layers.ln_m``)."""
+    monkeypatch.setattr(jsteps, "_optimizer",
+                        lambda hp: jopt.sgd_momentum(0.9))
+    monkeypatch.setattr(tsteps, "_optimizer",
+                        lambda hp: topt.sgd_momentum(0.9))
+    *_, pipe = setup
+    cfg = jsmoke(jget("xlstm_125m"))
+    tcfg = smoke_variant(get_config("xlstm_125m"))
+    hp = jsteps.TrainHParams(lr=0.05)
+    jst = jgsp.replicate_state(jsteps.init_train_state(
+        cfg, jax.random.PRNGKey(3), hp), K)
+    tst = convert.train_state_from_numpy(
+        tcfg, jax.tree.map(np.asarray, jst), device="cpu")
+    gcfg = jgsp.GossipConfig(num_nodes=K)
+    jstep = jgsp.make_gossip_step(jsteps.make_train_step(cfg, hp), gcfg)
+    tstep = tgsp.make_gossip_step(
+        tsteps.make_train_step(tcfg, tsteps.TrainHParams(lr=0.05)),
+        tgsp.GossipConfig(num_nodes=K))
+    w = gcfg.weights().astype(np.float32)
+    act = np.ones((K,), np.float32)
+    for i in range(3):
+        b = _batches(pipe, i)
+        jst, jm = jstep(jst, jax.tree.map(jnp.asarray, b), jnp.asarray(w),
+                        jnp.asarray(act))
+        tst, tm = tstep(tst, {k: torch.as_tensor(a) for k, a in b.items()},
+                        torch.as_tensor(w), torch.as_tensor(act))
+        np.testing.assert_allclose(tm["loss"].numpy(),
+                                   np.asarray(jm["loss"]), rtol=1e-5)
+    _close_params(tst.params, jst.params, atol_rel=1e-5)
+    np.testing.assert_allclose(
+        float(tgsp.consensus_distance(tst.params)),
+        float(jgsp.consensus_distance(jst.params)), rtol=1e-4, atol=1e-9)

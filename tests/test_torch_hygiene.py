@@ -7,6 +7,7 @@
   and ``python -m repro_torch.analysis`` too) refuse to run unless
   ``device="cpu"`` is asked for.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import ast
 import os
 import subprocess
@@ -24,7 +25,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "torch_attack_smoke.py",
     ROOT / "examples" / "torch_gate_cost.py",
     ROOT / "examples" / "torch_dist_cola.py",
-    ROOT / "examples" / "torch_nccl_probe.py"]
+    ROOT / "examples" / "torch_nccl_probe.py",
+    ROOT / "examples" / "torch_train_lm_gossip.py"]
 
 
 def _forbidden(module: str) -> bool:

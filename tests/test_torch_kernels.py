@@ -19,6 +19,7 @@ ulps of |plain| plus 1e-6 — both compute in fp32 and round once to bf16,
 so they differ by the rounding of an fp32 result that is itself a few fp32
 ulps apart.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import math
 
 import numpy as np

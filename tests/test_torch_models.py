@@ -1,5 +1,5 @@
-"""The port's model zoo (dense and MoE families) against the JAX reference
-on the CPU.
+"""The port's model zoo (dense, MoE, xlstm and hybrid families) against the
+JAX reference on the CPU.
 
 Weights are drawn by the reference (``api.init``) and carried across with
 ``convert.model_params_from_numpy``; tokens come from numpy. For the MoE
@@ -14,8 +14,14 @@ is within 1e-5 of a tie. Tolerances:
   the bar ``tests/test_pallas_backend.py`` sets between the reference's two
   attention backends; caches (k, v) the same, positions exactly (the
   reference's nested MoE-group cache converted to the port's one stacked
-  entry per attention layer); the MoE aux loss atol 1e-6.
+  entry per attention layer; the recurrent families' trees of states
+  leaf for leaf, in the reference's own layout); the MoE aux loss atol
+  1e-6;
+* the twins of ``tests/test_archs_smoke.py`` for the recurrent families:
+  finite logits and train step, decode against the full forward atol
+  2e-4 (the reference's bar).
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import dataclasses
 
 import jax
@@ -40,8 +46,10 @@ from repro_torch.models.model import build_model as tbuild
 ATOL, RTOL = 3e-5, 1e-4
 DENSE = ["qwen3_4b", "h2o_danube3_4b", "stablelm_12b", "mistral_large_123b"]
 MOE = ["dbrx_132b", "llama4_maverick_400b"]
-# the families that still raise; the MoE ids keep their test ids and check
-# the ported behaviour instead
+RECURRENT = ["xlstm_125m", "zamba2_7b"]
+# the families that raised before they were ported; the MoE, xlstm and
+# hybrid ids keep their test ids and check the ported behaviour instead,
+# the encdec and vlm ids still assert the raise
 NOT_PORTED = {"dbrx_132b": "MoE", "llama4_maverick_400b": "MoE",
               "xlstm_125m": "xLSTM", "zamba2_7b": "hybrid",
               "seamless_m4t_medium": "encdec", "internvl2_26b": "vlm"}
@@ -168,12 +176,33 @@ def _forward_pair(arch, monkeypatch):
     assert tapi.param_count(tparams) == jtransformer.param_count(jparams)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_forward_matches_reference(arch, monkeypatch):
     _forward_pair(arch, monkeypatch)
 
 
+def _check_tree(got, want, path=""):
+    """A recurrent family's cache, leaf for leaf (int leaves exactly)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for key in want:
+            _check_tree(got[key], want[key], f"{path}.{key}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (a, b) in enumerate(zip(got, want)):
+            _check_tree(a, b, f"{path}[{i}]")
+    elif np.issubdtype(np.asarray(want).dtype, np.integer):
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert got.shape == np.shape(want), path
+        _close(got, want)
+
+
 def _check_cache(cfg, cache_t, cache_j):
+    if cfg.family in ("xlstm", "hybrid"):
+        _check_tree(convert.cache_to_numpy(cache_t),
+                    jax.tree.map(np.asarray, cache_j))
+        return
     cj = ref_cache_to_port(cfg, cache_j)
     ct = convert.cache_to_numpy(cache_t)
     assert set(ct) == set(cj)
@@ -189,6 +218,8 @@ def _check_cache(cfg, cache_t, cache_j):
     ("dbrx_132b", 12, 16),
     ("llama4_maverick_400b", 12, 16),
     ("llama4_maverick_400b", 24, 28),   # chunked-local ring of 16 wraps
+    ("xlstm_125m", 37, 41),       # two chunks of 16 and a padded third
+    ("zamba2_7b", 24, 28),        # two chunks; the ring of 16 wraps
 ])
 def test_prefill_and_decode_match_reference(arch, prompt, max_len,
                                             monkeypatch):
@@ -199,8 +230,14 @@ def test_prefill_and_decode_match_reference(arch, prompt, max_len,
     ct = tapi.init_cache(tparams, 2, max_len)
     want_len = max_len if cfg.attention == "full" \
         else min(max_len, cfg.window)
-    assert ct["k"].shape == (cfg.num_layers, 2, want_len, cfg.num_kv_heads,
-                             cfg.resolved_head_dim)
+    groups = ttransformer._num_groups(cfg)
+    if cfg.family == "xlstm":   # O(1) in the sequence: no KV cache
+        assert ct["mlstm"]["c"].shape[:2] == (groups, 2)
+    else:
+        kv = ct.get("attn", ct)
+        assert kv["k"].shape == (ttransformer.num_attn_layers(cfg), 2,
+                                 want_len, cfg.num_kv_heads,
+                                 cfg.resolved_head_dim)
     _check_cache(cfg, ct, cj)
     lj, cj = japi.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :prompt])},
                           cj)
@@ -219,8 +256,9 @@ def test_prefill_and_decode_match_reference(arch, prompt, max_len,
         _check_cache(cfg, ct, cj)
     if log is not None:   # the prefill and 4 steps through every group
         log.check(calls=5 * ttransformer._num_groups(cfg))
-    if prompt > cfg.window:   # the ring holds exactly the last window slots
-        pos = convert.cache_to_numpy(ct)["pos"]
+    if prompt > cfg.window and cfg.family != "xlstm":
+        # the ring holds exactly the last window slots
+        pos = convert.cache_to_numpy(ct.get("attn", ct))["pos"]
         assert sorted(pos[0, 0].tolist()) == list(
             range(prompt + 4 - cfg.window, prompt + 4))
 
@@ -256,11 +294,12 @@ def test_weights_are_kept_in_cfg_dtype():
 
 @pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_unported_families_raise(arch, monkeypatch):
-    """The families not ported yet raise, naming their ROADMAP item. The
-    MoE family is ported: its ids check the forward against the
-    reference (logits, aux, routes) instead."""
+    """The families not ported yet (encdec, vlm) raise, naming their
+    ROADMAP item. The MoE, xlstm and hybrid families are ported: their
+    ids check the forward against the reference (logits, aux, and for MoE
+    the routes) instead."""
     cfg = tbase.smoke_variant(tbase.get_config(arch))
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "xlstm", "hybrid"):
         _forward_pair(arch, monkeypatch)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
@@ -299,7 +338,7 @@ def test_moe_layers_raise(monkeypatch):
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_param_paths_match_reference_flatten_order(arch, smoke):
     """The one parameter layout: ``param_paths`` is the reference's
     ``jax.tree`` flatten order and ``param_leaves`` its shapes (the
@@ -332,3 +371,94 @@ def test_convert_rejects_bad_trees():
     extra = dict(tree, patch_proj=np.zeros((2, 2), np.float32))
     with pytest.raises(ValueError, match="patch_proj"):
         convert.model_params_from_numpy(cfg, extra, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# twins of tests/test_archs_smoke.py for the recurrent families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_forward_shapes_and_finite(arch):
+    cfg = tbase.smoke_variant(tbase.get_config(arch))
+    api = tbuild(cfg, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    assert list(params) == ttransformer.param_paths(cfg)
+    logits, aux = api.forward(params, {"tokens": torch.as_tensor(
+        _tokens(cfg, 2, 16, seed=1))})
+    assert logits.shape == (2, 16, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and float(aux) == 0.0
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_one_train_step_no_nans(arch):
+    from repro_torch.train import steps as tsteps
+    cfg = tbase.smoke_variant(tbase.get_config(arch))
+    hp = tsteps.TrainHParams(lr=1e-3)
+    state = tsteps.init_train_state(cfg, torch.Generator().manual_seed(2),
+                                    hp, device="cpu")
+    tokens = torch.as_tensor(_tokens(cfg, 2, 16, seed=3)).long()
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    state, metrics = tsteps.make_train_step(cfg, hp)(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["grad_norm"]))
+    for name, p in state.params.items():
+        assert bool(torch.isfinite(p).all()), name
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_matches_forward(arch):
+    cfg = tbase.smoke_variant(tbase.get_config(arch))
+    api = tbuild(cfg, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    b, s = 2, 10
+    tokens = torch.as_tensor(_tokens(cfg, b, s, seed=4))
+    full, _ = api.forward(params, {"tokens": tokens})
+    cache = api.init_cache(params, b, s + 4)
+    _, cache = api.prefill(params, {"tokens": tokens[:, :-1]}, cache)
+    dec, _ = api.decode_step(params, tokens[:, -1:], s - 1, cache)
+    _close(dec[:, 0], full[:, -1], atol=2e-4, rtol=0)
+
+
+def test_convert_rejects_bad_recurrent_trees():
+    """Zamba2's tree (Mamba2 blocks a list per group, the unstacked shared
+    block): a missing, extra or misshapen leaf raises."""
+    cfg, _, jparams, _, tparams = _pair("zamba2_7b")
+    tree = jax.tree.map(np.asarray, jparams)
+    assert "shared.attn.wq" in tparams
+    assert "layers.mamba_blocks.1.mamba.dt_bias" in tparams
+    missing = jax.tree.map(lambda a: a, tree)
+    del missing["layers"]["mamba_blocks"][1]["mamba"]["dt_bias"]
+    with pytest.raises(KeyError, match="dt_bias"):
+        convert.model_params_from_numpy(cfg, missing, device="cpu")
+    extra = jax.tree.map(lambda a: a, tree)
+    extra["shared"]["gate"] = np.zeros((2,), np.float32)
+    with pytest.raises(ValueError, match="shared.gate"):
+        convert.model_params_from_numpy(cfg, extra, device="cpu")
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["shared"]["attn"]["wq"] = np.zeros((3, 3), np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        convert.model_params_from_numpy(cfg, bad, device="cpu")
+
+
+@pytest.mark.parametrize("block", ["xlstm_pair", "mamba_block",
+                                   "hybrid_group", "hybrid_shared"])
+def test_recurrent_block_inits_match_reference(block):
+    """The blocks' ``*_init`` give the reference's leaves and shapes (a
+    hybrid group's Mamba2 blocks int-keyed where the reference lists
+    them) and its constant leaves exactly."""
+    from repro.models import blocks as jblocks
+    from repro_torch.models import blocks as tblocks
+    arch = "xlstm_125m" if block == "xlstm_pair" else "zamba2_7b"
+    jcfg = jbase.smoke_variant(jbase.get_config(arch))
+    tcfg = tbase.smoke_variant(tbase.get_config(arch))
+    ref = convert._nested_to_flat(jax.tree.map(np.asarray, getattr(
+        jblocks, f"{block}_init")(jax.random.PRNGKey(0), jcfg)))
+    got = tcommon.flatten(getattr(tblocks, f"{block}_init")(
+        torch.Generator().manual_seed(0), tcfg, torch.float32, "cpu"))
+    assert list(got) == list(ref)
+    for name, want in ref.items():
+        assert tuple(got[name].shape) == want.shape, name
+        if not name.endswith(("in_proj", "conv_w", "out_proj", "w_in", "r",
+                              "wq", "wk", "wv", "wo", "w_if", "w_o",
+                              "w_gate", "w_up", "w_down")):
+            np.testing.assert_array_equal(got[name].numpy(), want, name)

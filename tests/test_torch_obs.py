@@ -26,6 +26,7 @@ The reference's ``test_telemetry_carry_pass`` (a jaxpr lint) belongs to
 the contract analysis, and its dist counters are held over gloo ranks
 (``tests/_torch_dist_ranks.py``, group "wire", cases ``tel_*``).
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import json
 import os
 import subprocess

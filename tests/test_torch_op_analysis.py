@@ -11,6 +11,7 @@ exchange between two gloo ranks. The reference's two token tests
 ``test_analyze_token_tuple_collective``) have no counterpart: a PyTorch
 program has no token or opaque values to parse.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import json
 import os
 import subprocess

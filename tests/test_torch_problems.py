@@ -5,6 +5,7 @@ functions rtol=1e-6 (fp32, same formulas; atol=1e-6 for values near 0);
 partition, topology and synthetic data bitwise (the same numpy or the same
 copy semantics).
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import math
 
 import jax.numpy as jnp

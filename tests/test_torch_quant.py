@@ -26,6 +26,7 @@
 
 Fixed cases only: no hypothesis draws.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import functools
 
 import jax

@@ -11,6 +11,7 @@ within 1e-5 x max(1, max|reference|), the bar
 bitwise the port's ``cd_solve_all`` (which runs these plain versions
 there). Attention oracles: rtol and atol 2e-5 (fp32).
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

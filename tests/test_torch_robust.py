@@ -23,6 +23,7 @@ test misses its bitwise claim by 1 ulp because its einsum sums in
 another order than ``w @ buf``, a caveat of the reference listed in
 ROADMAP queue 3).
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -20,6 +20,7 @@
 * The footprint renderer, the auto mode, the rejections and the
   million-node (K = 10^6, K' = 10^3) smoke at d = 8.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import functools
 
 import jax.numpy as jnp

@@ -12,8 +12,12 @@ served by both packages: the port reads the npz's keystr paths as strings.
 The MoE smoke variants (dbrx: 4 experts top-2; llama4: 4 experts top-1, a
 shared expert, a dense and an MoE layer per group, chunked-local
 attention) run too, with both packages' routes recorded and held equal
-(``_torch_moe.RouteLog``).
+(``_torch_moe.RouteLog``). The recurrent families (xLSTM: an mLSTM +
+sLSTM pair; Zamba2: a hybrid group of two Mamba2 blocks and the shared
+attention, whose ring of 16 slots wraps) serve a checkpoint the
+reference saved, against the reference's loop.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -186,3 +190,31 @@ def test_moe_checkpoint_served_by_both_packages(tmp_path, capsys,
     out = capsys.readouterr().out
     assert "arch=llama4-maverick-400b-a17b batch=2 prompt=6 gen=3 " \
         "device=cpu layers=2" in out
+
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "zamba2_7b"])
+def test_recurrent_checkpoint_served_by_both_packages(arch, tmp_path,
+                                                      capsys):
+    """A checkpoint of a recurrent model saved by the reference (Zamba2's
+    Mamba2 blocks a list per group, its unstacked shared block) serves
+    the same logits in both packages; the port's CLI serves it too."""
+    jcfg = jbase.smoke_variant(jbase.get_config(arch))
+    japi = jbuild(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(11))
+    path = str(tmp_path / "rec.npz")
+    checkpoint.save(path, jparams)
+    tcfg = tbase.smoke_variant(tbase.get_config(arch))
+    tapi = tbuild(tcfg, device="cpu")
+    tparams = convert.model_params_from_numpy(
+        tcfg, convert.load_checkpoint(path), device="cpu")
+    prompt = np.random.default_rng(5).integers(
+        0, tcfg.vocab_size, size=(2, 20)).astype(np.int32)
+    res = tserve.serve(tapi, tparams, torch.as_tensor(prompt), 8,
+                       device="cpu")
+    want = _reference_loop(japi, jparams, prompt, res.tokens.numpy(), 8, 28)
+    np.testing.assert_allclose(res.logits.numpy(), want, atol=ATOL,
+                               rtol=RTOL)
+    tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--ckpt",
+                 path, "--batch", "2", "--prompt-len", "6", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert f"arch={tcfg.name} batch=2 prompt=6 gen=3 device=cpu" in out

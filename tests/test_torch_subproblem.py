@@ -7,6 +7,7 @@ Held against both reference functions: ``repro.core.subproblem.cd_solve_all``
 kernels, run as ``tests/test_kernels.py`` runs them). Tolerance atol=1e-5,
 the bar ``tests/test_kernels.py`` sets for Pallas against the jnp oracle.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

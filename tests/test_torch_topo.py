@@ -10,6 +10,7 @@ colors sum in another order than the product); ``block_mix_dense`` equals
 the port's ``dense_mix`` bitwise (its products run at the dense shape) and
 the reference's block executor at rtol 1e-6 (two frameworks' products).
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,5 +1,6 @@
-"""The port's training path of the dense family against the JAX reference,
-on the CPU, at Qwen3-4B's ``smoke_variant`` (2 layers, d 256, fp32).
+"""The port's training path against the JAX reference, on the CPU, at
+Qwen3-4B's ``smoke_variant`` (2 layers, d 256, fp32); the MoE family's
+remat case at dbrx's (MoE training: ``test_torch_moe_train.py``).
 
 Both packages get the same numpy inputs from a seed; the reference's
 parameters are carried across with ``convert``. Tolerances:
@@ -25,6 +26,7 @@ row. On that row the kernel (and its plain version) gives 0 where
 ``chunked_attention`` gives the mean of V, so the cotangent is zero there
 and the port's row and its dq are checked to be 0.
 """
+import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import dataclasses
 
 import jax
@@ -257,10 +259,12 @@ def test_remat_policies_give_the_same_gradients(ref_state):
 
 
 def test_remat_keeps_each_layer_aux_term(ref_state, monkeypatch):
-    """A layer that emits an aux term (as the MoE family's load-balance
-    loss will) keeps it under every remat policy: with each layer's aux
-    set to the mean square of its output, loss, aux and gradients agree
-    with the run without checkpointing (rtol 1e-6, atol 1e-7)."""
+    """A layer that emits an aux term keeps it under every remat policy:
+    with each dense layer's aux set to the mean square of its output, and
+    with the MoE family's own load-balance term (dbrx's smoke variant, the
+    router inside the checkpointed group: its recompute routes as the
+    forward did), loss, aux and gradients agree with the run without
+    checkpointing (rtol 1e-6, atol 1e-7)."""
     from repro_torch.models import blocks as tblocks
     apply = tblocks.dense_layer_apply
 
@@ -290,6 +294,35 @@ def test_remat_keeps_each_layer_aux_term(ref_state, monkeypatch):
         for name in base:
             torch.testing.assert_close(g[name], base[name], rtol=1e-6,
                                        atol=1e-7, msg=f"{key} {name}")
+    monkeypatch.undo()
+    _check_moe_remat_aux()
+
+
+def _check_moe_remat_aux():
+    mcfg = jsmoke(jget("dbrx_132b"))
+    state = jax.tree.map(np.asarray, jsteps.init_train_state(
+        mcfg, jax.random.PRNGKey(5)))
+    runs = {}
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        tcfg = dataclasses.replace(smoke_variant(get_config("dbrx_132b")),
+                                   remat=remat, remat_policy=policy)
+        params = convert.params_from_numpy(tcfg, state.params, device="cpu")
+        req = {n: p.requires_grad_() for n, p in params.items()}
+        loss, (_, aux) = tsteps.loss_fn(tcfg, req, {"tokens": torch.as_tensor(
+            _tokens(tcfg))}, DEFAULT_CTX, 0.01)
+        loss.backward()
+        runs[(remat, policy)] = (loss.detach(), aux.detach(),
+                                 {n: p.grad for n, p in req.items()})
+    base_loss, base_aux, base = runs.pop((False, "full"))
+    assert float(base_aux) > 0.0
+    for key, (loss, aux, g) in runs.items():
+        torch.testing.assert_close(aux, base_aux, rtol=1e-6, atol=1e-7,
+                                   msg=f"moe {key}")
+        torch.testing.assert_close(loss, base_loss, rtol=1e-6, atol=1e-7,
+                                   msg=f"moe {key}")
+        for name in base:
+            torch.testing.assert_close(g[name], base[name], rtol=1e-6,
+                                       atol=1e-7, msg=f"moe {key} {name}")
 
 
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
@@ -456,3 +489,40 @@ def test_serving_steps_over_masters_match_reference(ref_state):
     step_logits, _ = tsteps.make_decode_step(tcfg)(
         params, got[:, :1], 8, cache)
     assert step_logits.shape == (2, 1, tcfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "zamba2_7b"])
+def test_recurrent_train_state_checkpoints_restore_both_ways(arch,
+                                                             tmp_path):
+    """A train state of each recurrent family (Zamba2: the Mamba2 blocks a
+    list per group, the shared block unstacked) written by the reference
+    restores in the port, and the port's file in the reference, leaf for
+    leaf; a misshapen leaf raises."""
+    cfg, tcfg = jsmoke(jget(arch)), smoke_variant(get_config(arch))
+    state = jax.tree.map(np.asarray, jsteps.init_train_state(
+        cfg, jax.random.PRNGKey(6)))
+    jckpt.save(str(tmp_path / "ref.npz"), state)
+    like = convert.train_state_from_numpy(tcfg, state, device="cpu")
+    zero = lambda d: {n: torch.zeros_like(p) for n, p in d.items()}
+    like = tsteps.TrainState(zero(like.params),
+                             {k: zero(v) for k, v in like.opt_state.items()},
+                             torch.zeros_like(like.step))
+    got = tckpt.restore(str(tmp_path / "ref.npz"), like)
+    for name, want in _flat(state.params).items():
+        np.testing.assert_array_equal(got.params[name].numpy(), want)
+    for name, want in _flat(state.opt_state["m"]).items():
+        np.testing.assert_array_equal(got.opt_state["m"][name].numpy(), want)
+    got.step.fill_(3)
+    for p in got.params.values():
+        p.add_(0.5)
+    tckpt.save(str(tmp_path / "port.npz"), got)
+    back = jckpt.restore(str(tmp_path / "port.npz"),
+                         jax.tree.map(jnp.asarray, state))
+    assert int(back.step) == 3
+    for name, want in got.params.items():
+        np.testing.assert_array_equal(_flat(back.params)[name],
+                                      want.numpy())
+    name = next(iter(got.params))
+    bad = got._replace(params={**got.params, name: torch.zeros(3)})
+    with pytest.raises(ValueError, match="shape"):
+        tckpt.restore(str(tmp_path / "port.npz"), bad)
