@@ -20,7 +20,9 @@ line:
    ``subproblem.gram_pays``.
 4. attn_kernel — the flash kernels against their plain version at the
    serving runs' shapes (Qwen3-4B prefill and decode, a wrapped sliding
-   ring, chunked-local, cross; the decode and sliding shapes also as a
+   ring, chunked-local, cross; SeamlessM4T's encoder self attention,
+   mode cross at Sq = Skv = 1,500, and its cross decode step, one query
+   against 1,500 keys, split route; the decode and sliding shapes also as a
    cache and a fresh chunk in separate tensors), bf16 and fp32, timed
    beside SDPA; each row names its route and, at decode, its splits. fp32
    inputs with more than 8 rows take the 3xTF32 tensor-core route.
@@ -171,6 +173,18 @@ line:
 10e. ssm_small — xLSTM's and Zamba2's smoke variants (fp32), the card
    against the CPU: the forward, a prefill then 4 decode steps (logits
    and states), every gradient.
+10f. serve_encdec_a — SeamlessM4T-medium at full width and depth (12
+   encoder + 12 decoder layers), bf16: 8 utterances of 1,500 frames, a
+   32-token prompt, 64 tokens: encode ms, then as serve_a; the flash
+   launches also by mask mode (the encoder's mma in mode cross twice,
+   the decoder's causal and cross mma, split + combine for each at every
+   step).
+10g. serve_vlm_a — InternVL2-26B at full width and depth (48 layers,
+   19.88 B parameters): 4 requests of 256 patches + 1,024 tokens, 16
+   tokens, as serve_a; decode against the bytes one step reads
+   (``decode_step_bound``: the decoder's weights and the KV cache).
+10h. zoo_small — SeamlessM4T's and InternVL2's smoke variants (fp32),
+   the card against the CPU, as ssm_small, with their frontend input.
 11. attn_grad — the flash kernel with a gradient (``FlashAttention``) at
    the training shape (B=2, S=1,024, 32/8 heads, hd 128, causal): dq, dk,
    dv against autograd of the plain version on the card, bf16 and fp32;
@@ -202,6 +216,15 @@ line:
    at full width, 9 of 27 groups; xLSTM-125M whole at B=8 (the sLSTM
    blocks' host share of the profiled step, the idle share from the
    device's kernels alone).
+14d. train_encdec_a / train_vlm_a — SeamlessM4T-medium whole (B=4 x
+   1,024 frames + 1,024 tokens) and InternVL2-26B at full width, 4 of 48
+   layers (B=4 x (256 patches + 1,024 tokens)), through
+   ``launch.train.train`` on a pipe whose batches carry the frontend
+   input (``frontend_pipe``), as train_moe_a: ms per step, tokens/s, MFU
+   over every position's products (``frontend_train_flops``), the
+   launches per step, peak memory; then train_vlm_a_fp32, the same run in
+   fp32 compute (``flash_tf32``), the witness of train_vlm_a's loss
+   curve.
 15. total   — the script's seconds so far.
 16. kernels — one line listing every kernel with its launches on the main
    path, error, times and bound (``flash_mma`` also with its launches in
@@ -2045,6 +2068,16 @@ def attn_cases(torch):
     kv[1, 1400:] = -1
     cases.append(("cross", 4, 16, 16, 64, "cross", 0,
                   torch.zeros((4, 256), dtype=torch.int32), kv, None))
+    # SeamlessM4T-medium's encoder self attention (serve_encdec_a): 1,500
+    # frames, bidirectional (mode cross, q_pos = kv_pos = 0 .. 1,499)
+    frames = rows(8, range(1500))
+    cases.append(("encoder", 8, 16, 16, 64, "cross", 0, frames, frames,
+                  None))
+    # its decoder's cross attention at a decode step: one query (position
+    # 0) against the 1,500 encoder keys, a range that is not a multiple of
+    # the split kernel's tile
+    cases.append(("decode_cross", 8, 16, 16, 64, "cross", 0,
+                  torch.zeros((8, 1), dtype=torch.int32), frames, None))
     return cases
 
 
@@ -2075,7 +2108,9 @@ def attn_kernel_phase(torch, fa, mask_fn) -> list:
          cut) in attn_cases(torch):
         q_pos, kv_pos = q_pos.cuda(), kv_pos.cuda()
         sq, skv = q_pos.shape[1], kv_pos.shape[1]
-        mask = mask_fn(mode, q_pos, kv_pos, window)          # (B, Sq, Skv)
+        # (B, Sq, Skv); mode cross's mask is (B, 1, Skv), the same for
+        # every query
+        mask = mask_fn(mode, q_pos, kv_pos, window).expand(b, sq, skv)
         if not bool(mask.any(dim=-1).all()):
             fail(f"attn_kernel {name}: a query row has no admissible key")
         pairs = int(mask.sum())                 # (b, query, key) admissible
@@ -2166,7 +2201,7 @@ def split_combine_phase(torch, fa, mask_fn, case: str = "decode") -> dict:
         c for c in attn_cases(torch) if c[0] == case)
     q_pos, kv_pos = q_pos.cuda(), kv_pos.cuda()
     sq, skv = q_pos.shape[1], kv_pos.shape[1]
-    pairs = int(mask_fn(mode, q_pos, kv_pos, window).sum())
+    pairs = int(mask_fn(mode, q_pos, kv_pos, window).expand(b, sq, skv).sum())
     q, k, v = (torch.randn(shape, generator=gen, device="cuda"
                            ).to(torch.bfloat16)
                for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
@@ -2238,21 +2273,66 @@ def cache_bytes(cache) -> int:
     return cache.numel() * cache.element_size()
 
 
-def want_flash_launches(torch, fa, cfg, prompt_len: int, gen: int) -> dict:
-    """Launches of each flash kernel in one ``serve``: the prefill's route
-    once per attention layer (a MoE group's dense layers and its MoE
-    layer), the decode steps' route (split + combine) once per attention
-    layer and step."""
+def want_flash_modes(torch, fa, cfg, prompt_len: int, gen: int, *,
+                     enc_len: int = 0, prefix: int = 0) -> dict:
+    """Launches of each flash kernel in one ``serve``, by kernel and mask
+    mode ("kernel/mode"): the prefill's route once per attention layer (a
+    MoE group's dense layers and its MoE layer) over the ``prefix`` +
+    ``prompt_len`` positions, the decode steps' route (split + combine)
+    once per attention layer and step. encdec: the encoder's layers (mode
+    cross, Sq = enc_len) twice (``serve`` encodes once for the decode
+    steps and ``prefill`` once more), and each decoder layer's cross
+    attention once more at the prefill and at each decode step."""
+    from repro_torch.models.blocks import _attn_mode
     from repro_torch.models.transformer import num_attn_layers
     g = cfg.num_heads // cfg.num_kv_heads
     dtype = getattr(torch, cfg.dtype)
-    want = {name: 0 for name in fa.LAUNCHES}
-    for sq, calls in ((prompt_len, 1), (1, gen - 1)):
+    calls = [(prefix + prompt_len, _attn_mode(cfg), num_attn_layers(cfg)),
+             (1, _attn_mode(cfg), num_attn_layers(cfg) * (gen - 1))]
+    if cfg.family == "encdec":
+        calls += [(enc_len, "cross", 2 * cfg.encoder_layers),
+                  (prompt_len, "cross", cfg.num_layers),
+                  (1, "cross", cfg.num_layers * (gen - 1))]
+    want = {}
+    for sq, mode, n in calls:
         route = fa.select_route(dtype, sq, g)
         for kernel in (("flash_split", "flash_combine") if route == "split"
                        else (f"flash_{route}",)):
-            want[kernel] += num_attn_layers(cfg) * calls
+            key = f"{kernel}/{mode}"
+            want[key] = want.get(key, 0) + n
     return want
+
+
+def want_flash_launches(torch, fa, cfg, prompt_len: int, gen: int,
+                        **kw) -> dict:
+    """``want_flash_modes`` summed over the modes, by kernel."""
+    want = {name: 0 for name in fa.LAUNCHES}
+    for key, n in want_flash_modes(torch, fa, cfg, prompt_len, gen,
+                                   **kw).items():
+        want[key.split("/")[0]] += n
+    return want
+
+
+@contextlib.contextmanager
+def flash_modes(fa):
+    """While open, tallies the flash kernels' launches by kernel and mask
+    mode ("kernel/mode") in the yielded dict, from the wrapper's own
+    launch function (``LAUNCHES`` counts by kernel only)."""
+    tally, launch = {}, fa._launch
+
+    def counted(route, q, kv, pos, out, mode, *args, **kw):
+        before = dict(fa.LAUNCHES)
+        launch(route, q, kv, pos, out, mode, *args, **kw)
+        for name, n in fa.LAUNCHES.items():
+            if n != before[name]:
+                key = f"{name}/{mode}"
+                tally[key] = tally.get(key, 0) + n - before[name]
+
+    fa._launch = counted
+    try:
+        yield tally
+    finally:
+        fa._launch = launch
 
 
 def decode_vs_forward(torch, api, params, tokens, prompt: int) -> dict:
@@ -2273,13 +2353,53 @@ def decode_vs_forward(torch, api, params, tokens, prompt: int) -> dict:
             "rel_l2": float((a - b).norm() / b.norm())}
 
 
+def decode_step_bound(torch, cfg, params, cache, decode_kw, batch: int,
+                      s0: int, gen: int) -> dict:
+    """The least time of one decode step (``bound``), the mean over the
+    run's gen - 1 steps at positions s0 .. s0 + gen - 2. Bytes: the
+    weights the step multiplies by (the decoder's layers, the hybrid's
+    shared block, ``ln_f``, ``unembed``; not the embed table, of which it
+    gathers B rows, nor encdec's encoder or vlm's patch projection, which
+    it does not run), the KV cache's slots up to the step's position (a
+    ring: at most its slots), a recurrent state read and written whole,
+    and encdec's cross K/V. Operations: 2 per weight and sequence, and 4
+    hd per head and (query, key) pair."""
+    from repro_torch.models.transformer import num_attn_layers
+    read = {n: t for n, t in params.items()
+            if n != "embed" and not n.startswith(("enc_", "patch_proj"))}
+    w_bytes = sum(t.numel() * t.element_size() for t in read.values())
+    w_count = sum(t.numel() for n, t in read.items() if t.dim() >= 2)
+    kv = cache.get("attn", cache)
+    slots = kv["k"].shape[-3]
+    keys = statistics.fmean(min(s0 + i + 1, slots) for i in range(gen - 1))
+    kv_bytes = cache_bytes(kv) * keys / slots
+    state_bytes = 2 * (cache_bytes(cache) - cache_bytes(kv))
+    cross = decode_kw.get("enc_kv", ())
+    cross_bytes = cache_bytes(list(cross))
+    cross_keys = cross[0].shape[2] * cfg.num_layers if cross else 0
+    pairs = batch * (keys * num_attn_layers(cfg) + cross_keys)
+    nbytes = w_bytes + kv_bytes + state_bytes + cross_bytes
+    flops = 2.0 * w_count * batch \
+        + 4.0 * cfg.resolved_head_dim * cfg.num_heads * pairs
+    ms, by = bound(nbytes, flops, BF16_TC_FLOPS)
+    return {"decode_bound_ms": ms, "decode_bound_by": by,
+            "decode_bound_bytes": {"weights": w_bytes, "kv_cache": kv_bytes,
+                                   "recurrent_state": state_bytes,
+                                   "cross_kv": cross_bytes},
+            "decode_bound_of": "one decode step's reads (mean over the "
+                               "run's steps), bf16 tensor-core peak"}
+
+
 def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
-                gen, fwd_tol, cut=None) -> dict:
+                gen, fwd_tol, cut=None, enc_len: int = 0,
+                users: str | None = None) -> dict:
     """Serve ``cfg`` once through ``launch.serve.serve`` with the flash
-    count zeroed just before and read just after; check the launches, the
-    logits' finiteness, the last step against a full ``forward``, and
-    profile one decode step and the prefill. A hybrid model's KV cache is
-    its cache's "attn"."""
+    count zeroed just before and read just after; check the launches (by
+    kernel and by mask mode), the logits' finiteness, the last step
+    against a full ``forward``, and profile one decode step and the
+    prefill. A hybrid model's KV cache is its cache's "attn". The
+    frontend input (vlm's patches, encdec's ``enc_len`` frames) is drawn
+    from the phase's generator and fed to every call."""
     api = rt.build_model(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
@@ -2291,25 +2411,34 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
     init_peak = torch.cuda.max_memory_allocated()
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=g, device="cuda")
-    serve_mod.serve(api, params, prompt, 2, device="cuda")   # warm-up
+    front = serve_mod.frontend_inputs(cfg, batch, enc_len, g, "cuda")
+    p0 = rt.models.transformer.prefix_len(cfg, front)
+    serve_mod.serve(api, params, prompt, 2, device="cuda",
+                    frontend=front)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    res = serve_mod.serve(api, params, prompt, gen, device="cuda")
-    torch.cuda.synchronize()
+    with flash_modes(fa) as modes:
+        res = serve_mod.serve(api, params, prompt, gen, device="cuda",
+                              frontend=front)
+        torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = want_flash_launches(torch, fa, cfg, prompt_len, gen)
-    if launches != want:
-        fail(f"{name}: flash launches {launches}, want {want} (one per "
-             f"layer for the prefill, one split and one combine per layer "
-             f"for each of the {gen - 1} decode steps)")
+    kw = dict(enc_len=enc_len, prefix=p0)
+    want = want_flash_launches(torch, fa, cfg, prompt_len, gen, **kw)
+    want_modes = want_flash_modes(torch, fa, cfg, prompt_len, gen, **kw)
+    if launches != want or modes != want_modes:
+        fail(f"{name}: flash launches {launches} ({modes} by mode), want "
+             f"{want} ({want_modes}): one per attention layer for the "
+             f"prefill, one split and one combine per layer for each of "
+             f"the {gen - 1} decode steps, and encdec's encoder and cross "
+             "attention")
     if not bool(torch.isfinite(res.logits).all()):
         fail(f"{name}: non-finite logits")
     # the last decode step against a full forward over the same tokens
     tokens = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
     with torch.no_grad():
-        full, _ = api.forward(params, {"tokens": tokens})
+        full, _ = api.forward(params, {"tokens": tokens, **front})
     last_fwd = full[:, -1].float()
     del full
     last_dec = res.logits[:, -1]
@@ -2330,20 +2459,22 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
                  "positions")
     # profiler windows: the prefill, and one decode step on the final cache
     # (one free slot is left: the cache holds prompt + gen slots)
+    pre_batch = {"tokens": prompt, **front}
     with torch.no_grad():
-        cache = api.init_cache(params, batch, prompt_len + gen)
+        cache = api.init_cache(params, batch, p0 + prompt_len + gen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        api.prefill(params, {"tokens": prompt}, cache)
+        api.prefill(params, pre_batch, cache)
         torch.cuda.synchronize()
         prefill_host = (time.perf_counter() - t0) * 1e3
-        cache = api.init_cache(params, batch, prompt_len + gen)
+        cache = api.init_cache(params, batch, p0 + prompt_len + gen)
         prof_prefill = device_profile(
-            torch, lambda: api.prefill(params, {"tokens": prompt}, cache),
+            torch, lambda: api.prefill(params, pre_batch, cache),
             prefill_host)
         tok = res.tokens[:, -1:]
-        t_pos = prompt_len + gen - 1
-        step = lambda: api.decode_step(params, tok, t_pos, res.cache)
+        t_pos = p0 + prompt_len + gen - 1
+        step = lambda: api.decode_step(params, tok, t_pos, res.cache,
+                                       **res.decode_kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
@@ -2352,14 +2483,28 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
         prof_decode = device_profile(torch, step, step_host)
     steps = len(res.decode_ms)
     decode_ms = sum(res.decode_ms) / steps
-    out = {"phase": name, "model": cfg.name, "layers": cfg.num_layers,
-           "cut": cut, "d_model": cfg.d_model, "dtype": cfg.dtype,
+    n_params = api.param_count(params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    step_bound = decode_step_bound(torch, cfg, params, res.cache,
+                                   res.decode_kw, batch, p0 + prompt_len,
+                                   gen)
+    out = {"phase": name, "model": cfg.name, "family": cfg.family,
+           "layers": cfg.num_layers, "cut": cut, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "users": users,
            "batch": batch, "prompt": prompt_len, "gen": gen,
+           "prefix_positions": p0, "encoder_frames": enc_len or None,
+           "encoder_layers": cfg.encoder_layers or None,
            "cache_slots": int(kv["k"].shape[2]),
-           "params": api.param_count(params), "init_s": init_s,
+           "params": n_params, "weight_bytes": weight_bytes,
+           "init_s": init_s,
            "init_peak_memory_bytes": init_peak, "launches": launches,
+           "launches_by_mode": modes,
+           "encode_ms": res.encode_ms,
            "prefill_ms": res.prefill_ms,
            "prefill_tok_s": batch * prompt_len / res.prefill_ms * 1e3,
+           "prefill_positions_per_s":
+               batch * (p0 + prompt_len) / res.prefill_ms * 1e3,
+           **step_bound,
            "decode_ms_per_step": decode_ms,
            "decode_ms_min": min(res.decode_ms),
            "decode_ms_max": max(res.decode_ms),
@@ -3333,7 +3478,7 @@ def active_mm_params(cfg) -> int:
     unembed (not the embed), attention and MLP projections, a MoE layer's
     router and its k experts (and the shared one), an xLSTM pair's and a
     Mamba2 block's projections, the hybrid's shared block once per
-    group."""
+    group, an encdec decoder layer's cross Q and O projections."""
     d, hd, v = cfg.d_model, cfg.resolved_head_dim, cfg.vocab_size
     attn = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
     mlp = 3 * d * cfg.d_ff
@@ -3354,6 +3499,11 @@ def active_mm_params(cfg) -> int:
         per = max(cfg.moe_every, 1)
         groups = cfg.num_layers // per
         return d * v + groups * ((per - 1) * (attn + mlp) + attn + moe)
+    if cfg.family == "encdec":   # a decoder token: self attention, the
+        # cross attention's Q and O (its K and V run per encoder frame,
+        # frontend_train_flops), MLP
+        return d * v + cfg.num_layers * (attn + 2 * d * cfg.num_heads * hd
+                                         + mlp)
     return d * v + cfg.num_layers * (attn + mlp)
 
 
@@ -3503,16 +3653,61 @@ def slstm_clock(torch, ssm_mod):
                       - out["mlstm_recompute_ms"])
 
 
+def frontend_pipe(cfg, tokens, b: int, n: int, steps: int, seed: int):
+    """``tokens``' batches beside the family's frontend input (vlm's
+    patches, encdec's n frames), a fresh standard normal host array for
+    each of ``steps`` + 1 steps, drawn in bulk from ``seed`` before the
+    run, so each step copies its own input to the card as a data loader
+    would."""
+    import numpy as np
+    from repro_torch.models.transformer import FRONTENDS
+    front = FRONTENDS[cfg.family]
+    n = cfg.num_prefix_tokens if front.prefix else n
+    bank = np.random.default_rng(seed).standard_normal(
+        (steps + 1, b, n, cfg.frontend_dim), dtype=np.float32)
+    return lambda i, shard=0: {**tokens(i, shard=shard),
+                               front.key: bank[i]}
+
+
+def frontend_train_flops(cfg, b: int, s: int, n_front: int) -> float:
+    """``train_flops`` of a batch of B x S text tokens beside n_front
+    frontend positions per sequence. vlm: every position (patches and
+    text) runs the decoder, the unembed included (the logits cover them
+    all), and the patches the projection (frontend_dim x d). encdec: the
+    decoder's S tokens as ``train_flops`` counts them (cross Q and O
+    projections in ``active_mm_params``) plus, per frame, the input
+    projection, the encoder's layers and every decoder layer's cross K and
+    V products, plus 4 hd H per (query, key) pair of the encoder's
+    bidirectional attention and of the decoder's cross attention."""
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
+    if cfg.family == "vlm":
+        return train_flops(cfg, b, n_front + s) \
+            + 3.0 * 2.0 * cfg.frontend_dim * d * b * n_front
+    attn = 2 * d * h * hd + 2 * d * cfg.num_kv_heads * hd
+    per_frame = (cfg.frontend_dim * d
+                 + cfg.encoder_layers * (attn + 3 * d * cfg.d_ff)
+                 + cfg.num_layers * 2 * d * cfg.num_kv_heads * hd)
+    pairs = b * n_front * (cfg.encoder_layers * n_front
+                           + cfg.num_layers * s)
+    return train_flops(cfg, b, s) + 3.0 * (
+        2.0 * per_frame * b * n_front + 4.0 * hd * h * pairs)
+
+
 def train_family_phase(torch, rt, fa, train_mod, steps_mod, data_mod, name,
-                       cfg, *, b: int, s: int, cut: str, mma_per_step: int,
+                       cfg, *, b: int, s: int, cut: str, flash_per_step: int,
                        steps: int = 6, profile: str = "full",
                        annotate=None, ranges: tuple = (),
-                       extra=None) -> dict:
+                       extra=None, enc_len: int = 0,
+                       users: str | None = None) -> dict:
     """``cfg`` through ``launch.train.train`` (the all-reduce path): bf16
-    compute, fp32 masters and AdamW moments, remat full, B x S from
-    ``TokenBatches``, lr 3e-4. The flash counts are zeroed just before
-    the run and read just after (remat runs each attention layer's
-    forward twice). Reports ms per step (CUDA events, the median of
+    compute (or ``cfg.dtype``), fp32 masters and AdamW moments, remat
+    full, B x S from ``TokenBatches``, lr 3e-4; an encdec or vlm batch
+    also carries its frontend input (``frontend_pipe``: vlm's patches,
+    encdec's ``enc_len`` frames), and MFU comes from
+    ``frontend_train_flops``. The flash counts are zeroed just before the
+    run and read just after: ``flash_per_step`` launches of the route that
+    ``cfg.dtype`` takes at S (remat runs each attention layer's forward
+    twice). Reports ms per step (CUDA events, the median of
     steps 2-6), tokens/s, MFU (``train_flops`` over the bf16 dense peak),
     init and step peak memory, loss, ce and aux per step (all finite),
     and one more step profiled: by kernel (``profile="full"``, with the
@@ -3520,8 +3715,16 @@ def train_family_phase(torch, rt, fa, train_mod, steps_mod, data_mod, name,
     only (``"busy"``), each against the timed steps' median. That step
     runs inside ``annotate()`` where given; ``extra(probe, prof,
     ms_step)`` adds rows from what the context yielded and the profile."""
+    from repro_torch.models.transformer import FRONTENDS
     hp = steps_mod.TrainHParams(lr=3e-4)
     pipe = data_mod.TokenBatches(cfg.vocab_size, b, s, seed=0)
+    if cfg.family in FRONTENDS:
+        pipe = frontend_pipe(cfg, pipe, b, enc_len, steps, seed=1)
+    front = {k: list(v.shape) for k, v in pipe(0).items()
+             if k not in ("tokens", "labels")}
+    n_front = next((shape[1] for shape in front.values()), 0)
+    route = fa.select_route(getattr(torch, cfg.dtype), s,
+                            cfg.num_heads // cfg.num_kv_heads)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3534,12 +3737,14 @@ def train_family_phase(torch, rt, fa, train_mod, steps_mod, data_mod, name,
     n_params = sum(p.numel() for p in state.params.values())
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    res = train_mod.train(cfg, hp, pipe, steps, device="cuda", state=state)
-    torch.cuda.synchronize()
+    with flash_modes(fa) as modes:
+        res = train_mod.train(cfg, hp, pipe, steps, device="cuda",
+                              state=state)
+        torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = dict({n: 0 for n in fa.LAUNCHES},
-                flash_mma=mma_per_step * steps)
+    want = {n: 0 for n in fa.LAUNCHES}
+    want[f"flash_{route}"] = flash_per_step * steps
     if launches != want:
         fail(f"{name}: flash launches {launches}, want {want} (the "
              "forward and the recompute of each attention layer)")
@@ -3548,7 +3753,8 @@ def train_family_phase(torch, rt, fa, train_mod, steps_mod, data_mod, name,
     if not all(math.isfinite(x) for xs in curves.values() for x in xs):
         fail(f"{name}: non-finite metrics {curves}")
     ms_step = float(statistics.median(res.step_ms[1:]))
-    flops = train_flops(cfg, b, s)
+    flops = (frontend_train_flops(cfg, b, s, n_front) if front
+             else train_flops(cfg, b, s))
     batch = train_mod.to_device(pipe(steps), torch.device("cuda"))
     step_fn = steps_mod.make_train_step(cfg, hp)
     one = lambda: step_fn(res.state, batch)
@@ -3580,9 +3786,14 @@ def train_family_phase(torch, rt, fa, train_mod, steps_mod, data_mod, name,
            "tokens_per_s": b * s / ms_step * 1e3,
            "model_flops_per_step": flops,
            "mfu_bf16_dense_peak": flops / (ms_step / 1e3) / BF16_TC_FLOPS,
-           "launches": launches,
-           "flash_mma_per_step": launches["flash_mma"] / steps,
+           "launches": launches, "launches_by_mode": modes,
+           f"flash_{route}_per_step": launches[f"flash_{route}"] / steps,
            "peak_memory_bytes": peak, "profile_step": prof}
+    if front:
+        out.update(users=users, frontend=front,
+                   encoder_layers=cfg.encoder_layers or None,
+                   tokens_per_s_of="text tokens (the CE's positions)",
+                   positions_per_s=b * (s + n_front) / ms_step * 1e3)
     if extra is not None:
         out.update(extra(probe, prof, ms_step))
     emit(out)
@@ -3623,7 +3834,7 @@ def train_moe_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
 
     return train_family_phase(
         torch, rt, fa, train_mod, steps_mod, data_mod, "train_moe_a", cfg,
-        b=b, s=s, mma_per_step=2,
+        b=b, s=s, flash_per_step=2,
         cut="depth 40 -> 1 layer, experts 16 -> 8 (top-4 kept), full "
             "width", annotate=lambda: moe_ranges(torch, mlp_mod),
         ranges=("moe_forward", "moe_backward"), extra=moe_rows)
@@ -3636,7 +3847,7 @@ def train_hybrid_a_phase(torch, rt, fa, train_mod, steps_mod,
     cfg = dataclasses.replace(rt.get_config("zamba2_7b"), num_layers=27)
     return train_family_phase(
         torch, rt, fa, train_mod, steps_mod, data_mod, "train_hybrid_a",
-        cfg, b=4, s=1024, mma_per_step=2 * 9,
+        cfg, b=4, s=1024, flash_per_step=2 * 9,
         cut="depth 81 -> 27 blocks (9 of 27 groups), full width")
 
 
@@ -3667,7 +3878,7 @@ def train_xlstm_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
 
     return train_family_phase(
         torch, rt, fa, train_mod, steps_mod, data_mod, "train_xlstm_a",
-        cfg, b=b, s=s, mma_per_step=0, profile="busy", cut=None,
+        cfg, b=b, s=s, flash_per_step=0, profile="busy", cut=None,
         annotate=lambda: slstm_clock(torch, ssm_mod), extra=slstm_rows)
 
 
@@ -3750,19 +3961,25 @@ def tree_close(torch, a, b, rtol) -> float:
                    or [0.0])
     ok, rel = grads_close(a, b, rtol)
     if not ok:
-        fail(f"ssm_small: card and CPU differ by {rel} of max|ref| "
-             f"(rtol {rtol})")
+        fail(f"card vs CPU (ssm_small / zoo_small): the card and the CPU "
+             f"differ by {rel} of max|ref| (rtol {rtol})")
     return rel
 
 
-def ssm_small_phase(torch, rt, fa, steps_mod) -> list:
-    """xLSTM's and Zamba2's smoke variants (fp32), the card against the
-    CPU from the same weights: the forward's logits, a prefill then 4
-    decode steps (logits and every cached state), and every leaf's
-    gradient of the loss, each at rtol 1e-4 (atol 1e-4 x max|ref|)."""
+def ssm_small_phase(torch, rt, fa, steps_mod, serve_mod,
+                    archs=("xlstm_125m", "zamba2_7b"),
+                    phase: str = "ssm_small") -> list:
+    """The smoke variants of ``archs`` (fp32; by default xLSTM's and
+    Zamba2's), the card against the CPU from the same weights: the
+    forward's logits, a prefill then 4 decode steps (logits and every
+    cached state), and every leaf's gradient of the loss, each at rtol
+    1e-4 (atol 1e-4 x max|ref|). The encdec and vlm families get their
+    frontend input (48 frames; 8 patches before the prompt) from one CPU
+    generator, encdec's decode steps the cross K/V of ``encode``."""
+    from repro_torch.models import transformer
     from repro_torch.models.blocks import DEFAULT_CTX
     rows = []
-    for arch in ("xlstm_125m", "zamba2_7b"):
+    for arch in archs:
         cfg = rt.smoke_variant(rt.get_config(arch))
         api = rt.build_model(cfg, device="cuda")
         params = api.init(torch.Generator(device="cuda").manual_seed(0))
@@ -3770,21 +3987,31 @@ def ssm_small_phase(torch, rt, fa, steps_mod) -> list:
         params_cpu = {n: t.cpu() for n, t in params.items()}
         tokens = torch.randint(0, cfg.vocab_size, (2, 40),
                                generator=torch.Generator().manual_seed(2))
+        front = serve_mod.frontend_inputs(
+            cfg, 2, 48, torch.Generator().manual_seed(3), "cpu")
+        p0 = transformer.prefix_len(cfg, front)
         out, worst = {}, {}
         fa.reset_launches()
         for dev, a, p in (("cuda", api, params), ("cpu", api_cpu,
                                                   params_cpu)):
             tok = tokens.to(dev)
+            fr = {k: t.to(dev) for k, t in front.items()}
             with torch.no_grad():
-                logits, _ = a.forward(p, {"tokens": tok})
-                cache = a.init_cache(p, 2, 40)
-                steps = [a.prefill(p, {"tokens": tok[:, :36]}, cache)[0]]
+                logits, _ = a.forward(p, {"tokens": tok, **fr})
+                kw = {}
+                if a.encode is not None:
+                    enc_out, enc_pos = a.encode(p, fr["enc_embeds"])
+                    kw = {"enc_kv": transformer._enc_kv_all_layers(
+                        cfg, p, enc_out), "enc_pos": enc_pos}
+                cache = a.init_cache(p, 2, p0 + 40)
+                steps = [a.prefill(p, {"tokens": tok[:, :36], **fr},
+                                   cache)[0]]
                 for i in range(4):
                     steps.append(a.decode_step(p, tok[:, 36 + i:37 + i],
-                                               36 + i, cache)[0])
+                                               p0 + 36 + i, cache, **kw)[0])
             req = {n: t.detach().clone().requires_grad_()
                    for n, t in p.items()}
-            loss, _ = steps_mod.loss_fn(cfg, req, {"tokens": tok},
+            loss, _ = steps_mod.loss_fn(cfg, req, {"tokens": tok, **fr},
                                         DEFAULT_CTX, 0.01)
             loss.backward()
             out[dev] = {"forward": logits, "steps": torch.cat(steps, 1),
@@ -3797,18 +4024,87 @@ def ssm_small_phase(torch, rt, fa, steps_mod) -> list:
             worst[key] = tree_close(torch, out["cuda"][key],
                                     out["cpu"][key], TRAIN_RTOL)
         if fa.LAUNCHES != launches:
-            fail(f"ssm_small {arch}: the CPU run launched a kernel")
-        row = {"phase": "ssm_small", "model": cfg.name,
+            fail(f"{phase} {arch}: the CPU run launched a kernel")
+        row = {"phase": phase, "model": cfg.name,
                "family": cfg.family, "d_model": cfg.d_model,
                "layers": cfg.num_layers, "dtype": cfg.dtype,
                "scan_chunk": cfg.scan_chunk, "tokens": "2 x 40 (prefill "
                "36, 4 decode steps)", "rtol": TRAIN_RTOL,
                "max_err_over_max": worst, "launches": launches}
+        if front:
+            row.update(encoder_layers=cfg.encoder_layers or None,
+                       frontend={k: list(t.shape) for k, t in front.items()})
         emit(row)
         rows.append(row)
         del params, params_cpu, out
         torch.cuda.empty_cache()
     return rows
+
+
+def serve_encdec_a_phase(torch, rt, fa, serve_mod) -> dict:
+    """SeamlessM4T-medium at full width and depth (12 encoder + 12
+    decoder layers, 16/16 heads, hd 64, vocab 256,206), bf16: 8
+    utterances of 1,500 frames (30 s at 50 frames/s, the stubbed speech
+    frontend's frame embeddings), a 32-token decoder prompt, 64 tokens,
+    through ``serve_phase``: the encoder's mma launches in mode cross,
+    the decoder's causal and cross launches, split + combine twice per
+    layer and step."""
+    return serve_phase(
+        torch, rt, fa, serve_mod, "serve_encdec_a",
+        rt.get_config("seamless_m4t_medium"), batch=8, prompt_len=32,
+        gen=64, fwd_tol=FWD_TOL, enc_len=1500,
+        users="batched speech-to-text translation: 30 s utterances, a "
+              "32-token prompt, 64 tokens out")
+
+
+def serve_vlm_a_phase(torch, rt, fa, serve_mod) -> dict:
+    """InternVL2-26B at full width and depth (48 layers, 48/8 heads, hd
+    128: 19.88 B parameters, 39.8 GB in bf16) on one card: 4 requests of
+    one 448 x 448 image tile (256 patch embeddings of the stubbed
+    InternViT) and 1,024 text tokens, 16 tokens, through ``serve_phase``;
+    decode against the bytes one step reads."""
+    return serve_phase(
+        torch, rt, fa, serve_mod, "serve_vlm_a",
+        rt.get_config("internvl2_26b"), batch=4, prompt_len=1024, gen=16,
+        fwd_tol=FWD_TOL,
+        users="multimodal chat: an image tile and a 1,024-token prompt")
+
+
+def train_encdec_a_phase(torch, rt, fa, train_mod, steps_mod,
+                         data_mod) -> dict:
+    """SeamlessM4T-medium at full width and depth: 0.979 B parameters,
+    15.7 GB of fp32 AdamW state; B=4 x 1,024 frames and 1,024 decoder
+    tokens. Each step runs every encoder layer's mma (mode cross) and each
+    decoder layer's causal and cross mma twice (remat full)."""
+    cfg = rt.get_config("seamless_m4t_medium")
+    return train_family_phase(
+        torch, rt, fa, train_mod, steps_mod, data_mod, "train_encdec_a",
+        cfg, b=4, s=1024, cut=None, enc_len=1024,
+        flash_per_step=2 * (cfg.encoder_layers + 2 * cfg.num_layers),
+        users="fine-tuning speech-to-text translation")
+
+
+def train_vlm_a_phase(torch, rt, fa, train_mod, steps_mod,
+                      data_mod) -> dict:
+    """InternVL2-26B at full width, 4 of its 48 layers: 2.717 B
+    parameters, 43.5 GB of fp32 AdamW state (full depth's is 318 GB);
+    B=4 x (256 patches + 1,024 text tokens), the CE over the text. Then
+    its witness ``train_vlm_a_fp32``: the same run (seed, data, lr) in
+    fp32 compute (flash_tf32), whose loss curve says whether the bf16
+    curve is the optimizer's or the precision's."""
+    cfg = dataclasses.replace(rt.get_config("internvl2_26b"), num_layers=4)
+    kw = dict(b=4, s=1024, flash_per_step=2 * cfg.num_layers,
+              cut="depth 48 -> 4 layers (full width): full depth's fp32 "
+                  "AdamW state is 318 GB",
+              users="multimodal instruction tuning: an image tile and "
+                    "1,024 text tokens")
+    out = train_family_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
+                             "train_vlm_a", cfg, **kw)
+    train_family_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
+                       "train_vlm_a_fp32",
+                       dataclasses.replace(cfg, dtype="float32"),
+                       profile="busy", **kw)
+    return out
 
 
 def serve_hybrid_a_phase(torch, rt, fa, serve_mod) -> dict:
@@ -4983,7 +5279,14 @@ def main() -> int:
     # the recurrent families: Zamba2-7B at full width and depth, then the
     # xLSTM and Zamba2 smoke variants card vs CPU
     hybrid_a = serve_hybrid_a_phase(torch, rt, fa, serve_mod)
-    ssm_small = ssm_small_phase(torch, rt, fa, steps_mod)
+    ssm_small = ssm_small_phase(torch, rt, fa, steps_mod, serve_mod)
+    # the encdec and vlm families: SeamlessM4T-medium and InternVL2-26B at
+    # full width and depth, then both smoke variants card vs CPU
+    encdec_a = serve_encdec_a_phase(torch, rt, fa, serve_mod)
+    vlm_a = serve_vlm_a_phase(torch, rt, fa, serve_mod)
+    zoo_small = ssm_small_phase(torch, rt, fa, steps_mod, serve_mod,
+                                archs=("seamless_m4t_medium",
+                                       "internvl2_26b"), phase="zoo_small")
 
     # training: the flash Function's gradient, card vs CPU at the smoke
     # width, then Qwen3-4B at full width through launch.train
@@ -5009,6 +5312,12 @@ def main() -> int:
                                           steps_mod, data_mod)
     train_xlstm_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
                         ssm_mod)
+    # the encdec and vlm families' training (SeamlessM4T whole, InternVL2
+    # at 4 of 48 layers), on batches built here with their frontend input
+    train_encdec_a = train_encdec_a_phase(torch, rt, fa, train_mod,
+                                          steps_mod, data_mod)
+    train_vlm_a = train_vlm_a_phase(torch, rt, fa, train_mod, steps_mod,
+                                    data_mod)
 
     src = "src/repro_torch/kernels/csrc/cd_glm.cu"
     kernels = []
@@ -5081,6 +5390,13 @@ def main() -> int:
         "launches_serve_hybrid_a": hybrid_a["launches"]["flash_mma"],
         "launches_train_moe_a": train_moe_a["launches"]["flash_mma"],
         "launches_train_hybrid_a": train_hybrid_a["launches"]["flash_mma"],
+        "launches_serve_encdec_a": encdec_a["launches"]["flash_mma"],
+        "launches_serve_vlm_a": vlm_a["launches"]["flash_mma"],
+        "launches_train_encdec_a": train_encdec_a["launches"]["flash_mma"],
+        "launches_train_vlm_a": train_vlm_a["launches"]["flash_mma"],
+        "encoder": {key: by_case[("encoder", "bfloat16")][key]
+                    for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "max_abs_err")},
         "hd112": {key: by_case[("sliding_hd112", "bfloat16")][key]
                   for key in ("ms", "device_ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "max_abs_err")},
@@ -5098,6 +5414,18 @@ def main() -> int:
         "launches_serve_hybrid_a": hybrid_a["launches"]["flash_split"],
         "launches_ssm_small": sum(r["launches"]["flash_split"]
                                   for r in ssm_small),
+        "launches_serve_encdec_a": encdec_a["launches"]["flash_split"],
+        "launches_serve_vlm_a": vlm_a["launches"]["flash_split"],
+        "launches_zoo_small": sum(r["launches"]["flash_split"]
+                                  for r in zoo_small),
+        "decode_cross": {**timing(by_case[("decode_cross", "bfloat16")]),
+                         "max_abs_err": by_case[("decode_cross",
+                                                 "bfloat16")]["max_abs_err"],
+                         "splits": by_case[("decode_cross",
+                                            "bfloat16")]["splits"],
+                         "shape": "cross decode, bf16, with the combine "
+                                  "(B=8, Sq=1, Skv=1500, 16/16 heads, "
+                                  "hd 64)"},
         "max_abs_err": max(split_comb["flash_split"]["max_abs_err"],
                            split_comb_112["flash_split"]["max_abs_err"],
                            err_of("split", "bfloat16")),
@@ -5119,6 +5447,10 @@ def main() -> int:
         "launches_serve_hybrid_a": hybrid_a["launches"]["flash_combine"],
         "launches_ssm_small": sum(r["launches"]["flash_combine"]
                                   for r in ssm_small),
+        "launches_serve_encdec_a": encdec_a["launches"]["flash_combine"],
+        "launches_serve_vlm_a": vlm_a["launches"]["flash_combine"],
+        "launches_zoo_small": sum(r["launches"]["flash_combine"]
+                                  for r in zoo_small),
         "max_abs_err": max(split_comb["flash_combine"]["max_abs_err"],
                            split_comb_112["flash_combine"]["max_abs_err"]),
         "hd112": timing(split_comb_112["flash_combine"]),
@@ -5138,6 +5470,8 @@ def main() -> int:
                                   for r in ssm_small),
         "launches_train_moe_small": sum(r["launches"]["flash_tf32"]
                                         for r in moe_train_small),
+        "launches_zoo_small": sum(r["launches"]["flash_tf32"]
+                                  for r in zoo_small),
         "max_abs_err": err_of("tf32", "float32"),
         **timing(prefill32),
         "bound_peak": "3 x FLOPs at the TF32 tensor-core peak",
@@ -5146,9 +5480,19 @@ def main() -> int:
                  "hd 128)"})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     for key in ("launches_train_a", "launches_serve_hybrid_a",
-                "launches_train_moe_a", "launches_train_hybrid_a"):
+                "launches_train_moe_a", "launches_train_hybrid_a",
+                "launches_serve_encdec_a", "launches_serve_vlm_a",
+                "launches_train_encdec_a", "launches_train_vlm_a"):
         if not next(k for k in kernels if k["name"] == "flash_mma")[key] > 0:
             idle.append(f"flash_mma ({key[len('launches_'):]})")
+    for name in ("flash_split", "flash_combine"):
+        for key in ("launches_serve_encdec_a", "launches_serve_vlm_a",
+                    "launches_zoo_small"):
+            if not next(k for k in kernels if k["name"] == name)[key] > 0:
+                idle.append(f"{name} ({key[len('launches_'):]})")
+    if not next(k for k in kernels
+                if k["name"] == "flash_tf32")["launches_zoo_small"] > 0:
+        idle.append("flash_tf32 (zoo_small)")
     if idle:
         fail(f"kernels not launched on their main path: {idle}")
     import torch.distributed

@@ -11,7 +11,9 @@ array.
 For the model zoo: ``model_params_from_numpy`` takes the reference's
 parameter pytree as numpy arrays (layer-stacked, as ``_stack_init`` builds
 it; a MoE group's dense layers and a hybrid group's Mamba2 blocks as
-lists; the hybrid's unstacked ``shared`` block) into the port's one flat
+lists; the hybrid's unstacked ``shared`` block; encdec's encoder stacked
+over its own depth, ``enc_layers``, beside ``enc_in_proj`` and
+``enc_ln_f``; vlm's ``patch_proj``) into the port's one flat
 dict (``transformer.param_paths``, shapes from ``transformer.param_leaves``),
 ``load_checkpoint`` reads an npz written by the reference's
 ``train.checkpoint.save`` (leaves keyed by ``jax.tree_util.keystr`` paths,
@@ -135,7 +137,8 @@ def model_params_from_numpy(cfg, tree, *, device) -> dict:
     """The port's serving parameters (``transformer.param_paths``, in
     ``cfg.dtype``) from the reference's parameter pytree as numpy
     (``jax.tree.map(np.asarray, params)``): the layer leaves carry a
-    leading (groups,) axis. A missing, extra or misshapen leaf raises."""
+    leading (groups,) axis, encdec's ``enc_layers`` leaves a leading
+    (encoder_layers,) axis. A missing, extra or misshapen leaf raises."""
     dev = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     return {name: torch.from_numpy(np.array(arr, dtype=np.float32))

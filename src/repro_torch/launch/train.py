@@ -1,5 +1,5 @@
-"""Training driver of the dense, MoE, xlstm and hybrid families
-(counterpart of ``repro.launch.train``). Two modes:
+"""Training driver of every family (counterpart of
+``repro.launch.train``). Two modes:
 
   * all-reduce data-parallel training (one replica here: ``train``);
   * ``--gossip K``: gossip data-parallelism, K replicas taking local AdamW
@@ -15,6 +15,10 @@
       --smoke --device cpu --steps 5
 
 ``--device`` defaults to ``cuda`` and the run raises without a card.
+The token pipeline (``train.data.TokenBatches``) makes no frontend input,
+so ``train`` and ``gossip_train`` raise a ``ValueError`` naming the input
+an encdec or vlm model needs (``enc_embeds``, ``patches``) when a batch
+lacks it: those train on a pipe whose batches carry it.
 ``--ckpt`` writes the parameters (gossip: their node average) as an npz
 keyed like the reference's checkpoints. Step times are CUDA events on the
 card (the loop never waits for the device except to log), the host clock
@@ -31,6 +35,7 @@ import torch
 from repro_torch.configs.base import get_config, smoke_variant
 from repro_torch.device import resolve
 from repro_torch.launch.serve import _Clock
+from repro_torch.models.transformer import FRONTENDS
 from repro_torch.optim import gossip as gsp
 from repro_torch.optim.privacy import DPConfig
 from repro_torch.train import checkpoint
@@ -57,13 +62,24 @@ class GossipResult:
 
 
 def to_device(batch: dict, dev: torch.device) -> dict:
-    """Host int arrays as tensors on ``dev``; on the card through pinned
+    """Host arrays as tensors on ``dev``; on the card through pinned
     memory and an asynchronous copy, so the host does not wait for the
     work already queued."""
     if dev.type != "cuda":
         return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
             .to(dev, non_blocking=True) for k, v in batch.items()}
+
+
+def _check_frontend(cfg, batch: dict) -> None:
+    """An encdec or vlm batch carries its frontend input beside the
+    tokens; the token pipeline makes none."""
+    front = FRONTENDS.get(cfg.family)
+    if front is not None and front.key not in batch:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family needs {front.key!r} "
+            "beside the tokens, which the token pipeline does not make; "
+            f"train it on a pipe whose batches hold {front.key!r}")
 
 
 def train(cfg, hp: TrainHParams, pipe: TokenBatches, steps: int, *,
@@ -82,7 +98,9 @@ def train(cfg, hp: TrainHParams, pipe: TokenBatches, steps: int, *,
     clock.mark()
     metrics = []
     for i in range(steps):
-        state, m = step_fn(state, to_device(pipe(i), dev))
+        batch = pipe(i)
+        _check_frontend(cfg, batch)
+        state, m = step_fn(state, to_device(batch, dev))
         clock.mark()
         metrics.append(m)
         if log_every and (i % log_every == 0 or i == steps - 1):
@@ -126,9 +144,10 @@ def gossip_train(cfg, hp: TrainHParams, pipe: TokenBatches,
             act = torch.tensor(active_np, dtype=torch.float32, device=dev)
         else:
             active_np, w, act = np.ones(k, bool), w_full, ones
-        batches = to_device({key: np.stack([pipe(i, shard=j)[key]
-                                            for j in range(k)])
-                             for key in ("tokens", "labels")}, dev)
+        shards = [pipe(i, shard=j) for j in range(k)]
+        _check_frontend(cfg, shards[0])
+        batches = to_device({key: np.stack([b[key] for b in shards])
+                             for key in shards[0]}, dev)
         do_mix = i % gcfg.mix_every == 0
         clock.mark()
         metrics = gsp._local_steps(step_fn.local_step, states, batches, act,

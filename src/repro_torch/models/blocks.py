@@ -1,6 +1,7 @@
 """Per-family blocks: the GQA attention block with its ring-buffer KV
 cache, the dense and MoE decoder layers, the interleaved MoE group, the
-xLSTM pair and the Zamba2 hybrid group (counterpart of
+xLSTM pair, the Zamba2 hybrid group, the bidirectional encoder layer and
+the decoder layer with cross attention (counterpart of
 ``repro.models.blocks``).
 
 Every block shares the signature
@@ -15,8 +16,10 @@ shapes and initializers.
 
 A recurrent block's cache is its state dict (``ssm.*_init_state``); the
 block returns new state tensors, which ``transformer._run_stack`` copies
-into the stacked cache. Not ported yet (ROADMAP queue 1 item 17.4):
-encoder and cross-attention layers.
+into the stacked cache. The encoder layer (``encoder_layer_apply``) takes
+no cache; the decoder layer with cross attention
+(``decoder_xattn_layer_apply``) also takes its layer's encoder K/V
+(``cross_kv``) and the encoder positions.
 """
 from __future__ import annotations
 
@@ -161,6 +164,37 @@ def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
         cache["pos"][bidx, slots] = pos_w
     y = out.reshape(b, s, cfg.num_heads * hd) @ p["wo"]
     return y, cache
+
+
+def cross_attn_leaves(cfg: ModelConfig) -> dict:
+    """The cross attention's projections: ``attn_leaves``' (wk / wv read
+    the encoder's output through ``cross_kv``)."""
+    return attn_leaves(cfg)
+
+
+def cross_attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     enc_kv: tuple, enc_pos: torch.Tensor) -> torch.Tensor:
+    """Cross attention of x (B, S, d) against precomputed encoder K/V
+    (``cross_kv``), mode ``cross``: every valid encoder slot is admitted.
+    The queries take no rotary embedding and position 0, as the
+    reference's."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k, v = enc_kv
+    q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    out = _attention(cfg, q, k, v, q_pos, enc_pos, mode="cross")
+    return out.reshape(b, s, cfg.num_heads * hd) @ p["wo"]
+
+
+def cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> tuple:
+    """The cross attention's K, V (B, S_enc, KV, hd) from the encoder's
+    output (B, S_enc, d)."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = (enc_out @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (enc_out @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -335,3 +369,45 @@ def hybrid_init_cache(cfg: ModelConfig, p: dict, batch: int, max_len: int,
                       for i in range(cfg.blocks_per_attn)],
             "attn": init_kv_cache(cfg, batch, max_len, dtype,
                                   p["ln_attn"].device)}
+
+
+# ---------------------------------------------------------------------------
+# Encoder layer (bidirectional) and decoder layer with cross attention
+# ---------------------------------------------------------------------------
+
+def encoder_layer_leaves(cfg: ModelConfig) -> dict:
+    """The dense layer's leaves: pre-norm attention + SwiGLU MLP."""
+    return dense_layer_leaves(cfg)
+
+
+def encoder_layer_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self attention (mode ``cross`` over the layer's own
+    keys, rotary embedding at ``positions``) + MLP; no cache."""
+    h, _ = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), positions,
+                      None, mode="cross")
+    x = x + h
+    return x + mlp.mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
+
+
+def decoder_xattn_layer_leaves(cfg: ModelConfig) -> dict:
+    """Self attention, cross attention and MLP, each pre-norm (ln1, ln_x,
+    ln2)."""
+    return {"ln1": Leaf((cfg.d_model,)), "ln_x": Leaf((cfg.d_model,)),
+            "ln2": Leaf((cfg.d_model,)), "attn": attn_leaves(cfg),
+            "xattn": cross_attn_leaves(cfg),
+            "mlp": mlp.mlp_leaves(cfg.d_model, cfg.d_ff)}
+
+
+def decoder_xattn_layer_apply(cfg: ModelConfig, p: dict, x, positions, cache,
+                              enc_kv: tuple, enc_pos: torch.Tensor,
+                              ctx: ModelCtx = DEFAULT_CTX):
+    """Causal self attention (its KV cache updated in place), cross
+    attention into ``enc_kv`` at ``enc_pos``, MLP."""
+    h, new_cache = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]),
+                              positions, cache)
+    x = x + h
+    x = x + cross_attn_apply(cfg, p["xattn"], rms_norm(x, p["ln_x"]),
+                             enc_kv, enc_pos)
+    x = x + mlp.mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
+    return x, new_cache, 0.0

@@ -110,17 +110,19 @@ def new_leaf(generator: torch.Generator | None, leaf: Leaf, dtype,
 def draw_(generator: torch.Generator, out: torch.Tensor, leaf: Leaf) -> None:
     """Fill ``out`` (``leaf``'s shape, or one group's slice of a stack) from
     ``leaf``'s initializer, one matrix at a time (the trailing two axes: one
-    expert), so the fp32 draw never exceeds one matrix. A constant leaf
-    is set when it is made (``new_leaf``)."""
+    expert), so the fp32 draw never exceeds one matrix; it is rounded into
+    ``out`` in place, without a second temporary in ``out``'s dtype. A
+    constant leaf is set when it is made (``new_leaf``)."""
     if leaf.init in ("zeros", "fill"):
         return
+    shape = out.shape[-2:]
     for idx in itertools.product(*map(range, out.shape[:-2])):
         if leaf.init == "embed":
-            out[idx] = embed_init(generator, out.shape[-2:], out.dtype,
-                                  out.device)
+            t = embed_init(generator, shape, torch.float32, out.device)
         else:
-            out[idx] = dense_init(generator, out.shape[-2:], out.dtype,
-                                  out.device, fan_in=leaf.fan_in)
+            t = dense_init(generator, shape, torch.float32, out.device,
+                           fan_in=leaf.fan_in)
+        out[idx].copy_(t)
 
 
 def init_tree(generator, leaves: dict, dtype, device) -> dict:

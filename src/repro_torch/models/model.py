@@ -21,8 +21,8 @@ class ModelApi:
     forward: Callable          # (params, batch, ctx=) -> (logits, aux)
     init_cache: Callable       # (params, batch_size, max_len) -> cache
     prefill: Callable          # (params, batch, cache, ctx=) -> (logits, cache)
-    decode_step: Callable      # (params, tokens, t, cache) -> (logits, cache)
-    encode: Callable | None    # encdec only (not ported)
+    decode_step: Callable      # (params, tokens, t, cache, ...) -> (logits, cache)
+    encode: Callable | None    # encdec only: (params, enc_embeds) -> (out, pos)
     param_count: Callable
 
 
@@ -50,6 +50,7 @@ def build_model(cfg: ModelConfig, *, device=None,
         init_cache=partial(transformer.init_cache, cfg),
         prefill=partial(transformer.prefill, cfg),
         decode_step=partial(transformer.decode_step, cfg),
-        encode=None,
+        encode=(partial(transformer.encode, cfg)
+                if cfg.family == "encdec" else None),
         param_count=transformer.param_count,
     )

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, MoE, xlstm and hybrid families and the
-entry points every architecture exposes (counterpart of
+"""Model assembly for the dense, MoE, xlstm, hybrid, encdec and vlm
+families and the entry points every architecture exposes (counterpart of
 ``repro.models.transformer``):
 
   * ``forward``      — full-sequence logits
@@ -8,6 +8,7 @@ entry points every architecture exposes (counterpart of
   * ``prefill``      — a prompt against a cache: fills it, returns the last
     position's logits
   * ``decode_step``  — one token in, one token's logits out, cache updated
+  * ``encode``       — encdec only: the encoder's output and positions
 
 A model's parameters are ONE flat dict ``{dotted name: tensor}``, named and
 ordered as ``param_paths`` says: the reference's leaves in its
@@ -24,12 +25,19 @@ The groups run in a Python loop where the reference scans them under
 (``_group_trees``). With a gradient, each group runs under
 ``torch.utils.checkpoint`` as ``cfg.remat_policy`` says: ``full`` keeps
 the group's input only, ``dots`` also the outputs of its matrix products,
-``none`` (or ``remat=False``) everything. The encdec and vlm families
-raise ``NotImplementedError`` naming their ROADMAP item.
+``none`` (or ``remat=False``) everything.
+
+encdec: the encoder's layers are stacked over ``cfg.encoder_layers``
+(``enc_layers.*``) and run under the same remat; each decoder layer reads
+its own cross K/V of the encoder's output (``_enc_kv_all_layers``, one
+stack computed before the decoder), passed into its checkpointed layer as
+inputs. vlm: the projected patches (``patch_proj``) precede the text;
+positions, logits and the KV cache cover both.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.utils.checkpoint
@@ -43,19 +51,12 @@ from repro_torch.models.common import (Leaf, dense_leaf, draw_, flatten,
 # the families whose groups carry a recurrent state
 RECURRENT = ("xlstm", "hybrid")
 
-FAMILY_TODO = {
-    "encdec": "ROADMAP queue 1 item 17.4 (encdec: cross attention)",
-    "vlm": "ROADMAP queue 1 item 17.5 (vlm)",
-}
+FAMILIES = RECURRENT + ("dense", "moe", "encdec", "vlm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in RECURRENT + ("dense", "moe"):
-        todo = FAMILY_TODO.get(cfg.family)
-        if todo is None:
-            raise ValueError(f"unknown family {cfg.family}")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: {todo}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 def _num_groups(cfg: ModelConfig) -> int:
@@ -85,34 +86,70 @@ def _group_leaves(cfg: ModelConfig) -> dict:
         return blocks.xlstm_pair_leaves(cfg)
     if cfg.family == "hybrid":
         return blocks.hybrid_group_leaves(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return blocks.dense_layer_leaves(cfg)
+    if cfg.family == "encdec":
+        return blocks.decoder_xattn_layer_leaves(cfg)
     if cfg.moe_every > 1:
         return blocks.moe_group_leaves(cfg)
     return blocks.moe_layer_leaves(cfg)
 
 
+def _stacked(leaves: dict, n: int) -> dict:
+    """A block's nested leaves with a leading (n,) axis."""
+    return nest({name: leaf._replace(shape=(n,) + leaf.shape)
+                 for name, leaf in flatten(leaves).items()})
+
+
+class Frontend(NamedTuple):
+    """A family's input beside its tokens, the stubbed modality frontend's
+    output (B, n, frontend_dim)."""
+
+    key: str        # its batch key
+    proj: str       # its projection leaf (frontend_dim, d)
+    prefix: bool    # projected before the text (vlm), or encoded (encdec)
+
+
+FRONTENDS = {"encdec": Frontend("enc_embeds", "enc_in_proj", False),
+             "vlm": Frontend("patches", "patch_proj", True)}
+
+
+def prefix_len(cfg: ModelConfig, batch: dict) -> int:
+    """Positions before the text: vlm's patches, 0 otherwise."""
+    front = FRONTENDS.get(cfg.family)
+    return batch[front.key].shape[1] if front and front.prefix else 0
+
+
 def param_leaves(cfg: ModelConfig) -> dict:
     """{dotted name: Leaf} in ``param_paths`` order; layer leaves carry the
-    leading (groups,) axis, the hybrid's ``shared`` leaves do not."""
+    leading (groups,) axis and the encoder's ``enc_layers`` leaves a
+    leading (encoder_layers,) axis; the hybrid's ``shared`` leaves and
+    the frontend projections are not stacked."""
     _require_ported(cfg)
-    lead = (_num_groups(cfg),)
-    layers = {name: leaf._replace(shape=lead + leaf.shape)
-              for name, leaf in flatten(_group_leaves(cfg)).items()}
     tree = {"embed": Leaf((cfg.vocab_size, cfg.d_model), "embed"),
             "ln_f": Leaf((cfg.d_model,)),
             "unembed": dense_leaf((cfg.d_model, cfg.vocab_size)),
-            "layers": nest(layers)}
+            "layers": _stacked(_group_leaves(cfg), _num_groups(cfg))}
     if cfg.family == "hybrid":
         tree["shared"] = blocks.hybrid_shared_leaves(cfg)
+    if cfg.family in FRONTENDS:
+        tree[FRONTENDS[cfg.family].proj] = dense_leaf((cfg.frontend_dim,
+                                                       cfg.d_model))
+    if cfg.family == "encdec":
+        tree["enc_layers"] = _stacked(blocks.encoder_layer_leaves(cfg),
+                                      cfg.encoder_layers)
+        tree["enc_ln_f"] = Leaf((cfg.d_model,))
     return flatten(tree)
 
 
 def param_paths(cfg: ModelConfig) -> list:
     """Dotted names of the reference's parameter leaves in its flatten
     order (sorted keys, a group's dense layers by index): ``embed``,
-    ``layers.attn.k_scale``, ..., ``unembed``. Names under ``layers.`` are
-    stacked over the groups."""
+    ``layers.attn.k_scale``, ..., ``unembed`` (encdec: ``embed,
+    enc_in_proj, enc_layers.*, enc_ln_f, layers.*, ln_f, unembed``; vlm:
+    ``embed, layers.*, ln_f, patch_proj, unembed``). Names under
+    ``layers.`` are stacked over the groups, under ``enc_layers.`` over
+    the encoder's layers."""
     return list(param_leaves(cfg))
 
 
@@ -126,8 +163,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
 
     The draws go embed, unembed, then group by group in the order the
     blocks' ``*_leaves`` list their leaves, then the hybrid's shared
-    block: for the dense family the stream of the per-layer modules this
-    layout replaced, so a seed gives the weights it gave before."""
+    block, then the encoder layer by layer and the frontend projection:
+    for the dense family the stream of the per-layer modules this layout
+    replaced, so a seed gives the weights it gave before."""
     dtype = dtype or getattr(torch, cfg.dtype)
     leaves = param_leaves(cfg)
     with torch.no_grad():
@@ -137,21 +175,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
             return params
         for name in ("embed", "unembed"):
             draw_(generator, params[name], leaves[name])
-        group = flatten(_group_leaves(cfg), sort=False)
-        for g in range(_num_groups(cfg)):
-            for name, leaf in group.items():
-                draw_(generator, params["layers." + name][g], leaf)
+        _draw_stack(generator, params, "layers.", _group_leaves(cfg),
+                    _num_groups(cfg))
         for name, leaf in leaves.items():
             if name.startswith("shared."):
                 draw_(generator, params[name], leaf)
+        if cfg.family == "encdec":
+            _draw_stack(generator, params, "enc_layers.",
+                        blocks.encoder_layer_leaves(cfg), cfg.encoder_layers)
+        if cfg.family in FRONTENDS:
+            name = FRONTENDS[cfg.family].proj
+            draw_(generator, params[name], leaves[name])
     return params
 
 
-def _group_trees(params: dict, n: int) -> list:
-    """One nested tree per group of views ``t[i]`` of the stacked layer
-    leaves (``unbind``: views, and one stacked gradient per leaf)."""
-    views = {name[len("layers."):]: t.unbind(0)
-             for name, t in params.items() if name.startswith("layers.")}
+def _draw_stack(generator, params: dict, prefix: str, one: dict,
+                n: int) -> None:
+    """Draw the leaves stacked under ``prefix`` layer by layer, each layer
+    in the order ``one`` (a block's ``*_leaves``) lists them."""
+    group = flatten(one, sort=False)
+    for g in range(n):
+        for name, leaf in group.items():
+            draw_(generator, params[prefix + name][g], leaf)
+
+
+def _group_trees(params: dict, n: int, prefix: str = "layers.") -> list:
+    """One nested tree per group of views ``t[i]`` of the leaves stacked
+    under ``prefix`` (``unbind``: views, and one stacked gradient per
+    leaf)."""
+    views = {name[len(prefix):]: t.unbind(0)
+             for name, t in params.items() if name.startswith(prefix)}
     return [nest({name: v[i] for name, v in views.items()})
             for i in range(n)]
 
@@ -185,11 +238,18 @@ def _group_fn(cfg: ModelConfig, params: dict):
         return blocks.xlstm_pair_apply
     if cfg.family == "hybrid":
         return functools.partial(_hybrid_apply, _shared_tree(params))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return blocks.dense_layer_apply
     if cfg.moe_every > 1:
         return blocks.moe_group_apply
     return blocks.moe_layer_apply
+
+
+def _checkpointed(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` as
+    ``cfg.remat_policy`` says."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, context_fn=_remat_context(cfg))
 
 
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -219,10 +279,8 @@ def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
         if remat:
             # the group's weights are closed over: the recompute in the
             # backward reads the same tensors
-            x, aux_l = torch.utils.checkpoint.checkpoint(
-                functools.partial(_group_out, fn, cfg, group, positions,
-                                  ctx),
-                x, use_reentrant=False, context_fn=_remat_context(cfg))
+            x, aux_l = _checkpointed(cfg, functools.partial(
+                _group_out, fn, cfg, group, positions, ctx), x)
         else:
             x, _, aux_l = fn(cfg, group, x, positions, c, ctx)
         aux = aux + aux_l
@@ -282,23 +340,107 @@ def _remat_context(cfg: ModelConfig):
                              _save_matmuls)
 
 
+# ---------------------------------------------------------------------------
+# encoder and cross attention (encdec family)
+# ---------------------------------------------------------------------------
+
+def encode(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor,
+           ctx: ModelCtx = DEFAULT_CTX):
+    """The encoder over ``enc_embeds`` (B, S_enc, frontend_dim), the
+    stubbed modality frontend's output: the input projection, the
+    bidirectional layers (each checkpointed with a gradient, as
+    ``_run_stack``'s groups), the final norm. Returns (enc_out (B, S_enc,
+    d) in ``cfg.dtype``, enc_pos (B, S_enc) int32 = 0 .. S_enc - 1)."""
+    x = enc_embeds.to(getattr(torch, cfg.dtype)) @ params["enc_in_proj"]
+    b, s, _ = x.shape
+    positions = _positions(b, 0, s, x.device)
+    remat = torch.is_grad_enabled() and _remat_on(cfg)
+    for layer in _group_trees(params, cfg.encoder_layers, "enc_layers."):
+        fn = functools.partial(blocks.encoder_layer_apply, cfg, layer)
+        x = (_checkpointed(cfg, fn, x, positions) if remat
+             else fn(x, positions))
+    return rms_norm(x, params["enc_ln_f"]), positions
+
+
+def _enc_kv_all_layers(cfg: ModelConfig, params: dict,
+                       enc_out: torch.Tensor) -> tuple:
+    """Every decoder layer's cross K/V of ``enc_out``: (k, v), each
+    (layers, B, S_enc, KV, hd), stacked on the leading layer axis."""
+    kv = [blocks.cross_kv(cfg, layer["xattn"], enc_out)
+          for layer in _group_trees(params, cfg.num_layers)]
+    return (torch.stack([k for k, _ in kv]),
+            torch.stack([v for _, v in kv]))
+
+
+def _xattn_out(cfg, layer, positions, enc_pos, ctx, x, k, v):
+    """A decoder layer's output without a cache."""
+    return blocks.decoder_xattn_layer_apply(cfg, layer, x, positions, None,
+                                            (k, v), enc_pos, ctx)[0]
+
+
+def _run_decoder_xattn(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                       positions: torch.Tensor, caches: dict | None,
+                       enc_kv: tuple, enc_pos: torch.Tensor,
+                       ctx: ModelCtx):
+    """Walk the decoder layers, layer i attending to its slice of
+    ``enc_kv``; ``caches`` (the stacked KV cache, updated in place) may be
+    None. With a gradient each layer is checkpointed with its K/V slice
+    passed in as inputs, so their gradients reach ``xattn.wk / wv`` and
+    the encoder."""
+    k_all, v_all = enc_kv
+    remat = caches is None and torch.is_grad_enabled() and _remat_on(cfg)
+    for i, layer in enumerate(_group_trees(params, cfg.num_layers)):
+        if remat:
+            x = _checkpointed(cfg, functools.partial(
+                _xattn_out, cfg, layer, positions, enc_pos, ctx), x,
+                k_all[i], v_all[i])
+            continue
+        c = None if caches is None else {key: t[i]
+                                         for key, t in caches.items()}
+        x, _, _ = blocks.decoder_xattn_layer_apply(
+            cfg, layer, x, positions, c, (k_all[i], v_all[i]), enc_pos, ctx)
+    return x, caches
+
+
+def _run_body(cfg: ModelConfig, params: dict, batch: dict, cache,
+              ctx: ModelCtx):
+    """The stack over a full sequence (``batch``'s tokens, behind vlm's
+    projected patches, and encdec's encoder input), with or without a
+    cache: (hidden states, cache, aux)."""
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens)
+    front = FRONTENDS.get(cfg.family)
+    if front and front.prefix:
+        x = torch.cat([batch[front.key].to(x.dtype) @ params[front.proj], x],
+                      dim=1)
+    positions = _positions(x.shape[0], 0, x.shape[1], tokens.device)
+    if not front or front.prefix:
+        return _run_stack(cfg, params, x, positions, cache, ctx)
+    enc_out, enc_pos = encode(cfg, params, batch[front.key], ctx)
+    enc_kv = _enc_kv_all_layers(cfg, params, enc_out)
+    x, cache = _run_decoder_xattn(cfg, params, x, positions, cache, enc_kv,
+                                  enc_pos, ctx)
+    return x, cache, 0.0
+
+
 def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     return (rms_norm(x, params["ln_f"]) @ params["unembed"]).float()
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
             ctx: ModelCtx = DEFAULT_CTX):
-    """Full-sequence logits. batch: {"tokens": (B, S)}.
+    """Full-sequence logits. batch keys per family:
 
-    Returns (logits (B, S, V) float32, aux_loss scalar: the sum of the MoE
-    layers' load-balance terms, 0 for the other families).
+      dense/moe/xlstm/hybrid: tokens (B, S)
+      vlm:    tokens (B, S_text) + patches (B, P, frontend_dim)
+      encdec: tokens (B, S_dec) + enc_embeds (B, S_enc, frontend_dim)
+
+    Returns (logits (B, S*, V) float32 — for vlm over the P patches and
+    the text, S* = P + S_text — and the aux loss, a scalar: the sum of the
+    MoE layers' load-balance terms, 0 for the other families).
     """
     _require_ported(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
-    positions = _positions(b, 0, s, tokens.device)
-    x, _, aux = _run_stack(cfg, params, x, positions, None, ctx)
+    x, _, aux = _run_body(cfg, params, batch, None, ctx)
     if not isinstance(aux, torch.Tensor):   # a Python float: no host sync
         aux = torch.full((), float(aux), dtype=torch.float32,
                          device=x.device)
@@ -319,7 +461,11 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int,
     groups: {"mlstm": {c, n, m}, "slstm": {c, n, h, m}} (O(1) in the
     sequence), or {"mamba": [{conv, ssm} per block], "attn": {k, v, pos}}
     with the shared attention's ring of min(max_len, window) slots under
-    sliding attention."""
+    sliding attention.
+
+    encdec: the decoder's self-attention layers (the cross K/V are not
+    cached here: ``decode_step`` takes them); vlm: the dense layout, its
+    slots holding the patches and the text."""
     _require_ported(cfg)
     if cfg.family in RECURRENT:
         g0 = _group_trees(params, 1)[0]
@@ -342,28 +488,36 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int,
 
 
 def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                t, cache: dict, *, ctx: ModelCtx = DEFAULT_CTX):
+                t, cache: dict, *, enc_kv: tuple | None = None,
+                enc_pos: torch.Tensor | None = None,
+                ctx: ModelCtx = DEFAULT_CTX):
     """One decode step. tokens: (B, 1); t: the position (int or 0-d int32
-    tensor). Updates ``cache`` in place and returns (logits (B, 1, V) f32,
-    cache)."""
+    tensor; vlm: counting the patches). Updates ``cache`` in place and
+    returns (logits (B, 1, V) f32, cache). encdec takes ``enc_kv`` and
+    ``enc_pos`` from ``encode`` + ``_enc_kv_all_layers``."""
     _require_ported(cfg)
     b = tokens.shape[0]
     x = embed_tokens(cfg, params, tokens)
     positions = _positions(b, t, 1, tokens.device)
-    x, cache, _ = _run_stack(cfg, params, x, positions, cache, ctx)
+    if cfg.family == "encdec":
+        if enc_kv is None or enc_pos is None:
+            raise ValueError("decode_step: the encdec family needs enc_kv "
+                             "and enc_pos")
+        x, cache = _run_decoder_xattn(cfg, params, x, positions, cache,
+                                      enc_kv, enc_pos, ctx)
+    else:
+        x, cache, _ = _run_stack(cfg, params, x, positions, cache, ctx)
     return _logits(params, x), cache
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
             ctx: ModelCtx = DEFAULT_CTX):
     """Process a full prompt against a cache (updated in place); returns
-    (last-position logits (B, 1, V) f32, cache)."""
+    (last-position logits (B, 1, V) f32, cache). ``batch`` as ``forward``
+    takes it: vlm's patches fill the first P slots, and encdec encodes
+    ``enc_embeds`` here."""
     _require_ported(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
-    positions = _positions(b, 0, s, tokens.device)
-    x, cache, _ = _run_stack(cfg, params, x, positions, cache, ctx)
+    x, cache, _ = _run_body(cfg, params, batch, cache, ctx)
     return _logits(params, x[:, -1:]), cache
 
 

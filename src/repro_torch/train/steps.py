@@ -1,5 +1,5 @@
-"""Training and serving steps of the dense, MoE, xlstm and hybrid families
-(counterpart of ``repro.train.steps``).
+"""Training and serving steps of every family: dense, MoE, xlstm, hybrid,
+encdec and vlm (counterpart of ``repro.train.steps``).
 
 ``make_train_step`` builds the canonical data-parallel step: forward (+ the
 MoE load-balance aux loss), backward, global-norm clip, AdamW. The state is a ``TrainState`` of flat
@@ -11,7 +11,8 @@ the device.
 
 ``make_prefill_step`` / ``make_decode_step`` / ``greedy_generate`` are
 thin wrappers over the serve path; they take a serving dict or the masters
-of a ``TrainState``.
+of a ``TrainState``. ``greedy_generate`` feeds tokens only, as the
+reference's does (``launch.serve.serve`` takes the frontend inputs).
 """
 from __future__ import annotations
 
@@ -80,9 +81,10 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, ctx: ModelCtx,
             aux_weight: float):
     """Next-token cross entropy + ``aux_weight`` x the MoE layers' summed
     load-balance terms, over the dict of masters cast to ``cfg.dtype``
-    differentiably. Without ``labels`` in ``batch`` the labels are the
-    tokens shifted by one and the last position is masked out. Returns
-    (loss, (ce, aux))."""
+    differentiably. Only the text is scored: the last S_text positions of
+    the logits (vlm's patch positions precede it). Without ``labels`` in
+    ``batch`` the labels are the tokens shifted by one and the last
+    position is masked out. Returns (loss, (ce, aux))."""
     logits, aux = transformer.forward(cfg, _model(cfg, params), batch, ctx)
     tokens = batch["tokens"]
     logits = logits[:, -tokens.shape[1]:]
@@ -105,7 +107,9 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(),
                     ctx: ModelCtx = DEFAULT_CTX) -> Callable:
     """``train_step(state, batch, commit=None) -> (state, metrics)``: the
     canonical all-reduce DP step, in place. ``batch``: {"tokens" (B, S)
-    int, optional "labels"} tensors on the state's device. With
+    int, optional "labels", and vlm's "patches" (B, P, frontend_dim) or
+    encdec's "enc_embeds" (B, S_enc, frontend_dim)} tensors on the
+    state's device; a microbatch takes the same rows of each. With
     ``microbatches`` m > 1 the gradients of m equal row chunks are summed
     in fp32 and divided by m, and so are loss, ce and aux; each chunk's
     MoE layers size their capacity from the chunk's own tokens, as the
@@ -167,12 +171,12 @@ def make_prefill_step(cfg: ModelConfig,
 
 def make_decode_step(cfg: ModelConfig,
                      ctx: ModelCtx = DEFAULT_CTX) -> Callable:
-    """(params, tokens (B, 1), t, cache) -> (logits, cache): one token
-    against the cache."""
-    def decode_step(params, tokens, t, cache):
+    """(params, tokens (B, 1), t, cache, **kw) -> (logits, cache): one
+    token against the cache (encdec: ``enc_kv=``, ``enc_pos=``)."""
+    def decode_step(params, tokens, t, cache, **kw):
         with torch.no_grad():
             return transformer.decode_step(cfg, _model(cfg, params), tokens,
-                                           t, cache, ctx=ctx)
+                                           t, cache, ctx=ctx, **kw)
     return decode_step
 
 

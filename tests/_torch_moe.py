@@ -1,5 +1,8 @@
-"""Helpers of the MoE parity tests (``tests/test_torch_moe.py``,
-``test_torch_models.py``, ``test_torch_serve.py``).
+"""Helpers of the parity tests (``tests/test_torch_moe.py``,
+``test_torch_models.py``, ``test_torch_serve.py``,
+``test_torch_moe_train.py``).
+
+``frontend_np`` draws an encdec or vlm model's input beside its tokens.
 
 ``RouteLog`` records every router call of both packages: the reference's
 top-k indices through a ``jax.debug.callback`` (the router runs inside
@@ -58,6 +61,20 @@ class RouteLog:
         self.ref.clear()
         self.port.clear()
         self.margins.clear()
+
+
+def frontend_np(cfg, b: int, enc_len: int, seed: int) -> dict:
+    """The family's frontend input as numpy, standard normal from
+    ``seed``: vlm patches (b, num_prefix_tokens, F), encdec frame
+    embeddings (b, enc_len, F); {} for the token-only families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        shape, key = (b, cfg.num_prefix_tokens, cfg.frontend_dim), "patches"
+    elif cfg.family == "encdec":
+        shape, key = (b, enc_len, cfg.frontend_dim), "enc_embeds"
+    else:
+        return {}
+    return {key: rng.normal(size=shape).astype(np.float32)}
 
 
 def ref_cache_to_port(cfg, cache) -> dict:

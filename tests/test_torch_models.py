@@ -1,8 +1,9 @@
-"""The port's model zoo (dense, MoE, xlstm and hybrid families) against the
-JAX reference on the CPU.
+"""The port's model zoo (dense, MoE, xlstm, hybrid, encdec and vlm families)
+against the JAX reference on the CPU.
 
 Weights are drawn by the reference (``api.init``) and carried across with
-``convert.model_params_from_numpy``; tokens come from numpy. For the MoE
+``convert.model_params_from_numpy``; tokens and the frontend inputs (vlm's
+patches, encdec's frame embeddings) come from numpy. For the MoE
 family every router call of both packages is recorded
 (``_torch_moe.RouteLog``): the top-k indices are equal and no top-k margin
 is within 1e-5 of a tie. Tolerances:
@@ -17,9 +18,12 @@ is within 1e-5 of a tie. Tolerances:
   entry per attention layer; the recurrent families' trees of states
   leaf for leaf, in the reference's own layout); the MoE aux loss atol
   1e-6;
-* the twins of ``tests/test_archs_smoke.py`` for the recurrent families:
-  finite logits and train step, decode against the full forward atol
-  2e-4 (the reference's bar).
+* encdec's blocks one by one (``cross_kv``, ``cross_attn_apply``,
+  ``encoder_layer_apply``, ``decoder_xattn_layer_apply``, ``encode`` with
+  its positions exactly, ``_enc_kv_all_layers``): atol 3e-5, rtol 1e-4;
+* the twins of ``tests/test_archs_smoke.py`` for the recurrent, encdec
+  and vlm families: finite logits and train step, decode against the full
+  forward atol 2e-4 (the reference's bar).
 """
 import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import dataclasses
@@ -30,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_moe import RouteLog, ref_cache_to_port
+from _torch_moe import RouteLog, frontend_np, ref_cache_to_port
 from repro.configs import base as jbase
 from repro.models import common as jcommon
 from repro.models import mlp as jmlp
@@ -47,9 +51,11 @@ ATOL, RTOL = 3e-5, 1e-4
 DENSE = ["qwen3_4b", "h2o_danube3_4b", "stablelm_12b", "mistral_large_123b"]
 MOE = ["dbrx_132b", "llama4_maverick_400b"]
 RECURRENT = ["xlstm_125m", "zamba2_7b"]
-# the families that raised before they were ported; the MoE, xlstm and
-# hybrid ids keep their test ids and check the ported behaviour instead,
-# the encdec and vlm ids still assert the raise
+ENCDEC = ["seamless_m4t_medium"]
+VLM = ["internvl2_26b"]
+FRONTEND = ENCDEC + VLM
+# the families that raised before they were ported; their ids are kept
+# and check the forward against the reference instead
 NOT_PORTED = {"dbrx_132b": "MoE", "llama4_maverick_400b": "MoE",
               "xlstm_125m": "xLSTM", "zamba2_7b": "hybrid",
               "seamless_m4t_medium": "encdec", "internvl2_26b": "vlm"}
@@ -77,6 +83,31 @@ def _pair(arch: str, seed: int = 0):
 def _tokens(cfg, b, s, seed):
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+
+
+def _batches(tokens, frontend):
+    """The same batch for both packages: (jax dict, torch dict)."""
+    b = dict(frontend, tokens=tokens)
+    return ({k: jnp.asarray(a) for k, a in b.items()},
+            {k: torch.as_tensor(a) for k, a in b.items()})
+
+
+def _prefix(cfg) -> int:
+    return cfg.num_prefix_tokens if cfg.family == "vlm" else 0
+
+
+def _enc_kw(cfg, japi, jparams, tapi, tparams, frontend):
+    """Both packages' decode keywords: encdec's ``enc_kv`` and
+    ``enc_pos`` from ``encode`` + ``_enc_kv_all_layers``."""
+    if cfg.family != "encdec":
+        return {}, {}
+    enc = frontend["enc_embeds"]
+    jout, jpos = japi.encode(jparams, jnp.asarray(enc))
+    tout, tpos = tapi.encode(tparams, torch.as_tensor(enc))
+    return ({"enc_kv": jtransformer._enc_kv_all_layers(cfg, jparams, jout),
+             "enc_pos": jpos},
+            {"enc_kv": ttransformer._enc_kv_all_layers(cfg, tparams, tout),
+             "enc_pos": tpos})
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +182,12 @@ def test_dense_init_is_seeded_truncated_normal():
     assert abs(float(z.std()) - 0.8796) < 0.01
     e = tcommon.embed_init(g(), (64, 64), torch.bfloat16, "cpu")
     assert e.dtype == torch.bfloat16 and float(e.float().abs().max()) <= 2.0
+    # the program draws its leaves through them, rounded into place
+    assert torch.equal(tcommon.new_leaf(
+        g(), tcommon.dense_leaf((512, 256)), torch.bfloat16, "cpu"),
+        tcommon.dense_init(g(), (512, 256), torch.bfloat16, "cpu"))
+    assert torch.equal(tcommon.new_leaf(
+        g(), tcommon.Leaf((64, 64), "embed"), torch.bfloat16, "cpu"), e)
 
 
 # ---------------------------------------------------------------------------
@@ -158,14 +195,17 @@ def test_dense_init_is_seeded_truncated_normal():
 # ---------------------------------------------------------------------------
 
 def _forward_pair(arch, monkeypatch):
-    """Both packages' forward on the same tokens: logits atol 3e-5 / rtol
-    1e-4, aux atol 1e-6, the MoE routes equal (away from ties)."""
+    """Both packages' forward on the same tokens (and frontend input):
+    logits atol 3e-5 / rtol 1e-4, aux atol 1e-6, the MoE routes equal
+    (away from ties)."""
     cfg, japi, jparams, tapi, tparams = _pair(arch)
     log = RouteLog(monkeypatch) if cfg.family == "moe" else None
     tokens = _tokens(cfg, 2, 24, seed=1)
-    lj, auxj = japi.forward(jparams, {"tokens": jnp.asarray(tokens)})
-    lt, auxt = tapi.forward(tparams, {"tokens": torch.as_tensor(tokens)})
-    assert lt.shape == (2, 24, cfg.vocab_size) and lt.dtype == torch.float32
+    jb, tb = _batches(tokens, frontend_np(cfg, 2, 10, 6))
+    lj, auxj = japi.forward(jparams, jb)
+    lt, auxt = tapi.forward(tparams, tb)
+    assert lt.shape == (2, 24 + _prefix(cfg), cfg.vocab_size)
+    assert lt.dtype == torch.float32
     _close(lt, lj)
     _close(auxt, auxj, atol=1e-6, rtol=0)
     if log is not None:
@@ -176,7 +216,7 @@ def _forward_pair(arch, monkeypatch):
     assert tapi.param_count(tparams) == jtransformer.param_count(jparams)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTEND)
 def test_forward_matches_reference(arch, monkeypatch):
     _forward_pair(arch, monkeypatch)
 
@@ -220,12 +260,17 @@ def _check_cache(cfg, cache_t, cache_j):
     ("llama4_maverick_400b", 24, 28),   # chunked-local ring of 16 wraps
     ("xlstm_125m", 37, 41),       # two chunks of 16 and a padded third
     ("zamba2_7b", 24, 28),        # two chunks; the ring of 16 wraps
+    ("seamless_m4t_medium", 12, 16),   # 10 encoder frames
+    ("internvl2_26b", 12, 24),    # 8 patches before the prompt
 ])
 def test_prefill_and_decode_match_reference(arch, prompt, max_len,
                                             monkeypatch):
     cfg, japi, jparams, tapi, tparams = _pair(arch, seed=2)
     log = RouteLog(monkeypatch) if cfg.family == "moe" else None
     tokens = _tokens(cfg, 2, prompt + 4, seed=3)
+    frontend = frontend_np(cfg, 2, 10, 7)
+    jkw, tkw = _enc_kw(cfg, japi, jparams, tapi, tparams, frontend)
+    p0 = _prefix(cfg)       # vlm: the patches' slots before the prompt
     cj = japi.init_cache(jparams, 2, max_len)
     ct = tapi.init_cache(tparams, 2, max_len)
     want_len = max_len if cfg.attention == "full" \
@@ -239,10 +284,9 @@ def test_prefill_and_decode_match_reference(arch, prompt, max_len,
                                  want_len, cfg.num_kv_heads,
                                  cfg.resolved_head_dim)
     _check_cache(cfg, ct, cj)
-    lj, cj = japi.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :prompt])},
-                          cj)
-    lt, ct = tapi.prefill(tparams,
-                          {"tokens": torch.as_tensor(tokens[:, :prompt])}, ct)
+    jb, tb = _batches(tokens[:, :prompt], frontend)
+    lj, cj = japi.prefill(jparams, jb, cj)
+    lt, ct = tapi.prefill(tparams, tb, ct)
     assert lt.shape == (2, 1, cfg.vocab_size)
     _close(lt, lj)
     _check_cache(cfg, ct, cj)
@@ -250,10 +294,16 @@ def test_prefill_and_decode_match_reference(arch, prompt, max_len,
         t = prompt + i
         tok = tokens[:, t:t + 1]
         lj, cj = japi.decode_step(jparams, jnp.asarray(tok),
-                                  jnp.asarray(t, jnp.int32), cj)
-        lt, ct = tapi.decode_step(tparams, torch.as_tensor(tok), t, ct)
+                                  jnp.asarray(p0 + t, jnp.int32), cj, **jkw)
+        lt, ct = tapi.decode_step(tparams, torch.as_tensor(tok), p0 + t, ct,
+                                  **tkw)
         _close(lt, lj)
         _check_cache(cfg, ct, cj)
+    if p0:   # the patches and the text hold slots 0 .. P + prompt + 3
+        pos = convert.cache_to_numpy(ct)["pos"]
+        assert pos[:, :, :p0 + prompt + 4].tolist() == np.broadcast_to(
+            np.arange(p0 + prompt + 4), pos[:, :, :p0 + prompt + 4].shape
+        ).tolist()
     if log is not None:   # the prefill and 4 steps through every group
         log.check(calls=5 * ttransformer._num_groups(cfg))
     if prompt > cfg.window and cfg.family != "xlstm":
@@ -294,15 +344,20 @@ def test_weights_are_kept_in_cfg_dtype():
 
 @pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_unported_families_raise(arch, monkeypatch):
-    """The families not ported yet (encdec, vlm) raise, naming their
-    ROADMAP item. The MoE, xlstm and hybrid families are ported: their
-    ids check the forward against the reference (logits, aux, and for MoE
-    the routes) instead."""
+    """Every family is ported now: the ids of those that raised before
+    (MoE, xlstm, hybrid, encdec, vlm) check the forward against the
+    reference (logits, aux, for MoE the routes; encdec's frame embeddings
+    and vlm's patches fed to both) instead."""
     cfg = tbase.smoke_variant(tbase.get_config(arch))
-    if cfg.family in ("moe", "xlstm", "hybrid"):
-        _forward_pair(arch, monkeypatch)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
+    assert cfg.family == {"MoE": "moe", "xLSTM": "xlstm"}.get(
+        NOT_PORTED[arch], NOT_PORTED[arch])
+    _forward_pair(arch, monkeypatch)
+
+
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(tbase.smoke_variant(tbase.get_config(
+        "qwen3_4b")), family="diffusion")
+    with pytest.raises(ValueError, match="unknown family diffusion"):
         tbuild(cfg, device="cpu")
 
 
@@ -338,7 +393,7 @@ def test_moe_layers_raise(monkeypatch):
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTEND)
 def test_param_paths_match_reference_flatten_order(arch, smoke):
     """The one parameter layout: ``param_paths`` is the reference's
     ``jax.tree`` flatten order and ``param_leaves`` its shapes (the
@@ -462,3 +517,135 @@ def test_recurrent_block_inits_match_reference(block):
                               "wq", "wk", "wv", "wo", "w_if", "w_o",
                               "w_gate", "w_up", "w_down")):
             np.testing.assert_array_equal(got[name].numpy(), want, name)
+
+
+# ---------------------------------------------------------------------------
+# encdec's blocks one by one, and twins of tests/test_archs_smoke.py for
+# the encdec and vlm families
+# ---------------------------------------------------------------------------
+
+def _layer(tree, i):
+    """Layer i of a stacked (numpy) tree."""
+    return jax.tree.map(lambda a: a[i], tree)
+
+
+@pytest.mark.parametrize("block", ["cross_kv", "cross_attn_apply",
+                                   "encoder_layer_apply",
+                                   "decoder_xattn_layer_apply", "encode",
+                                   "enc_kv_all_layers"])
+def test_encdec_blocks_match_reference(block):
+    """SeamlessM4T's smoke blocks on the reference's weights (layer 1 of
+    each stack), fed the same numpy inputs: 10 encoder frames, 6 decoder
+    positions, the last 3 frames of batch row 1 empty (position -1) in
+    the cross attention."""
+    from repro.models import blocks as jblocks
+    from repro_torch.models import blocks as tblocks
+    cfg, japi, jparams, tapi, tparams = _pair("seamless_m4t_medium", seed=8)
+    tree = jax.tree.map(np.asarray, jparams)
+    rng = np.random.default_rng(9)
+    d, kvh, hd = cfg.d_model, cfg.num_kv_heads, cfg.resolved_head_dim
+    x = rng.normal(size=(2, 6, d)).astype(np.float32)
+    enc = rng.normal(size=(2, 10, d)).astype(np.float32)
+    pos = np.tile(np.arange(6, dtype=np.int32) + 3, (2, 1))
+    enc_pos = np.tile(np.arange(10, dtype=np.int32), (2, 1))
+    enc_pos[1, 7:] = -1
+    kv = tuple(rng.normal(size=(2, 10, kvh, hd)).astype(np.float32)
+               for _ in range(2))
+    j = lambda t: jax.tree.map(jnp.asarray, t)
+    t = lambda t: jax.tree.map(torch.as_tensor, t)
+    dec, enc_layer = _layer(tree["layers"], 1), _layer(tree["enc_layers"], 1)
+    if block == "cross_kv":
+        want = jblocks.cross_kv(cfg, j(dec["xattn"]), jnp.asarray(enc))
+        got = tblocks.cross_kv(cfg, t(dec["xattn"]), torch.as_tensor(enc))
+    elif block == "cross_attn_apply":
+        want = jblocks.cross_attn_apply(cfg, j(dec["xattn"]), jnp.asarray(x),
+                                        j(kv), jnp.asarray(enc_pos))
+        got = tblocks.cross_attn_apply(cfg, t(dec["xattn"]),
+                                       torch.as_tensor(x), t(kv),
+                                       torch.as_tensor(enc_pos))
+    elif block == "encoder_layer_apply":
+        want = jblocks.encoder_layer_apply(cfg, j(enc_layer),
+                                           jnp.asarray(enc),
+                                           jnp.asarray(enc_pos.clip(0)))
+        got = tblocks.encoder_layer_apply(cfg, t(enc_layer),
+                                          torch.as_tensor(enc),
+                                          torch.as_tensor(enc_pos.clip(0)))
+    elif block == "decoder_xattn_layer_apply":
+        want = jblocks.decoder_xattn_layer_apply(
+            cfg, j(dec), jnp.asarray(x), jnp.asarray(pos), None, j(kv),
+            jnp.asarray(enc_pos), jblocks.DEFAULT_CTX)[0]
+        got = tblocks.decoder_xattn_layer_apply(
+            cfg, t(dec), torch.as_tensor(x), torch.as_tensor(pos), None,
+            t(kv), torch.as_tensor(enc_pos))[0]
+    else:
+        frames = rng.normal(size=(2, 10, cfg.frontend_dim)).astype(
+            np.float32)
+        jout, jpos = japi.encode(jparams, jnp.asarray(frames))
+        tout, tpos = tapi.encode(tparams, torch.as_tensor(frames))
+        np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+        assert tpos.dtype == torch.int32 and tout.shape == (2, 10, d)
+        if block == "encode":
+            want, got = jout, tout
+        else:
+            want = jtransformer._enc_kv_all_layers(cfg, jparams, jout)
+            got = ttransformer._enc_kv_all_layers(cfg, tparams, tout)
+            assert got[0].shape == (cfg.num_layers, 2, 10, kvh, hd)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert tuple(a.shape) == b.shape
+        _close(a, b)
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_forward_shapes_and_finite(arch):
+    cfg = tbase.smoke_variant(tbase.get_config(arch))
+    api = tbuild(cfg, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    assert list(params) == ttransformer.param_paths(cfg)
+    _, tb = _batches(_tokens(cfg, 2, 16, seed=1),
+                     frontend_np(cfg, 2, 12, 2))
+    logits, aux = api.forward(params, tb)
+    assert logits.shape == (2, 16 + _prefix(cfg), cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and float(aux) == 0.0
+    assert (api.encode is None) == (cfg.family != "encdec")
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_one_train_step_no_nans(arch):
+    from repro_torch.train import steps as tsteps
+    cfg = tbase.smoke_variant(tbase.get_config(arch))
+    hp = tsteps.TrainHParams(lr=1e-3)
+    state = tsteps.init_train_state(cfg, torch.Generator().manual_seed(2),
+                                    hp, device="cpu")
+    _, batch = _batches(_tokens(cfg, 2, 16, seed=3).astype(np.int64),
+                        frontend_np(cfg, 2, 12, 4))
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    state, metrics = tsteps.make_train_step(cfg, hp)(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["grad_norm"]))
+    for name, p in state.params.items():
+        assert bool(torch.isfinite(p).all()), name
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_decode_matches_forward(arch):
+    cfg = tbase.smoke_variant(tbase.get_config(arch))
+    api = tbuild(cfg, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    b, s, p0 = 2, 10, _prefix(cfg)
+    frontend = frontend_np(cfg, b, 12, 5)
+    _, batch = _batches(_tokens(cfg, b, s, seed=4), frontend)
+    full, _ = api.forward(params, batch)
+    cache = api.init_cache(params, b, p0 + s + 4)
+    kw = {}
+    if cfg.family == "encdec":
+        out, pos = api.encode(params, batch["enc_embeds"])
+        kw = {"enc_kv": ttransformer._enc_kv_all_layers(cfg, params, out),
+              "enc_pos": pos}
+    _, cache = api.prefill(params, dict(batch, tokens=batch["tokens"][:, :-1]),
+                           cache)
+    dec, _ = api.decode_step(params, batch["tokens"][:, -1:], p0 + s - 1,
+                             cache, **kw)
+    _close(dec[:, 0], full[:, -1], atol=2e-4, rtol=0)
+    if cfg.family == "encdec":
+        with pytest.raises(ValueError, match="enc_kv"):
+            api.decode_step(params, batch["tokens"][:, -1:], s, cache)

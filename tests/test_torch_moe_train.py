@@ -4,7 +4,13 @@ with a shared expert, a dense and an MoE layer per group), fp32. The
 loss / gradient test also takes the recurrent families (xLSTM-125M,
 Zamba2-7B) at their smoke widths with two groups, under remat none and
 full: every leaf's gradient, Zamba2's shared attention + MLP leaves (a sum
-over groups) and ``ln_attn`` / ``ln_mlp`` included, at the same bars.
+over groups) and ``ln_attn`` / ``ln_mlp`` included, at the same bars. And
+the encdec and vlm families (SeamlessM4T, InternVL2) at their smoke
+widths under remat none and full, with their frontend input (frame
+embeddings, patches) from numpy in the batch: the encoder's ``enc_*``,
+the cross attention's ``xattn.*`` and ``patch_proj`` leaves included; a
+microbatched step (the frontend input split with the tokens) and train
+state checkpoints both ways for both.
 
 The reference draws the train state; it is carried across with
 ``convert``, and the tokens come from numpy. Every comparison records
@@ -35,7 +41,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_moe import RouteLog
+from _torch_moe import RouteLog, frontend_np
 from repro.configs.base import get_config as jget, smoke_variant as jsmoke
 from repro.models.blocks import ModelCtx as JCtx
 from repro.optim import gossip as jgsp, optimizers as jopt
@@ -48,6 +54,7 @@ from repro_torch.train import checkpoint as tckpt, steps as tsteps
 
 MOE = ["dbrx_132b", "llama4_maverick_400b"]
 RECURRENT = ["xlstm_125m", "zamba2_7b"]
+FRONTEND = ["seamless_m4t_medium", "internvl2_26b"]
 
 
 def _cfgs(arch, **kw):
@@ -93,6 +100,13 @@ GRAD_CASES = [
     ("xlstm_125m", "scatter", 1.25, True, "full"),
     ("zamba2_7b", "scatter", 1.25, False, "full"),
     ("zamba2_7b", "scatter", 1.25, True, "full"),
+    # encdec: the cross K/V enter each checkpointed decoder layer as
+    # inputs, so their gradients reach xattn.wk / wv and the encoder;
+    # vlm: the patches' projection, the text scored only
+    ("seamless_m4t_medium", "scatter", 1.25, True, "none"),
+    ("seamless_m4t_medium", "scatter", 1.25, True, "full"),
+    ("internvl2_26b", "scatter", 1.25, True, "none"),
+    ("internvl2_26b", "scatter", 1.25, True, "full"),
 ]
 
 
@@ -106,16 +120,18 @@ def test_loss_and_grads_match_jax_grad(arch, mode, cf, remat, policy,
     cfg, tcfg = _cfgs(arch, moe_capacity_factor=cf, remat=remat,
                       remat_policy=policy, **kw)
     state = _ref_state(cfg)
-    toks = _tokens(cfg)
+    tokens = _tokens(cfg)
+    batch = {"tokens": tokens, **frontend_np(cfg, len(tokens), 20, 5)}
     log = RouteLog(monkeypatch)
     (jl, (jce, jaux)), jg = jax.value_and_grad(
-        lambda p: jsteps.loss_fn(cfg, p, {"tokens": jnp.asarray(toks)},
+        lambda p: jsteps.loss_fn(cfg, p, jax.tree.map(jnp.asarray, batch),
                                  JCtx(moe_mode=mode), 0.01),
         has_aux=True)(jax.tree.map(jnp.asarray, state.params))
     params = convert.params_from_numpy(tcfg, state.params, device="cpu")
     req = {n: p.requires_grad_() for n, p in params.items()}
-    tl, (tce, taux) = tsteps.loss_fn(tcfg, req, {"tokens": torch.as_tensor(
-        toks)}, ModelCtx(moe_mode=mode), 0.01)
+    tl, (tce, taux) = tsteps.loss_fn(
+        tcfg, req, {k: torch.as_tensor(a) for k, a in batch.items()},
+        ModelCtx(moe_mode=mode), 0.01)
     tl.backward()
     moe = cfg.family == "moe"
     if moe:
@@ -133,6 +149,10 @@ def test_loss_and_grads_match_jax_grad(arch, mode, cf, remat, policy,
         assert not log.port and not log.ref
         assert cfg.family != "hybrid" or any(
             n.startswith("shared.") for n in grads)
+        front = {"encdec": ("enc_in_proj", "enc_layers.attn.wq",
+                            "layers.xattn.wk", "layers.xattn.wv"),
+                 "vlm": ("patch_proj",)}.get(cfg.family, ())
+        assert all(np.abs(grads[n]).max() > 0 for n in front), front
         assert all(g.shape[0] == 2 for n, g in grads.items()
                    if n.startswith("layers."))
         return
@@ -298,3 +318,114 @@ def test_gossip_training_matches_reference(sgd, monkeypatch):
     np.testing.assert_allclose(
         float(tgsp.consensus_distance(tst.params)),
         float(jgsp.consensus_distance(jst.params)), rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_microbatched_train_step_matches_reference(sgd, arch):
+    """Two microbatches, each taking its rows of the tokens and of the
+    frontend input: loss, ce and the gradient norm each step, and the
+    parameters and momenta after 2 steps."""
+    cfg, tcfg = _cfgs(arch)
+    hp = jsteps.TrainHParams(lr=0.05, microbatches=2)
+    thp = tsteps.TrainHParams(lr=0.05, microbatches=2)
+    jst = jsteps.init_train_state(cfg, jax.random.PRNGKey(6), hp)
+    tst = convert.train_state_from_numpy(
+        tcfg, jax.tree.map(np.asarray, jst), device="cpu")
+    jstep = jax.jit(jsteps.make_train_step(cfg, hp))
+    tstep = tsteps.make_train_step(tcfg, thp)
+    pipe = jdata.TokenBatches(cfg.vocab_size, 4, 16, corpus_tokens=1 << 12)
+    for i in range(2):
+        b = {**pipe(i), **frontend_np(cfg, 4, 12, 10 + i)}
+        jst, jm = jstep(jst, jax.tree.map(jnp.asarray, b))
+        tst, tm = tstep(tst, {k: torch.as_tensor(a) for k, a in b.items()})
+        for key in ("loss", "ce", "grad_norm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=1e-5, err_msg=key)
+    assert int(tst.step) == 2
+    for name, want in _flat(jst.params).items():
+        _close(tst.params[name].numpy(), want, atol_rel=1e-6, err=name)
+    for name, mu in _flat(jst.opt_state["mu"]).items():
+        _close(tst.opt_state["mu"][name].numpy(), mu, err=name)
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_train_state_checkpoint_both_ways(arch, tmp_path):
+    """An encdec or vlm train state: the reference's file restores in the
+    port and the port's in the reference, leaf for leaf."""
+    cfg, tcfg = _cfgs(arch)
+    state = _ref_state(cfg, seed=7)
+    jckpt.save(str(tmp_path / "ref.npz"), state)
+    like = convert.train_state_from_numpy(tcfg, state, device="cpu")
+    like = tsteps.TrainState(
+        {n: torch.zeros_like(p) for n, p in like.params.items()},
+        {k: {n: torch.zeros_like(p) for n, p in v.items()}
+         for k, v in like.opt_state.items()}, torch.zeros_like(like.step))
+    got = tckpt.restore(str(tmp_path / "ref.npz"), like)
+    assert list(got.params) == list(_flat(state.params))
+    for name, want in _flat(state.params).items():
+        np.testing.assert_array_equal(got.params[name].numpy(), want)
+    for name, want in _flat(state.opt_state["v"]).items():
+        np.testing.assert_array_equal(got.opt_state["v"][name].numpy(),
+                                      want)
+    got.step.fill_(3)
+    front = "enc_in_proj" if cfg.family == "encdec" else "patch_proj"
+    got.params[front].add_(1.0)
+    tckpt.save(str(tmp_path / "port.npz"), got)
+    back = jckpt.restore(str(tmp_path / "port.npz"),
+                         jax.tree.map(jnp.asarray, state))
+    assert int(back.step) == 3
+    for name, want in got.params.items():
+        np.testing.assert_array_equal(_flat(back.params)[name],
+                                      want.numpy())
+
+
+@pytest.mark.parametrize("arch,key", [("seamless_m4t_medium", "enc_embeds"),
+                                      ("internvl2_26b", "patches")])
+def test_launcher_refuses_frontend_families(arch, key):
+    """The token pipeline makes no frontend input: the port's launcher
+    raises a ValueError naming it (all-reduce and gossip), where the
+    reference's step fails on the pipeline's batch with a KeyError (a
+    difference by design)."""
+    from repro_torch.launch import train as tlaunch
+    for extra in ([], ["--gossip", "2"]):
+        with pytest.raises(ValueError, match=f"needs '{key}'"):
+            tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                          "--steps", "1", *extra])
+    cfg, _ = _cfgs(arch)
+    b = jdata.TokenBatches(cfg.vocab_size, 2, 8, corpus_tokens=1 << 10)(0)
+    with pytest.raises(KeyError, match=key):
+        jsteps.loss_fn(cfg, jsteps.init_train_state(
+            cfg, jax.random.PRNGKey(0)).params,
+            jax.tree.map(jnp.asarray, b), JCtx(), 0.01)
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_launcher_trains_frontend_batches(sgd, arch):
+    """A pipe whose batches carry the frontend input trains through the
+    launcher: ``train``'s loss, ce and gradient norm each step against the
+    reference's step on the same batches, and ``gossip_train`` (2 nodes,
+    each shard with its own frontend rows) finite."""
+    from repro_torch.launch import train as tlaunch
+    cfg, tcfg = _cfgs(arch)
+    hp = jsteps.TrainHParams(lr=0.05)
+    thp = tsteps.TrainHParams(lr=0.05)
+    jst = jsteps.init_train_state(cfg, jax.random.PRNGKey(8), hp)
+    tst = convert.train_state_from_numpy(
+        tcfg, jax.tree.map(np.asarray, jst), device="cpu")
+    tokens = jdata.TokenBatches(cfg.vocab_size, 2, 16, corpus_tokens=1 << 12)
+
+    def pipe(i, shard=0):
+        return {**tokens(i, shard=shard),
+                **frontend_np(cfg, 2, 12, 20 + 2 * i + shard)}
+
+    res = tlaunch.train(tcfg, thp, pipe, 2, device="cpu", state=tst)
+    jstep = jax.jit(jsteps.make_train_step(cfg, hp))
+    for i, tm in enumerate(res.metrics):
+        jst, jm = jstep(jst, jax.tree.map(jnp.asarray, pipe(i)))
+        for key in ("loss", "ce", "grad_norm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=1e-5, err_msg=f"{key} step {i}")
+    gres = tlaunch.gossip_train(tcfg, thp, pipe,
+                                tgsp.GossipConfig(num_nodes=2), 1,
+                                device="cpu")
+    assert bool(torch.isfinite(gres.metrics[0]["loss"]).all())
