@@ -225,6 +225,21 @@ line:
    launches per step, peak memory; then train_vlm_a_fp32, the same run in
    fp32 compute (``flash_tf32``), the witness of train_vlm_a's loss
    curve.
+14e. launch and sharding — ep_moe_a (inside serve_moe_a, on its
+   Llama-4-Maverick group and prompts): prefill and 15 decode steps
+   through the expert-parallel MoE branch over the script's one NCCL rank
+   (``ModelCtx(mesh=make_host_mesh(1, 1), model_axis="model")``), logits
+   and cache bitwise those without the mesh, the flash launches, the
+   axis's all-reduces, the MoE layer's device ms with and without the
+   mesh and the all-reduce's; ep_train_small (after train_moe_small):
+   the two small MoE shapes' loss and every gradient through the branch
+   at M = 1, bitwise those without it; dryrun_card (after train_a):
+   ``launch.dryrun.size_pair``'s per-rank bytes on a 1 x 1 mesh against
+   the ``torch.cuda.memory_allocated()`` deltas of serve_vlm_a (params,
+   then the cache) and train_a (the state), within 0.5 %, and one traced
+   full-config pair's flops beside ``model_flops``; serve_batched — the
+   three smoke archs of ``examples/torch_serve_batched.py`` on the card
+   against the CPU (greedy tokens where the top-1 margin is > 1e-4).
 15. total   — the script's seconds so far.
 16. kernels — one line listing every kernel with its launches on the main
    path, error, times and bound (``flash_mma`` also with its launches in
@@ -261,9 +276,11 @@ from pathlib import Path
 # as three TF32 products (3xTF32 meets the fp32 bar, one TF32 product does
 # not), so 3x its FLOPs at the TF32 peak; the CD kernels' scalar chains on
 # the fp32 CUDA cores.
-HBM_BYTES_PER_S = 3.35e12
+# HBM_BYTES_PER_S (HBM_BW) and BF16_TC_FLOPS (PEAK_FLOPS_BF16) are
+# ``repro_torch.launch.mesh``'s, read by ``main`` once src/ is importable.
+HBM_BYTES_PER_S = None
 FP32_FLOPS = 67e12
-BF16_TC_FLOPS = 989e12
+BF16_TC_FLOPS = None
 TF32_TC_FLOPS = 494.7e12
 # kernel vs plain version: max|kernel - plain| <= KERNEL_TOL * max(1, max|plain|)
 # (fp32 reassociation of the per-step dot products and, in the Gram
@@ -2404,11 +2421,13 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
     g = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = api.init(g)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
+    params_alloc = torch.cuda.memory_allocated() - m0
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=g, device="cuda")
     front = serve_mod.frontend_inputs(cfg, batch, enc_len, g, "cuda")
@@ -2461,7 +2480,9 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
     # (one free slot is left: the cache holds prompt + gen slots)
     pre_batch = {"tokens": prompt, **front}
     with torch.no_grad():
+        m0 = torch.cuda.memory_allocated()
         cache = api.init_cache(params, batch, p0 + prompt_len + gen)
+        cache_alloc = torch.cuda.memory_allocated() - m0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         api.prefill(params, pre_batch, cache)
@@ -2496,6 +2517,8 @@ def serve_phase(torch, rt, fa, serve_mod, name, cfg, *, batch, prompt_len,
            "encoder_layers": cfg.encoder_layers or None,
            "cache_slots": int(kv["k"].shape[2]),
            "params": n_params, "weight_bytes": weight_bytes,
+           "params_bytes_allocated": params_alloc,
+           "cache_bytes_allocated": cache_alloc,
            "init_s": init_s,
            "init_peak_memory_bytes": init_peak, "launches": launches,
            "launches_by_mode": modes,
@@ -2690,7 +2713,7 @@ def moe_bytes(cfg, tokens: int, experts: int) -> float:
 
 
 def serve_moe_a_phase(torch, rt, fa, serve_mod, mlp_mod, *, batch=4,
-                      prompt_len=2048, gen=16) -> dict:
+                      prompt_len=2048, gen=16, ep_mesh=None) -> dict:
     """Llama-4-Maverick at full width, one group (a dense layer, then the
     MoE layer: 128 experts top-1 and the shared expert), chunked-local
     attention, bf16, scatter dispatch at capacity factor 1.25, through
@@ -2851,7 +2874,11 @@ def serve_moe_a_phase(torch, rt, fa, serve_mod, mlp_mod, *, batch=4,
            "profile_prefill": prof_prefill,
            "profile_decode_step": prof_decode}
     emit(out)
-    del params, res, cache
+    del res, cache
+    if ep_mesh is not None:
+        out["ep_moe_a"] = ep_moe_a_phase(torch, fa, mlp_mod, api, params,
+                                         prompt, gen, ep_mesh)
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -3295,12 +3322,15 @@ def train_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
     hp = steps_mod.TrainHParams()
     b, s = 4, 1024
     pipe = data_mod.TokenBatches(cfg.vocab_size, b, s, seed=0)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     state = steps_mod.init_train_state(
         cfg, torch.Generator(device="cuda").manual_seed(0), hp,
         device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    state_alloc = torch.cuda.memory_allocated() - m0
     n_params = sum(p.numel() for p in state.params.values())
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
@@ -3337,6 +3367,7 @@ def train_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod,
            "param_dtype": cfg.param_dtype, "remat": cfg.remat_policy,
            "optimizer": "AdamW, fp32 moments", "batch": b, "seq": s,
            "steps": steps, "params": n_params, "init_s": init_s,
+           "state_bytes_allocated": state_alloc,
            "loss_per_step": losses, "step_ms": res.step_ms,
            "ms_per_step": ms_step, "ms_per_step_of": "median of steps 2-6",
            "tokens_per_s": b * s / ms_step * 1e3,
@@ -4143,6 +4174,295 @@ def serve_hybrid_a_phase(torch, rt, fa, serve_mod) -> dict:
           "layers": cfg.num_layers, **checks})
     out["decode_checks"] = checks
     return out
+
+
+# ---------------------------------------------------------------------------
+# launch and sharding: expert parallelism at one rank, the dry run on the
+# card, the serve_batched example
+# ---------------------------------------------------------------------------
+
+# dryrun_card: size_pair's bytes against memory_allocated()'s delta
+DRYRUN_TOL = 5e-3
+
+
+def collective_kernel_ms(torch, fn) -> dict:
+    """``fn`` once under ``torch.profiler``: the device ms and calls of
+    the collective kernels (NCCL's) in the window. At one rank NCCL
+    launches none for an in-place all-reduce."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, calls = 0.0, 0
+    for ev in prof.key_averages():
+        if "CUDA" not in str(ev.device_type) or "nccl" not in ev.key.lower():
+            continue
+        dev_us = getattr(ev, "device_time_total", None)
+        ms += (ev.cuda_time_total if dev_us is None else dev_us) / 1e3
+        calls += ev.count
+    return {"device_ms": ms, "kernels": calls}
+
+
+def ep_moe_a_phase(torch, fa, mlp_mod, api, params, prompt, gen: int,
+                   mesh) -> dict:
+    """serve_moe_a's Llama-4-Maverick group (one dense and one MoE layer,
+    128 experts top-1 + shared; its prompts) through the expert-parallel
+    branch on ``mesh`` (1 x 1 over the script's NCCL rank): the prefill and
+    ``gen`` - 1 greedy decode steps with and without the mesh, logits and
+    cache bitwise; the flash launches and the axis's all-reduces of the
+    run with the mesh (counts zeroed just before it, read just after);
+    the MoE layer's device ms in the prefill and in one decode step with
+    and without the mesh, the NCCL kernels in each, and the device ms of
+    the axis's ``psum`` (its clone and the all-reduce) at the prefill's
+    and a step's (T, d) against its bytes bound."""
+    from repro_torch.models.blocks import DEFAULT_CTX, ModelCtx
+    name = "ep_moe_a"
+    cfg = api.cfg
+    ctx = ModelCtx(mesh=mesh, model_axis="model")
+    axis = mlp_mod.expert_axis(mesh, "model")
+    b, s = prompt.shape
+
+    def run(c):
+        cache = api.init_cache(params, b, s + gen)
+        with torch.no_grad():
+            logits, cache = api.prefill(params, {"tokens": prompt}, cache, c)
+            out = [logits[:, -1]]
+            for i in range(gen - 1):
+                tok = torch.argmax(out[-1], dim=-1)[:, None]
+                logits, cache = api.decode_step(params, tok, s + i, cache,
+                                                ctx=c)
+                out.append(logits[:, -1])
+        return torch.stack(out, dim=1), cache
+
+    plain_logits, plain_cache = run(DEFAULT_CTX)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    axis.reset_counts()
+    ep_logits, ep_cache = run(ctx)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    calls, sent = dict(axis.counts), dict(axis.sent_bytes)
+    want = want_flash_launches(torch, fa, cfg, s, gen)
+    if launches != want:
+        fail(f"{name}: flash launches {launches}, want {want}")
+    moe_layers = cfg.num_layers // max(cfg.moe_every, 1)
+    if calls != {"all-reduce": moe_layers * gen}:
+        fail(f"{name}: the axis made {calls}, want one all-reduce per MoE "
+             f"layer and call ({moe_layers * gen})")
+    same = torch.equal(ep_logits, plain_logits) and all(
+        torch.equal(ep_cache[key], plain_cache[key]) for key in plain_cache)
+    if not same:
+        fail(f"{name}: logits or cache through the expert-parallel branch "
+             "are not bitwise those without the mesh")
+    del plain_cache, ep_cache
+    tok = torch.argmax(ep_logits[:, -1], dim=-1)[:, None]
+    rows = {}
+    with torch.no_grad():
+        for label, c in (("plain", DEFAULT_CTX), ("mesh", ctx)):
+            cache = api.init_cache(params, b, s + gen)
+            prefill = lambda: api.prefill(params, {"tokens": prompt}, cache,
+                                          c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            cache = api.init_cache(params, b, s + gen)
+            pf = moe_profile(torch, mlp_mod, prefill, host)
+            step = lambda: api.decode_step(params, tok, s + gen - 1, cache,
+                                           ctx=c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            st = moe_profile(torch, mlp_mod, step, host)
+            rows[label] = {"prefill_moe_device_ms": pf["moe_device_ms"],
+                           "prefill_device_ms": pf["device_ms"],
+                           "prefill_host_ms": pf["host_ms"],
+                           "step_moe_device_ms": st["moe_device_ms"],
+                           "step_device_ms": st["device_ms"],
+                           "step_host_ms": st["host_ms"]}
+            if label == "mesh":
+                cache = api.init_cache(params, b, s + gen)
+                rows["nccl_kernels_prefill"] = collective_kernel_ms(
+                    torch, prefill)
+                rows["nccl_kernels_step"] = collective_kernel_ms(torch,
+                                                                 step)
+            del cache
+    t, d = b * s, cfg.d_model
+    for key, n in (("psum_prefill", t), ("psum_step", b)):
+        y = torch.zeros((n, d), dtype=getattr(torch, cfg.dtype),
+                        device="cuda")
+        nbytes = 2 * y.numel() * y.element_size()   # the clone's read, write
+        rows[key] = {"shape": [n, d], "device_ms": device_ms(
+            torch, lambda: axis.psum(y), 20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        del y
+    out = {"phase": name, "model": cfg.name, "layers": cfg.num_layers,
+           "experts": cfg.num_experts, "mesh": "1 x 1 (data, model), NCCL",
+           "batch": b, "prompt": s, "gen": gen, "launches": launches,
+           "axis_calls": calls, "axis_sent_bytes": sent,
+           "all_reduce_prefill_bytes": t * d * 2,
+           "bitwise": same, **rows}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_train_small_phase(torch, rt, fa, steps_mod, mesh) -> list:
+    """train_moe_small's two shapes (fp32, d_model 512) on the card: the
+    loss, ce, aux and every gradient through the expert-parallel branch
+    on ``mesh`` (M = 1), bitwise those without it."""
+    from repro_torch.models.blocks import DEFAULT_CTX, ModelCtx
+    ctx = ModelCtx(mesh=mesh, model_axis="model")
+    rows = []
+    for cfg in moe_small_configs(rt):
+        state = steps_mod.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                               generator=torch.Generator().manual_seed(1))
+        res = {}
+        for label, c in (("plain", DEFAULT_CTX), ("mesh", ctx)):
+            req = {n: p.detach().clone().requires_grad_()
+                   for n, p in state.params.items()}
+            fa.reset_launches()
+            loss, (ce, aux) = steps_mod.loss_fn(
+                cfg, req, {"tokens": tokens.cuda()}, c, 0.01)
+            loss.backward()
+            res[label] = (torch.stack([loss, ce, aux]).detach(),
+                          {n: p.grad for n, p in req.items()},
+                          dict(fa.LAUNCHES))
+        same_loss = torch.equal(res["plain"][0], res["mesh"][0])
+        diff = [n for n, g in res["plain"][1].items()
+                if not torch.equal(g, res["mesh"][1][n])]
+        if not same_loss or diff:
+            fail(f"ep_train_small {cfg.name}: loss bitwise {same_loss}, "
+                 f"gradients that differ: {diff[:5]}")
+        row = {"phase": "ep_train_small", "model": cfg.name,
+               "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+               "loss_ce_aux": res["mesh"][0].tolist(), "bitwise": True,
+               "gradients": len(res["mesh"][1]),
+               "launches": res["mesh"][2]}
+        emit(row)
+        rows.append(row)
+        del state, res
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dryrun_card_phase(torch, rt, vlm_a: dict, train_a: dict) -> dict:
+    """``launch.dryrun.size_pair`` on a 1 x 1 mesh against what the card
+    allocated: serve_vlm_a's parameters (bf16; sized with bf16 masters,
+    whose norm gains the reference keeps in fp32) and its cache
+    (p0 + prompt + gen slots), train_a's state (8 of 36 layers); each
+    within DRYRUN_TOL. Then one traced full-config pair (Qwen3-4B, all 36
+    layers, train_a's B=4 x S=1,024) on meta: its flops beside
+    ``model_flops`` (no recompute) of the same step."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    one = mesh_mod.MeshSpec(("data", "model"), (1, 1))
+    vlm = rt.get_config("internvl2_26b")
+    slots = vlm_a["prefix_positions"] + vlm_a["prompt"] + vlm_a["gen"]
+    sv = dryrun.size_pair("internvl2_26b",
+                          InputShape("serve_vlm_a", slots, vlm_a["batch"],
+                                     "prefill"), mesh=one, trace=False,
+                          opts=dryrun.Opts(param_dtype=vlm.dtype))
+    qwen = rt.get_config("qwen3_4b")
+    cut = dataclasses.replace(qwen, num_layers=train_a["layers"])
+    shape = InputShape("train_a", train_a["seq"], train_a["batch"], "train")
+    st = dryrun.size_pair("qwen3_4b", shape, mesh=one, trace=False, cfg=cut)
+    checks = {"serve_vlm_a_params": (sv["memory"]["parts"]["params"],
+                                     vlm_a["params_bytes_allocated"]),
+              "serve_vlm_a_cache": (sv["memory"]["parts"]["cache"],
+                                    vlm_a["cache_bytes_allocated"]),
+              "train_a_state": (st["memory"]["parts"]["state"],
+                                train_a["state_bytes_allocated"])}
+    ratios = {}
+    for key, (sized, allocated) in checks.items():
+        ratios[key] = {"sized_bytes": sized, "allocated_bytes": allocated,
+                       "ratio": allocated / sized}
+        if not abs(allocated / sized - 1.0) <= DRYRUN_TOL:
+            fail(f"dryrun_card {key}: size_pair's {sized} bytes against "
+                 f"{allocated} allocated (tolerance {DRYRUN_TOL})")
+    t0 = time.perf_counter()
+    traced = dryrun.size_pair("qwen3_4b", shape, mesh=one, trace=True)
+    trace_s = time.perf_counter() - t0
+    want = model_flops(qwen, train_a["batch"], train_a["seq"])
+    out = {"phase": "dryrun_card", "mesh": "1 x 1", "tolerance": DRYRUN_TOL,
+           **ratios,
+           "traced_pair": "qwen3_4b, 36 layers, train B=4 x S=1,024, meta",
+           "traced_flops": traced["flops"], "model_flops": want,
+           "traced_over_model_flops": traced["flops"] / want,
+           "trace_s": trace_s}
+    emit(out)
+    return out
+
+
+def serve_batched_phase(torch, rt, fa) -> list:
+    """``examples/torch_serve_batched.py``'s three smoke archs (fp32) on
+    the card against the CPU from the same weights (drawn on the CPU) and
+    prompt: greedy tokens equal while the CPU's top-1 margin is above
+    FLIP_MARGIN, every step's logits within SMALL_RTOL of max|logits|
+    while the tokens agree, the same decode state; the example's timings
+    on the card."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / \
+        "torch_serve_batched.py"
+    spec = importlib.util.spec_from_file_location("torch_serve_batched",
+                                                  path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    rows = []
+    for arch in ex.ARCHS:
+        cfg = rt.smoke_variant(rt.get_config(arch))
+        params = rt.build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        prompt = torch.randint(0, cfg.vocab_size, (4, 32),
+                               generator=torch.Generator().manual_seed(1))
+        cpu = ex.serve_arch(arch, device="cpu", params=params, prompt=prompt)
+        fa.reset_launches()
+        card = ex.serve_arch(arch, device="cuda", prompt=prompt, params={
+            n: t.cuda() for n, t in params.items()})
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        top2 = torch.topk(cpu["logits"], 2, dim=-1).values
+        margins = top2[..., 0] - top2[..., 1]
+        compared, worst = 0, 0.0
+        scale = float(cpu["logits"].abs().max())
+        for r in range(prompt.shape[0]):
+            for t in range(cpu["tokens"].shape[1]):
+                diff = float((card["logits"][r, t].cpu()
+                              - cpu["logits"][r, t]).abs().max())
+                worst = max(worst, diff)
+                if not diff <= SMALL_RTOL * scale:
+                    fail(f"serve_batched {arch}: step {t} row {r} logits "
+                         f"differ by {diff} (> {SMALL_RTOL} x {scale})")
+                if float(margins[r, t]) <= FLIP_MARGIN:
+                    break
+                if int(card["tokens"][r, t]) != int(cpu["tokens"][r, t]):
+                    fail(f"serve_batched {arch}: token {t} of row {r} "
+                         "differs at a margin above FLIP_MARGIN")
+                compared += 1
+        if card["decode_state_bytes"] != cpu["decode_state_bytes"]:
+            fail(f"serve_batched {arch}: decode state "
+                 f"{card['decode_state_bytes']} vs "
+                 f"{cpu['decode_state_bytes']} bytes")
+        if cfg.family != "xlstm" and not launches["flash_split"] > 0:
+            fail(f"serve_batched {arch}: no flash launches {launches}")
+        row = {"phase": "serve_batched", "arch": arch, "family": cfg.family,
+               "prefill_ms": card["prefill_ms"],
+               "decode_ms_per_token": card["decode_ms_per_token"],
+               "decode_state_mb": card["decode_state_bytes"] / 1e6,
+               "tokens_compared": compared,
+               "tokens_total": int(cpu["tokens"].numel()),
+               "max_abs_logit_diff": worst, "launches": launches}
+        emit(row)
+        rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -5071,6 +5391,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root / "src"))
+    global HBM_BYTES_PER_S, BF16_TC_FLOPS
+    from repro_torch.launch import mesh as mesh_mod
+    HBM_BYTES_PER_S, BF16_TC_FLOPS = mesh_mod.HBM_BW, mesh_mod.PEAK_FLOPS_BF16
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -5274,7 +5597,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # MoE serving: Llama-4-Maverick at full width (one group), then two
     # small MoE shapes card vs CPU
-    moe_a = serve_moe_a_phase(torch, rt, fa, serve_mod, mlp_mod)
+    # with ep_moe_a: the same group through the expert-parallel branch on
+    # a 1 x 1 mesh over the NCCL rank
+    ep_mesh = mesh_mod.make_host_mesh(1, 1)
+    moe_a = serve_moe_a_phase(torch, rt, fa, serve_mod, mlp_mod,
+                              ep_mesh=ep_mesh)
     moe_small = serve_moe_small_phase(torch, rt, fa, serve_mod, mlp_mod)
     # the recurrent families: Zamba2-7B at full width and depth, then the
     # xLSTM and Zamba2 smoke variants card vs CPU
@@ -5287,6 +5614,8 @@ def main() -> int:
     zoo_small = ssm_small_phase(torch, rt, fa, steps_mod, serve_mod,
                                 archs=("seamless_m4t_medium",
                                        "internvl2_26b"), phase="zoo_small")
+    # examples/torch_serve_batched.py's three smoke archs, card vs CPU
+    serve_batched_phase(torch, rt, fa)
 
     # training: the flash Function's gradient, card vs CPU at the smoke
     # width, then Qwen3-4B at full width through launch.train
@@ -5294,6 +5623,8 @@ def main() -> int:
     train_small = train_small_phase(torch, rt, fa, train_mod, steps_mod,
                                     data_mod, gossip_mod, privacy)
     train_a = train_a_phase(torch, rt, fa, train_mod, steps_mod, data_mod)
+    # the dry run's per-rank bytes against serve_vlm_a's and train_a's
+    dryrun_card_phase(torch, rt, vlm_a, train_a)
     gossip_args = (rt, fa, train_mod, steps_mod, data_mod, gossip_mod,
                    privacy)
     train_gossip = gossip_phase_or_cut(torch, *gossip_args,
@@ -5306,6 +5637,7 @@ def main() -> int:
     # of 27 groups, xLSTM-125M whole)
     moe_train_small = train_moe_small_phase(torch, rt, fa, steps_mod,
                                             mlp_mod)
+    ep_train_small_phase(torch, rt, fa, steps_mod, ep_mesh)
     train_moe_a = train_moe_a_phase(torch, rt, fa, train_mod, steps_mod,
                                     data_mod, mlp_mod)
     train_hybrid_a = train_hybrid_a_phase(torch, rt, fa, train_mod,
@@ -5383,6 +5715,7 @@ def main() -> int:
         "shape": "prefill, bf16 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
                  "hd 128)",
         "launches_serve_moe_a": moe_a["launches"]["flash_mma"],
+        "launches_ep_moe_a": moe_a["ep_moe_a"]["launches"]["flash_mma"],
         "launches_train_a": train_a["launches"]["flash_mma"],
         "launches_train_gossip": train_gossip["launches"]["flash_mma"],
         "launches_train_gossip_dp":
@@ -5409,6 +5742,7 @@ def main() -> int:
         "replaces": flash_replaces,
         "launches": serve_a["launches"]["flash_split"],
         "launches_serve_moe_a": moe_a["launches"]["flash_split"],
+        "launches_ep_moe_a": moe_a["ep_moe_a"]["launches"]["flash_split"],
         "launches_serve_moe_small": sum(r["launches"]["flash_split"]
                                         for r in moe_small),
         "launches_serve_hybrid_a": hybrid_a["launches"]["flash_split"],
@@ -5442,6 +5776,7 @@ def main() -> int:
         "replaces": flash_replaces,
         "launches": serve_a["launches"]["flash_combine"],
         "launches_serve_moe_a": moe_a["launches"]["flash_combine"],
+        "launches_ep_moe_a": moe_a["ep_moe_a"]["launches"]["flash_combine"],
         "launches_serve_moe_small": sum(r["launches"]["flash_combine"]
                                         for r in moe_small),
         "launches_serve_hybrid_a": hybrid_a["launches"]["flash_combine"],
@@ -5479,15 +5814,16 @@ def main() -> int:
         "shape": "prefill, fp32 (B=8, Sq=1024, Skv=2080, 32/8 heads, "
                  "hd 128)"})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
-    for key in ("launches_train_a", "launches_serve_hybrid_a",
+    for key in ("launches_ep_moe_a", "launches_train_a",
+                "launches_serve_hybrid_a",
                 "launches_train_moe_a", "launches_train_hybrid_a",
                 "launches_serve_encdec_a", "launches_serve_vlm_a",
                 "launches_train_encdec_a", "launches_train_vlm_a"):
         if not next(k for k in kernels if k["name"] == "flash_mma")[key] > 0:
             idle.append(f"flash_mma ({key[len('launches_'):]})")
     for name in ("flash_split", "flash_combine"):
-        for key in ("launches_serve_encdec_a", "launches_serve_vlm_a",
-                    "launches_zoo_small"):
+        for key in ("launches_ep_moe_a", "launches_serve_encdec_a",
+                    "launches_serve_vlm_a", "launches_zoo_small"):
             if not next(k for k in kernels if k["name"] == name)[key] > 0:
                 idle.append(f"{name} ({key[len('launches_'):]})")
     if not next(k for k in kernels

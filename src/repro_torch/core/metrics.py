@@ -104,6 +104,11 @@ class GapRecorder:
                              "recorder (the ratio is gap / eps)")
         return row[self.labels.index("gap")] / self.eps
 
+    def init_spec(self) -> dict:
+        """The recorder's per-run state, for the dry run's placement
+        (``dist.sharding.cola_recorder_pspecs``): none."""
+        return {}
+
     def collective_footprint(self, k: int, d: int, n_k: int,
                              itemsize: int = 4, comm: str = "dense",
                              conn: int = 1) -> dict:
@@ -295,6 +300,13 @@ class CertificateRecorder:
                  / self.grad_thresh)
         return torch.maximum(gap_r, dis_r)
 
+    def init_spec(self) -> dict:
+        """The per-run state: ``sigma_k`` (K,) and, where it has one, the
+        self-inclusive neighbour mask (K, K)."""
+        if self.neigh_mask is None:
+            return {"sigma_k": self.sigma_k}
+        return {"sigma_k": self.sigma_k, "neigh_mask": self.neigh_mask}
+
     def collective_footprint(self, k: int, d: int, n_k: int,
                              itemsize: int = 4, comm: str = "dense",
                              conn: int = 1) -> dict:
@@ -375,6 +387,9 @@ class ComposedRecorder:
             out = torch.minimum(out, r)
         return out
 
+    def init_spec(self) -> dict:
+        return {f"part{i}": p.init_spec() for i, p in enumerate(self.parts)}
+
     def collective_footprint(self, k, d, n_k, itemsize=4, comm="dense",
                              conn=1) -> dict:
         out: dict = {}
@@ -400,6 +415,9 @@ class FnRecorder:
     @property
     def stop_fn(self) -> Callable | None:
         return self.stop
+
+    def init_spec(self) -> dict:
+        return {}
 
     def collective_footprint(self, k, d, n_k, itemsize=4, comm="dense",
                              conn=1) -> dict:

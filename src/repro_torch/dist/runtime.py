@@ -453,6 +453,9 @@ class _DistRecorder:
     def cadence_ratio(self, row):
         return self._inner.cadence_ratio(row)
 
+    def init_spec(self):
+        return self._inner.init_spec()
+
 
 def _resolve_comm(comm: str, graph, base_w, *, local_nodes: int, m: int,
                   churn: bool, conn: int, block: bool = False):

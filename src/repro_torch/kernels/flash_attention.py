@@ -35,7 +35,9 @@ element otherwise; the wrapper checks which and never pads.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises (a failed build or a refused launch never
-falls back). ``LAUNCHES`` counts kernel launches per kernel (never
+falls back). A ``meta`` tensor (the dry run's shapes without storage)
+takes the plain version's path too: it computes shapes only, so there is
+no value a kernel could have given instead. ``LAUNCHES`` counts kernel launches per kernel (never
 plain-version calls).
 
 Gradients. Where autograd needs one (grad enabled and q, k or v requiring
@@ -69,6 +71,9 @@ SPLIT_TILE = 32           # keys per tile of flash_split_kernel
 # splits are chosen so that ~4 blocks per SM of an H100 (132 SMs) are busy
 SPLIT_TARGET_BLOCKS = 4 * 132
 MAX_SPLITS = 64
+# devices whose tensors take the plain versions: the CPU, and meta (shapes
+# only)
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def reset_launches() -> None:
@@ -335,7 +340,7 @@ def flash_split(q, k, v, q_pos, kv_pos, *, mode: str, window: int = 0,
     _check(q, k, v, q_pos, kv_pos, mode, window, "float32", k2, v2, kv_pos2)
     kw = dict(mode=mode, window=window, splits=splits, k2=k2, v2=v2,
               kv_pos2=kv_pos2)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_split_plain(q, k, v, q_pos, kv_pos, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_split: unsupported device {q.device}")
@@ -362,7 +367,7 @@ def flash_combine(part_m, part_l, part_acc, *, sq: int,
                   dtype: torch.dtype) -> torch.Tensor:
     """Merge split-KV partials into (B, Sq, H, hd) of ``dtype``."""
     dev = part_acc.device
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return flash_combine_plain(part_m, part_l, part_acc, sq=sq,
                                    dtype=dtype)
     if dev.type != "cuda":
@@ -439,7 +444,7 @@ def _forward(q, k, v, q_pos, kv_pos, mode, window, k2=None, v2=None,
     """The forward route: the plain version on the CPU, the kernels on the
     card (inputs already checked)."""
     dev = q.device
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, q_pos, kv_pos, mode=mode,
                                      window=window, k2=k2, v2=v2,
                                      kv_pos2=kv_pos2)

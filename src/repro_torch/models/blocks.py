@@ -34,28 +34,29 @@ from repro_torch.models import mlp, ssm
 from repro_torch.models.common import (Leaf, apply_rope, dense_leaf,
                                        head_rms_norm, init_tree, rms_norm)
 
-SHARDING_TODO = ("ModelCtx's mesh, model_axis and act_spec (expert "
-                 "parallelism, activation sharding) are not ported yet: "
-                 "ROADMAP queue 1 item 17.6")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
     """Runtime context. ``moe_mode`` ("scatter" | "dense") and
-    ``dispatch_groups`` (token-grouped scatter dispatch, ``mlp.moe_apply``)
-    take effect. ``mesh``, ``model_axis`` and ``act_spec`` serve expert
-    parallelism and activation sharding across devices; setting any of
-    them raises."""
+    ``dispatch_groups`` (token-grouped scatter dispatch) pick the MoE
+    dispatch (``mlp.moe_apply``). ``mesh`` (a ``DeviceMesh``, from
+    ``launch.mesh.make_host_mesh``) with ``model_axis`` makes scatter
+    dispatch expert-parallel over that axis's ranks. ``act_spec`` (a
+    ``dist.sharding.P`` over the mesh's axes) is the reference's
+    layer-boundary activation constraint (``transformer._constrain``): in
+    one process it changes no value, and each group's input is checked
+    against it."""
 
     mesh: Any = None
     model_axis: str | None = None
     moe_mode: str = "scatter"   # "scatter" | "dense"
-    act_spec: Any = None        # PartitionSpec | None
+    act_spec: Any = None        # dist.sharding.P | None
     dispatch_groups: int = 0    # token-grouped MoE dispatch (see mlp.py)
 
     def __post_init__(self):
-        if (self.mesh, self.model_axis, self.act_spec) != (None,) * 3:
-            raise NotImplementedError(SHARDING_TODO)
+        if self.model_axis is not None and self.mesh is not None and \
+                self.model_axis not in (self.mesh.mesh_dim_names or ()):
+            raise ValueError(f"ModelCtx: the mesh has no axis "
+                             f"{self.model_axis!r}")
 
 
 DEFAULT_CTX = ModelCtx()
@@ -237,8 +238,12 @@ def moe_layer_apply(cfg: ModelConfig, p: dict, x, positions, cache,
     y, aux = mlp.moe_apply(p["moe"], rms_norm(x, p["ln2"]),
                            experts_per_token=cfg.experts_per_token,
                            capacity_factor=cfg.moe_capacity_factor,
-                           mode=ctx.moe_mode,
-                           dispatch_groups=ctx.dispatch_groups)
+                           mode=ctx.moe_mode, mesh=ctx.mesh,
+                           model_axis=ctx.model_axis,
+                           dispatch_groups=ctx.dispatch_groups,
+                           group_axes=(tuple(ctx.act_spec)[0]
+                                       if ctx.act_spec is not None
+                                       else None))
     return x + y, new_cache, aux
 
 

@@ -13,10 +13,26 @@ MoE uses capacity-based dispatch, in the reference's modes on one device:
   each with its own C slots per expert (the reference's ``vmap`` over
   groups, here one buffer of G * C slots per expert).
 
-The expert-parallel branch (``shard_map`` over a ``model`` mesh axis) is
-not ported: ROADMAP queue 1 item 17.6. The products are plain batched
-products and index scatters: the reference computes them in jnp, outside
-any Pallas kernel.
+Expert parallelism (scatter mode with ``mesh`` and ``model_axis``): the
+reference's ``shard_map`` over the ``model`` axis becomes the ranks of
+``mesh.get_group(model_axis)`` as a ``NodeAxis`` (``expert_axis``). Each
+of the M ranks runs the capacity dispatch for its E/M experts, at offset
+``index * E/M``, with the capacity of all T tokens (every rank sees every
+token, so the drops are the single-process drops), and one ``psum`` of the
+(T, d) output combines them: no all-to-all, no token shuffle. Grouped
+dispatch is ignored under a model axis, as in the reference. **Which
+expert weights a rank holds:** the whole stacked leaves; each rank reads
+its (E/M, ...) block as a view, as ``shard_map``'s ``in_specs=P(model)``
+cuts it, so the gradient of a leaf is nonzero on the rank's block only.
+The backward is two autograd Functions (``NodeAxis.psum`` alone carries
+no gradient): ``_ReplicatedIn`` (identity forward, ``psum`` backward) on
+the replicated inputs ``x_flat`` and ``w_topk``, as ``shard_map`` sums the
+cotangent of a ``P()`` input over the axis, so the router and the layers
+below get whole gradients; ``_SumOut`` (``psum`` forward, identity
+backward) on the output.
+
+The products are plain batched products and index scatters: the reference
+computes them in jnp, outside any Pallas kernel.
 
 Parameters are dicts of tensors with the reference's names and layouts:
 ``*_leaves`` give the shapes and initializers, ``*_init`` draw them.
@@ -26,9 +42,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import dense_leaf, init_tree
-
-EXPERT_PARALLEL_TODO = ("expert-parallel MoE (mesh / model_axis) is not "
-                        "ported yet: ROADMAP queue 1 item 17.6")
 
 
 # ---------------------------------------------------------------------------
@@ -146,20 +159,79 @@ def moe_capacity(tokens: int, experts_per_token: int, num_experts: int,
                             * capacity_factor)))
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism over the ranks of a model axis
+# ---------------------------------------------------------------------------
+
+_AXES: dict = {}
+
+
+def expert_axis(mesh, model_axis: str):
+    """The ``NodeAxis`` over ``mesh``'s ``model_axis`` ranks (one per
+    process group, so its counts accumulate over the layers)."""
+    from repro_torch.dist.axis import NodeAxis
+    group = mesh.get_group(model_axis)
+    if group not in _AXES:
+        _AXES[group] = NodeAxis(group)
+    return _AXES[group]
+
+
+class _ReplicatedIn(torch.autograd.Function):
+    """A replicated input of the expert-parallel body: identity forward,
+    the cotangent summed over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.psum(g.contiguous()), None
+
+
+class _SumOut(torch.autograd.Function):
+    """The body's output: summed over the axis forward, its cotangent
+    passed through (every rank's partial gets the whole cotangent)."""
+
+    @staticmethod
+    def forward(ctx, y, axis):
+        return axis.psum(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _expert_parallel(p: dict, x_flat, w_topk, idx, capacity: int, axis):
+    """The experts [index * E/M, (index + 1) * E/M) of this rank on every
+    token, summed over the axis."""
+    e = p["w_gate"].shape[0]
+    if e % axis.size:
+        raise ValueError(f"{e} experts do not split over {axis.size} ranks "
+                         "of the model axis")
+    e_loc = e // axis.size
+    rows = slice(axis.index * e_loc, (axis.index + 1) * e_loc)
+    out = _scatter_moe_local(
+        p["w_gate"][rows], p["w_up"][rows], p["w_down"][rows],
+        _ReplicatedIn.apply(x_flat, axis), _ReplicatedIn.apply(w_topk, axis),
+        idx, capacity, axis.index * e_loc, e_loc)
+    return _SumOut.apply(out, axis)
+
+
 def moe_apply(p: dict, x: torch.Tensor, *, experts_per_token: int,
               capacity_factor: float = 1.25, mode: str = "scatter",
               mesh=None, model_axis: str | None = None,
               dispatch_groups: int = 0, group_axes=None):
     """Apply the MoE layer. x: (B, S, d). Returns (y, aux_loss).
 
-    ``dispatch_groups`` > 1 selects token-grouped scatter dispatch. Its
-    ``group_axes`` sharding constraints are no-ops on one device; with
-    ``mesh`` and ``model_axis`` (expert parallelism) this raises.
+    ``dispatch_groups`` > 1 selects token-grouped scatter dispatch (not
+    under a model axis). Its ``group_axes`` sharding constraints change no
+    value in one process. With ``mesh`` and ``model_axis``, scatter mode
+    is expert-parallel over that axis's ranks (see the module).
     """
     if mode not in ("scatter", "dense"):
         raise ValueError(f"unknown MoE mode {mode!r}")
-    if mesh is not None and model_axis is not None:
-        raise NotImplementedError(EXPERT_PARALLEL_TODO)
     b, s, d = x.shape
     t = b * s
     x_flat = x.reshape(t, d)
@@ -174,8 +246,13 @@ def moe_apply(p: dict, x: torch.Tensor, *, experts_per_token: int,
         comb = torch.zeros((t, e), dtype=torch.float32,
                            device=x.device).scatter_add_(1, idx, w_topk)
         y = torch.einsum("te,etd->td", comb.to(x.dtype), all_out)
+    elif mesh is not None and model_axis is not None:
+        capacity = moe_capacity(t, experts_per_token, e, capacity_factor)
+        y = _expert_parallel(p, x_flat, w_topk, idx, capacity,
+                             expert_axis(mesh, model_axis))
     else:
-        g = dispatch_groups if dispatch_groups > 1 else 1
+        g = (dispatch_groups if dispatch_groups > 1 and model_axis is None
+             else 1)
         if t % g:
             raise ValueError(f"{t} tokens do not split into {g} dispatch "
                              "groups")

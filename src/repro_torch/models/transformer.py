@@ -252,6 +252,32 @@ def _checkpointed(cfg: ModelConfig, fn, *args):
         fn, *args, use_reentrant=False, context_fn=_remat_context(cfg))
 
 
+def _constrain(x: torch.Tensor, ctx: ModelCtx) -> torch.Tensor:
+    """The reference's layer-boundary activation constraint
+    (``ctx.act_spec`` on ``ctx.mesh``): it pins the layout a partitioner
+    would choose and changes no value, so here it checks that the spec
+    fits the (B, S, D) hidden state and returns ``x`` itself."""
+    if ctx.act_spec is None or ctx.mesh is None:
+        return x
+    spec = tuple(ctx.act_spec)
+    sizes = dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.shape))
+    if len(spec) > x.dim():
+        raise ValueError(f"act_spec {ctx.act_spec} has more entries than "
+                         f"the hidden state's {x.dim()} dims")
+    for dim, axes in zip(x.shape, spec):
+        n = 1
+        for a in (() if axes is None else
+                  axes if isinstance(axes, tuple) else (axes,)):
+            if a not in sizes:
+                raise ValueError(f"act_spec {ctx.act_spec}: the mesh has "
+                                 f"no axis {a!r}")
+            n *= sizes[a]
+        if dim % n:
+            raise ValueError(f"act_spec {ctx.act_spec}: dim {dim} of "
+                             f"{tuple(x.shape)} does not split over {n}")
+    return x
+
+
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, caches: dict | None,
                ctx: ModelCtx):
@@ -266,6 +292,7 @@ def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
     aux = 0.0
     remat = caches is None and torch.is_grad_enabled() and _remat_on(cfg)
     for i, group in enumerate(groups):
+        x = _constrain(x, ctx)
         c = None
         if caches is not None and cfg.family in RECURRENT:
             c = _tree_map(lambda t: t[i], caches)
@@ -356,6 +383,7 @@ def encode(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor,
     positions = _positions(b, 0, s, x.device)
     remat = torch.is_grad_enabled() and _remat_on(cfg)
     for layer in _group_trees(params, cfg.encoder_layers, "enc_layers."):
+        x = _constrain(x, ctx)
         fn = functools.partial(blocks.encoder_layer_apply, cfg, layer)
         x = (_checkpointed(cfg, fn, x, positions) if remat
              else fn(x, positions))
@@ -390,6 +418,7 @@ def _run_decoder_xattn(cfg: ModelConfig, params: dict, x: torch.Tensor,
     k_all, v_all = enc_kv
     remat = caches is None and torch.is_grad_enabled() and _remat_on(cfg)
     for i, layer in enumerate(_group_trees(params, cfg.num_layers)):
+        x = _constrain(x, ctx)
         if remat:
             x = _checkpointed(cfg, functools.partial(
                 _xattn_out, cfg, layer, positions, enc_pos, ctx), x,

@@ -211,3 +211,24 @@ def summarize(counters: Counters, inc: dict | None = None, *,
                          "ef_norm": np.sqrt(s[:m, 1]).astype(float).tolist(),
                          "gate": s[:m, 2].astype(int).tolist()}
     return out
+
+
+def render_footprint(k: int, axis: str = "nodes") -> str:
+    """The counters' footprint for ``launch.dryrun --plan``: each leaf's
+    shape, dtype, bytes and its placement over the ranks
+    (``dist.sharding.cola_counters_pspecs``)."""
+    from repro_torch.dist import sharding as shard_specs
+
+    cts = init_counters(k, device="meta")
+    specs = shard_specs.cola_counters_pspecs(axis)
+    lines = [f"[obs counters] K={k} (ColaConfig.telemetry=True carry)"]
+    total = 0
+    for name, leaf, spec in zip(Counters._fields, cts, specs):
+        nbytes = leaf.numel() * leaf.element_size()
+        total += nbytes
+        shape = "x".join(map(str, leaf.shape)) or "scalar"
+        dtype = str(leaf.dtype).removeprefix("torch.")
+        lines.append(f"  {name:<11} {shape:<8} {dtype:<8} "
+                     f"{nbytes:>6,}B  pspec={spec}")
+    lines.append(f"  total {total:,}B per run (held with the state)")
+    return "\n".join(lines)

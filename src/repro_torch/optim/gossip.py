@@ -461,6 +461,9 @@ class ConsensusRecorder:
         eps = self.eps
         return lambda row: row[0] <= eps
 
+    def init_spec(self) -> dict:
+        return {}
+
 
 def replicate_state(state: Any, k: int) -> Any:
     """K copies of a state stacked on a new leading node axis."""

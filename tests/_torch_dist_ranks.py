@@ -15,6 +15,14 @@ Every rank runs with ``REPRO_RUNS_DIR=off``. The "cert" group also writes
 the counts of one mixing step and one certificate record on each plan
 path (``<world>_probe.json``, ``budget_probe``).
 
+The "ep" group (expert-parallel MoE, ``models.mlp.moe_apply`` over the
+model axis of ``launch.mesh.make_host_mesh(1, world)``) reads
+``ep_<case>.npz`` (the weights, x and an output cotangent) for each case of
+``EP_CASES``; each rank runs the layer forward and backward through the
+axis and writes ``<world>_ep_<case>_<rank>.npz``: y, aux, every gradient
+and the axis's all-reduce counts and bytes of the forward and of the
+backward. Rank 0 also writes the single-process layer's (``single.*``).
+
 The "wire" group (the quantized wire, robust mixing and attacks over
 ranks) reads inputs the test wrote into OUT_DIR first: the reference's
 stochastic-rounding uniforms of a case (``draws_<case>.npy``, (T + 1, B,
@@ -586,7 +594,78 @@ def gossip_probe(rank: int, world: int, out_dir: str, axis) -> None:
     np.savez(os.path.join(out_dir, f"{world}_gossip_{rank}.npz"), **res)
 
 
+# expert parallelism: the smoke variants' MoE layers, scatter mode; the
+# "drop" case at capacity factor 0.5 drops pairs
+EP_CASES = {"dbrx": dict(arch="dbrx_132b", capacity_factor=None),
+            "llama4": dict(arch="llama4_maverick_400b",
+                           capacity_factor=None),
+            "dbrx_drop": dict(arch="dbrx_132b", capacity_factor=0.5)}
+EP_WORLDS = (2, 4)
+
+
+def ep_layer(case: str):
+    """(experts_per_token, capacity_factor) of an ``EP_CASES`` case."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    c = EP_CASES[case]
+    cfg = smoke_variant(get_config(c["arch"]))
+    return cfg.experts_per_token, (c["capacity_factor"]
+                                   or cfg.moe_capacity_factor)
+
+
+def _ep_grads(inputs: dict, after_forward=None, **kw) -> dict:
+    """y, aux and the gradients of sum(y * cot) + aux at ``inputs``;
+    ``after_forward()`` runs between the forward and the backward."""
+    import torch
+    from repro_torch.models import mlp
+    flat = {n[2:]: torch.tensor(v, requires_grad=True)
+            for n, v in inputs.items() if n.startswith("p.")}
+    params = {n: t for n, t in flat.items() if "." not in n}
+    shared = {n[len("shared."):]: t for n, t in flat.items()
+              if n.startswith("shared.")}
+    if shared:
+        params["shared"] = shared
+    x = torch.tensor(inputs["x"], requires_grad=True)
+    y, aux = mlp.moe_apply(params, x, mode="scatter", **kw)
+    if after_forward is not None:
+        after_forward()
+    ((y * torch.tensor(inputs["cot"])).sum() + aux).backward()
+    out = {"y": y.detach().numpy(), "aux": aux.detach().numpy(),
+           "grad.x": x.grad.numpy()}
+    out.update({f"grad.{n}": t.grad.numpy() for n, t in flat.items()})
+    return out
+
+
+def ep_probe(rank: int, world: int, out_dir: str) -> None:
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mlp
+    mesh = make_host_mesh(1, world, device="cpu")
+    axis = mlp.expert_axis(mesh, "model")
+    for case in EP_CASES:
+        inputs = dict(np.load(os.path.join(out_dir, f"ep_{case}.npz")))
+        k, cf = ep_layer(case)
+        kw = dict(experts_per_token=k, capacity_factor=cf)
+        axis.reset_counts()
+        fwd = {}
+        res = _ep_grads(inputs, mesh=mesh, model_axis="model",
+                        after_forward=lambda: fwd.update(
+                            calls=dict(axis.counts),
+                            sent=dict(axis.sent_bytes)), **kw)
+        res["counts"] = np.asarray(json.dumps({
+            "fwd_calls": fwd["calls"], "fwd_sent": fwd["sent"],
+            "bwd_calls": {n: c - fwd["calls"].get(n, 0)
+                          for n, c in axis.counts.items()},
+            "bwd_sent": {n: b - fwd["sent"].get(n, 0)
+                         for n, b in axis.sent_bytes.items()}}))
+        if rank == 0:
+            res.update({f"single.{n}": v
+                        for n, v in _ep_grads(inputs, **kw).items()})
+        np.savez(os.path.join(out_dir, f"{world}_ep_{case}_{rank}.npz"),
+                 **res)
+
+
 def worlds_of(group: str) -> list:
+    if group == "ep":
+        return list(EP_WORLDS)
     return sorted({w for c in CASES.values() if c["group"] == group
                    for w in c["worlds"]})
 
@@ -602,7 +681,10 @@ def _rank(rank: int, world: int, out_dir: str, group: str) -> None:
         world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=120))
     try:
-        run_cases(rank, world, out_dir, group)
+        if group == "ep":
+            ep_probe(rank, world, out_dir)
+        else:
+            run_cases(rank, world, out_dir, group)
     finally:
         dist.destroy_process_group()
 

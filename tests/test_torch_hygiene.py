@@ -26,7 +26,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "torch_gate_cost.py",
     ROOT / "examples" / "torch_dist_cola.py",
     ROOT / "examples" / "torch_nccl_probe.py",
-    ROOT / "examples" / "torch_train_lm_gossip.py"]
+    ROOT / "examples" / "torch_train_lm_gossip.py",
+    ROOT / "examples" / "torch_serve_batched.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -62,6 +63,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "import repro_torch.analysis.drivers, "
             "repro_torch.analysis.selftest, repro_torch.analysis.__main__, "
             "repro_torch.launch.op_analysis; "
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

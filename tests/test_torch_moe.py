@@ -18,12 +18,14 @@ and no top-k margin is within 1e-5 of a tie. Tolerances:
 """
 import _torch_cpu  # noqa: F401  (one PyTorch thread per test worker)
 import dataclasses
+import datetime
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from _torch_moe import RouteLog
 from repro.configs import base as jbase
@@ -33,6 +35,8 @@ from repro.models import mlp as jmlp
 from repro.models.blocks import ModelCtx as JCtx
 from repro_torch import convert
 from repro_torch.configs import base as tbase
+from repro_torch.dist.sharding import P
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import common as tcommon
 from repro_torch.models import mlp as tmlp
@@ -261,13 +265,18 @@ def test_init_draws_one_expert_at_a_time():
         {n: t.shape for n, t in params.items()}
 
 
-def test_moe_training_and_expert_parallelism_raise():
-    """MoE training is ported (the id is kept from when it raised):
-    ``init_train_state`` gives fp32 masters in ``param_paths`` order, and
-    one ``make_train_step`` step from the reference's state gives finite
-    loss, ce and aux equal to the reference's (rtol 1e-5, fp32 in another
-    summation order). Expert parallelism and ``ModelCtx``'s mesh fields
-    still raise (item 17.6)."""
+def test_moe_training_and_expert_parallelism_raise(tmp_path):
+    """MoE training and expert parallelism are ported (the id is kept from
+    when they raised): ``init_train_state`` gives fp32 masters in
+    ``param_paths`` order, and one ``make_train_step`` step from the
+    reference's state gives finite loss, ce and aux equal to the
+    reference's (rtol 1e-5, fp32 in another summation order).
+    ``ModelCtx`` takes ``mesh``, ``model_axis`` and ``act_spec``; on a
+    1 x 1 ``make_host_mesh`` (one gloo rank in this process) the
+    expert-parallel ``moe_apply`` and a model forward through it equal the
+    path without a mesh bit for bit, gradients included (M > 1:
+    ``tests/test_torch_expert_parallel.py``). An unknown mode and tokens
+    that do not split into dispatch groups raise."""
     jcfg, cfg = _moe_cfg("dbrx_132b")
     state = tsteps.init_train_state(cfg, torch.Generator().manual_seed(0),
                                     device="cpu")
@@ -287,13 +296,41 @@ def test_moe_training_and_expert_parallelism_raise():
         assert np.isfinite(float(tm[key])), key
         np.testing.assert_allclose(float(tm[key]), float(jm[key]),
                                    rtol=1e-5, err_msg=key)
-    for field in ("mesh", "model_axis", "act_spec"):
-        with pytest.raises(NotImplementedError, match="item 17.6"):
-            ModelCtx(**{field: "model"})
-    _, tp = _moe_params(False)
-    with pytest.raises(NotImplementedError, match="item 17.6"):
-        tmlp.moe_apply(tp, torch.zeros((1, 2, D)), experts_per_token=1,
-                       mesh=object(), model_axis="model")
+    _, tp = _moe_params(True)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh(1, 1, device="cpu")
+        ctx = ModelCtx(mesh=mesh, model_axis="model",
+                       act_spec=P("data", None, None))
+        assert (ctx.mesh, ctx.model_axis) == (mesh, "model")
+        x = torch.tensor(np.random.default_rng(3).standard_normal(
+            (2, 6, D)).astype(np.float32))
+        outs = []
+        for kw in ({}, {"mesh": mesh, "model_axis": "model"}):
+            leaves = {n: t.clone().requires_grad_()
+                      for n, t in tcommon.flatten(tp).items()}
+            xr = x.clone().requires_grad_()
+            y, aux = tmlp.moe_apply(tcommon.nest(leaves), xr,
+                                    experts_per_token=2, **kw)
+            (y.square().sum() + aux).backward()
+            outs.append([y, aux, xr.grad] + [leaves[n].grad
+                                             for n in sorted(leaves)])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        batch = {"tokens": torch.as_tensor(tokens)}
+        model = tbuild(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            plain, aux_p = model.forward(params, batch)
+            meshed, aux_m = model.forward(params, batch, ctx)
+        assert torch.equal(plain, meshed) and torch.equal(aux_p, aux_m)
+        with pytest.raises(ValueError, match="act_spec"):
+            model.forward(params, batch,
+                          ModelCtx(mesh=mesh, act_spec=P("pod")))
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="mode"):
         tmlp.moe_apply(tp, torch.zeros((1, 2, D)), experts_per_token=1,
                        mode="sparse")
