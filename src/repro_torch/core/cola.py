@@ -74,6 +74,7 @@ from repro_torch.core.subproblem import (SubproblemSpec, block_cols,
                                          block_gram, cd_solve_all, gram_pays)
 from repro_torch.device import resolve
 from repro_torch.kernels.cd_glm import gram_columns
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,6 +271,7 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
         qmix_fn = lambda w, v, ef, draws, payload, sig=None: \
             mixing.qmix_steps(w, v, ef, cfg.gossip_steps, cfg.wire, draws,
                               payload=payload, sig=sig)
+    span = obs_trace.span   # the round's phases (obs.trace: no-ops when off)
 
     def one_round(state: ColaState, env: ColaEnv, w: torch.Tensor,
                   active: torch.Tensor, budgets=None, draws=None,
@@ -279,75 +281,79 @@ def _round_body(problem: Problem, part: Partition, cfg: ColaConfig, *,
         # A payload attack exists only on the wire: receivers mix the lie,
         # each node's own term uses its honest state (v_self; None on the
         # honest path, which is then the unattacked program).
-        if quantized and not lowered_qmix and (robust is not None or atk):
-            # a quantized wire composed with attacks or a defense (one
-            # gossip step, no pipeline: _check_wire_config): the lie is
-            # encoded like any payload, with the honest encode's draws;
-            # each node's own slot and EF residual follow the codec view
-            # of its honest value
-            u0 = None if draws is None else draws(0)
-            q, _, deq_self, ef_new = quant.encode(state.v_stack, cfg.wire,
-                                                  u0, state.ef)
-            if sig is not None:
-                sig["q"] = q
-            v_send = _apply_payload_attack(state.v_stack, atk)
-            if v_send is state.v_stack:
-                deq_send, self_stack = deq_self, None
+        with span("cola.mix"):
+            if quantized and not lowered_qmix and (robust is not None or atk):
+                # a quantized wire composed with attacks or a defense (one
+                # gossip step, no pipeline: _check_wire_config): the lie is
+                # encoded like any payload, with the honest encode's draws;
+                # each node's own slot and EF residual follow the codec
+                # view of its honest value
+                u0 = None if draws is None else draws(0)
+                q, _, deq_self, ef_new = quant.encode(state.v_stack, cfg.wire,
+                                                      u0, state.ef)
+                if sig is not None:
+                    sig["q"] = q
+                v_send = _apply_payload_attack(state.v_stack, atk)
+                if v_send is state.v_stack:
+                    deq_send, self_stack = deq_self, None
+                else:
+                    p_atk = v_send if state.ef is None else v_send + state.ef
+                    deq_send = quant.dequantize(
+                        *quant.quantize_rows(p_atk, cfg.wire, u0))
+                    self_stack = deq_self
+                v_half = mix(w, deq_send, self_stack, sig=sig)
+            elif quantized:
+                # every step mixes the codec's view of every payload; a
+                # pipelined run's first payload is state.buf
+                v_half, ef_new = qmix_fn(w, state.v_stack, state.ef, draws,
+                                         state.buf, sig=sig)
             else:
-                p_atk = v_send if state.ef is None else v_send + state.ef
-                deq_send = quant.dequantize(
-                    *quant.quantize_rows(p_atk, cfg.wire, u0))
-                self_stack = deq_self
-            v_half = mix(w, deq_send, self_stack, sig=sig)
-        elif quantized:
-            # every step mixes the codec's view of every payload; a
-            # pipelined run's first payload is state.buf
-            v_half, ef_new = qmix_fn(w, state.v_stack, state.ef, draws,
-                                     state.buf, sig=sig)
-        else:
-            v_send = _apply_payload_attack(state.v_stack, atk)
-            v_half = mix(w, v_send,
-                         None if v_send is state.v_stack else state.v_stack,
-                         sig=sig)
-        # Gradient each node uses for its subproblem.
-        grads = problem.grad_f(v_half)
-        if cfg.grad_mode == "mixed":
-            # App. E.1: the neighborhood-mixed gradient sum_l W_kl grad f(v_l)
-            grads = grad_mix_fn(w, grads)
-        # Step 5: Theta-approximate local solve (kappa * n_k CD steps;
-        # per-node budgets model heterogeneous Theta_k, Definition 5).
-        use_gram = (env.gram_parts is not None
-                    and cfg.use_gram(problem.d, part.block,
-                                     env.a_parts.element_size()))
-        if cfg.cd_mode == "gram" and env.gram_parts is None:
-            raise ValueError(
-                "cd_mode='gram' but the env has no Gram blocks — build it "
-                "with build_env(problem, part, with_gram=True)")
-        dx = cd_solve_all(problem, spec, env.a_parts, state.x_parts, grads,
-                          env.gp_parts, env.masks, steps,
-                          step_budgets=budgets,
-                          gram_parts=env.gram_parts if use_gram else None,
-                          a_cols=env.a_cols, gram_cols=env.gram_cols)
-        dx = dx * active[:, None].to(dx.dtype)
-        if atk is not None and "work" in atk:
-            # free riders: no local progress this round
-            dx = dx * atk["work"][:, None].to(dx.dtype)
-        # Steps 6-8: local variable + local estimate updates.
-        x_new = state.x_parts + cfg.gamma * dx
-        dv = torch.bmm(env.a_parts, dx.unsqueeze(-1)).squeeze(-1)
-        v_new = v_half + cfg.gamma * k * dv
-        if not quantized:
-            return ColaState(x_parts=x_new, v_stack=v_new)
-        buf_new = None
-        if cfg.pipeline:
-            # the next round's step-0 encode, with the next round's draws:
-            # bitwise what that round would encode at its top
-            q, s, _, ef_new = quant.encode(
-                v_new, cfg.wire, None if draws_next is None
-                else draws_next(0), ef_new)
-            buf_new = (q, s)
-        return ColaState(x_parts=x_new, v_stack=v_new, ef=ef_new,
-                         buf=buf_new)
+                v_send = _apply_payload_attack(state.v_stack, atk)
+                v_half = mix(w, v_send,
+                             None if v_send is state.v_stack
+                             else state.v_stack, sig=sig)
+        with span("cola.local_solve"):
+            # Gradient each node uses for its subproblem.
+            grads = problem.grad_f(v_half)
+            if cfg.grad_mode == "mixed":
+                # App. E.1: the neighborhood-mixed gradient
+                # sum_l W_kl grad f(v_l)
+                grads = grad_mix_fn(w, grads)
+            # Step 5: Theta-approximate local solve (kappa * n_k CD steps;
+            # per-node budgets model heterogeneous Theta_k, Definition 5).
+            use_gram = (env.gram_parts is not None
+                        and cfg.use_gram(problem.d, part.block,
+                                         env.a_parts.element_size()))
+            if cfg.cd_mode == "gram" and env.gram_parts is None:
+                raise ValueError(
+                    "cd_mode='gram' but the env has no Gram blocks — build "
+                    "it with build_env(problem, part, with_gram=True)")
+            dx = cd_solve_all(problem, spec, env.a_parts, state.x_parts,
+                              grads, env.gp_parts, env.masks, steps,
+                              step_budgets=budgets,
+                              gram_parts=env.gram_parts if use_gram else None,
+                              a_cols=env.a_cols, gram_cols=env.gram_cols)
+            dx = dx * active[:, None].to(dx.dtype)
+            if atk is not None and "work" in atk:
+                # free riders: no local progress this round
+                dx = dx * atk["work"][:, None].to(dx.dtype)
+        with span("cola.update"):
+            # Steps 6-8: local variable + local estimate updates.
+            x_new = state.x_parts + cfg.gamma * dx
+            dv = torch.bmm(env.a_parts, dx.unsqueeze(-1)).squeeze(-1)
+            v_new = v_half + cfg.gamma * k * dv
+            if not quantized:
+                return ColaState(x_parts=x_new, v_stack=v_new)
+            buf_new = None
+            if cfg.pipeline:
+                # the next round's step-0 encode, with the next round's
+                # draws: bitwise what that round would encode at its top
+                q, s, _, ef_new = quant.encode(
+                    v_new, cfg.wire, None if draws_next is None
+                    else draws_next(0), ef_new)
+                buf_new = (q, s)
+            return ColaState(x_parts=x_new, v_stack=v_new, ef=ef_new,
+                             buf=buf_new)
 
     return one_round
 
@@ -666,33 +672,35 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                 recorder=recorder, eps=eps, budget_schedule=budget_schedule,
                 leave_mode=leave_mode, seed=seed, w_override=w_override,
                 attacks=attacks, block_size=block_size)
-    env = build_env(problem, part,
-                    with_gram=cfg.use_gram(problem.d, part.block,
-                                           problem.a.element_size()))
-    state = init_state(problem, part)
-    if quant.is_quantized(cfg.wire):
-        if wire_draws is None:
-            wire_draws = quant.wire_uniforms(seed, k, problem.d, dev)
-        state = _arm_wire_state(state, cfg, wire_draws)
-    else:
-        wire_draws = None
-    base_w = w_override if w_override is not None \
-        else topo.metropolis_weights(graph)
-    rec = metrics_lib.make_recorder(recorder, problem, part, env, graph,
-                                    base_w, eps)
-    active_schedule = _as_schedule_fn(active_schedule, rounds, k,
-                                      "active_schedule")
-    budget_schedule = _as_schedule_fn(budget_schedule, rounds, k,
-                                      "budget_schedule")
-    if active_schedule is not None or sample is not None:
-        # certificates judge each churn round's reweighted exchange, not
-        # the static graph (client sampling is streamed churn)
-        rec = metrics_lib.dynamize(rec)
-    np_dtype = torch.empty((), dtype=problem.a.dtype).numpy().dtype
-    sched = _materialize_schedule(graph, rounds, active_schedule,
-                                  budget_schedule, leave_mode, seed, base_w,
-                                  np_dtype)
-    body = _round_body(problem, part, cfg)
+    # the per-call set-up, up to the executor (the cohort path has its own)
+    with obs_trace.span("cola.setup"):
+        env = build_env(problem, part,
+                        with_gram=cfg.use_gram(problem.d, part.block,
+                                               problem.a.element_size()))
+        state = init_state(problem, part)
+        if quant.is_quantized(cfg.wire):
+            if wire_draws is None:
+                wire_draws = quant.wire_uniforms(seed, k, problem.d, dev)
+            state = _arm_wire_state(state, cfg, wire_draws)
+        else:
+            wire_draws = None
+        base_w = w_override if w_override is not None \
+            else topo.metropolis_weights(graph)
+        rec = metrics_lib.make_recorder(recorder, problem, part, env, graph,
+                                        base_w, eps)
+        active_schedule = _as_schedule_fn(active_schedule, rounds, k,
+                                          "active_schedule")
+        budget_schedule = _as_schedule_fn(budget_schedule, rounds, k,
+                                          "budget_schedule")
+        if active_schedule is not None or sample is not None:
+            # certificates judge each churn round's reweighted exchange,
+            # not the static graph (client sampling is streamed churn)
+            rec = metrics_lib.dynamize(rec)
+        np_dtype = torch.empty((), dtype=problem.a.dtype).numpy().dtype
+        sched = _materialize_schedule(graph, rounds, active_schedule,
+                                      budget_schedule, leave_mode, seed,
+                                      base_w, np_dtype)
+        body = _round_body(problem, part, cfg)
     if executor == "block":
         stream = atk_part = atk_info = telemetry = None
         if cfg.telemetry:
@@ -722,7 +730,6 @@ def run_cola(problem: Problem, graph: topo.Topology, cfg: ColaConfig,
                 sched, sample, rec, k=k, rounds=rounds, seed=seed,
                 leave_mode=leave_mode, dtype=problem.a.dtype, device=dev,
                 extra_parts=() if atk_part is None else (atk_part,))
-        from repro_torch.obs import trace as obs_trace
         with obs_trace.run_tracer(cfg.telemetry) as tracer:
             res = _run_cola_block(body, env, state, rounds, record_every,
                                   rec, sched, block_size, stream=stream,

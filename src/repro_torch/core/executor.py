@@ -29,10 +29,16 @@ the device busy instead:
   dict of tensors, such as the eavesdropper's taps and the telemetry
   counters' rows), which the engine writes into preallocated ``(T, ...)``
   device tensors, zeros for the rounds after the stop;
-* each block runs inside a ``repro_torch.obs.trace`` span
-  (``block-first-dispatch``, then ``block-dispatch``, with ``start=`` and
-  ``rounds=``) on the active tracer. The span times the host: the block's
-  enqueue, plus its read of the stop flag when a stop is armed.
+* the engine opens ``repro_torch.obs.trace`` spans, which collect only
+  inside a scoped tracer or while a profiler session is on (opt-in; off,
+  each is one shared no-op and the run is bitwise the same). A block's
+  enqueue is ``block-first-dispatch``, then ``block-dispatch`` (with
+  ``start=`` and ``rounds=``); each executed round is ``round``, and its
+  record (the recorder's row and the stop update) ``round-record``. With a
+  stop armed, the host's read of the flag is ``block-stop-read`` (the host
+  waits for the card there), and the host time from that read's return to
+  the next block's first round is ``block-gap``: the card is drained
+  then, so that time is device idle.
 
 PyTorch runs eagerly, so a no-op round still computes its round body before
 the select discards it, and the reference's compiled-driver cache has no
@@ -337,10 +343,10 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
     executed = 0
     stopped_early = False
     start = 0
-    # phase tracing (repro_torch.obs.trace; imported here: it imports this
-    # module): the active tracer records every block's dispatch
+    # phase spans (repro_torch.obs.trace; imported here: it imports this
+    # module), no-ops unless collection is on
     from repro_torch.obs import trace as obs_trace
-    tracer = obs_trace.current()
+    span = obs_trace.span
     _cache_event(None, "bypass")
     for wrap in list(_STEP_WRAPPERS):
         step_fn = wrap(step_fn, in_place=in_place, with_aux=with_aux)
@@ -348,63 +354,79 @@ def run_round_blocks(step_fn: Callable[[Any, Any, dict], Any],
     no_region = contextlib.nullcontext()
     region = ((lambda name: _region(listeners, name)) if listeners
               else (lambda name: no_region))
+    gap = None   # the block-gap span, open from a flag read to the next block
     while start < t_total:
         stop = min(start + block_size, t_total)
-        with tracer.span("block-first-dispatch" if start == 0
-                         else "block-dispatch", start=start,
-                         rounds=stop - start), region("block"):
-            sched_b = {name: (np.asarray(v[start:stop])
-                              if name in host_entries
-                              else torch.as_tensor(
-                                  np.ascontiguousarray(v[start:stop]),
-                                  device=device))
-                       for name, v in schedule.items()}
-            for t in range(start, stop):
-                with region("round"):
-                    sched_t = {name: v[t - start]
-                               for name, v in sched_b.items()}
-                    if stream is not None:
-                        sched_t.update(stream(t))
-                    if in_place:
-                        new_state = step_fn(state, context, sched_t,
-                                            stopped if has_stop else None)
-                    else:
-                        new_state = step_fn(state, context, sched_t)
-                    if with_aux:
-                        new_state, aux = new_state
-                        aux_buf = _store_aux(aux_buf, aux, t, t_total,
-                                             stopped if has_stop else None)
-                    state = (new_state if in_place or not has_stop
-                             else _select(stopped, state, new_state))
-                    if has_cadence:
-                        row = record_at(state, sched_t).to(torch.float32)
-                        due = (nxt <= t) | (t == t_total - 1)
-                        do_rec = due & ~stopped
-                        far = recorder.cadence_ratio(row).to(torch.float32) \
-                            > cadence.near
-                        new_every = torch.where(
-                            far, torch.clamp(every * cadence.grow,
-                                             max=cadence.max_every),
-                            torch.full_like(every, cadence.base))
-                        every = torch.where(do_rec, new_every, every)
-                        nxt = torch.where(do_rec, t + new_every, nxt)
-                        metrics[t] = torch.where(do_rec, row,
-                                                 torch.zeros_like(row))
-                        valid[t] = do_rec
-                        if has_stop:
-                            stopped = stopped | (do_rec & stop_fn(row))
-                    elif rec_all[t]:
-                        row = record_at(state, sched_t).to(torch.float32)
-                        metrics[row_i] = row
-                        valid[row_i] = ~stopped
-                        if has_stop:
-                            stopped = stopped | (~stopped & stop_fn(row))
-                        row_i += 1
+        with region("block"):
+            with span("block-first-dispatch" if start == 0
+                      else "block-dispatch", start=start,
+                      rounds=stop - start):
+                sched_b = {name: (np.asarray(v[start:stop])
+                                  if name in host_entries
+                                  else torch.as_tensor(
+                                      np.ascontiguousarray(v[start:stop]),
+                                      device=device))
+                           for name, v in schedule.items()}
+                if gap is not None:
+                    gap.__exit__(None, None, None)
+                    gap = None
+                for t in range(start, stop):
+                    with region("round"), span("round"):
+                        sched_t = {name: v[t - start]
+                                   for name, v in sched_b.items()}
+                        if stream is not None:
+                            sched_t.update(stream(t))
+                        if in_place:
+                            new_state = step_fn(state, context, sched_t,
+                                                stopped if has_stop else None)
+                        else:
+                            new_state = step_fn(state, context, sched_t)
+                        if with_aux:
+                            new_state, aux = new_state
+                            aux_buf = _store_aux(aux_buf, aux, t, t_total,
+                                                 stopped if has_stop else None)
+                        state = (new_state if in_place or not has_stop
+                                 else _select(stopped, state, new_state))
+                        if has_cadence:
+                            with span("round-record"):
+                                row = record_at(state, sched_t).to(
+                                    torch.float32)
+                                due = (nxt <= t) | (t == t_total - 1)
+                                do_rec = due & ~stopped
+                                far = recorder.cadence_ratio(row).to(
+                                    torch.float32) > cadence.near
+                                new_every = torch.where(
+                                    far, torch.clamp(every * cadence.grow,
+                                                     max=cadence.max_every),
+                                    torch.full_like(every, cadence.base))
+                                every = torch.where(do_rec, new_every, every)
+                                nxt = torch.where(do_rec, t + new_every, nxt)
+                                metrics[t] = torch.where(
+                                    do_rec, row, torch.zeros_like(row))
+                                valid[t] = do_rec
+                                if has_stop:
+                                    stopped = stopped | (do_rec
+                                                         & stop_fn(row))
+                        elif rec_all[t]:
+                            with span("round-record"):
+                                row = record_at(state, sched_t).to(
+                                    torch.float32)
+                                metrics[row_i] = row
+                                valid[row_i] = ~stopped
+                                if has_stop:
+                                    stopped = stopped | (~stopped
+                                                         & stop_fn(row))
+                                row_i += 1
             executed = stop
             start = stop
             # the host-side short-circuit: one scalar sync per block, only
             # when early exit is armed
-            stopped_early = has_stop and bool(stopped)
+            if has_stop:
+                with span("block-stop-read"):
+                    stopped_early = bool(stopped)
+                if not stopped_early and start < t_total:
+                    gap = span("block-gap")
+                    gap.__enter__()
         if stopped_early:
             break
 

@@ -36,6 +36,7 @@ from repro_torch.core.duality import (block_spectral_norms,
                                       neighbor_mask, neighborhood_mean,
                                       node_subproblem_gaps)
 from repro_torch.core.partition import Partition
+from repro_torch.obs import trace as obs_trace
 
 GAP_METRICS = ("primal", "hamiltonian", "dual", "gap", "consensus_violation")
 CERT_METRICS = ("local_gap_max", "grad_disagreement_max", "cond9_nodes",
@@ -183,6 +184,10 @@ class CertificateRecorder:
         return self.dynamic or self.attack_aware or self.cohort
 
     def record_fn(self, state, sched=None) -> torch.Tensor:
+        with obs_trace.span("record.certificate"):
+            return self._record(state, sched)
+
+    def _record(self, state, sched) -> torch.Tensor:
         if self.cohort:
             return self._cohort_record(state, sched)
         v_stack, x_parts = state.v_stack, state.x_parts

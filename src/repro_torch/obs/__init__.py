@@ -12,10 +12,22 @@ the same state, bitwise):
   mask from the mix that ran (``mixing.robust_neighborhood_mix(sig=)``),
   the payload from the round's own encode. Totals land in every driver's
   ``history["telemetry"]``.
-* **Host tracing** (``obs.trace``): ``span()`` phase timers (block
-  dispatches, bench repeats) opening ``torch.profiler.record_function``,
-  executor cache events via ``executor.cache_listener``, Chrome-trace
-  JSON export, and ``torch_profile`` for a device trace.
+* **Spans** (``obs.trace``): named phases of a solve, collected only
+  inside a scoped tracer (``use``, ``run_tracer``) or, on the default
+  tracer, while a ``torch.profiler`` session is on; otherwise ``span()``
+  is one shared no-op (no ``record_function``, no clock read). Collected,
+  a span opens ``torch.profiler.record_function``, reads the host clock
+  and, on a card, records a CUDA event pair, and closes into a per-name
+  aggregate (``count``, ``total_s``, ``device_s``) that ``summary()``
+  returns. ``run_cola`` opens ``cola.setup`` (its per-call set-up); the
+  executor ``round`` (one executed round), ``round-record`` (a record and
+  the stop update), ``block-first-dispatch`` / ``block-dispatch`` (a
+  block's enqueue), ``block-stop-read`` (the stop flag's read) and
+  ``block-gap`` (the flag read's return to the next block's first round);
+  the round body ``cola.mix``, ``cola.local_solve`` and ``cola.update``;
+  the certificate recorder ``record.certificate``. Also: executor cache
+  events via ``executor.cache_listener``, Chrome-trace JSON export, and
+  ``torch_profile`` for a device trace.
 * **Run registry** (``obs.report``): telemetry runs append a ``RunReport``
   JSONL line under ``.repro_runs/`` (env ``REPRO_RUNS_DIR`` overrides,
   ``off`` disables); ``python -m repro_torch.obs list|show|diff|timeline``

@@ -1,25 +1,56 @@
-"""Host-side phase tracing: spans, executor cache events, Chrome export.
+"""Host-side phase tracing: named spans, executor cache events, Chrome export.
 
-A ``Tracer`` records named wall-clock spans (per-block dispatch, bench
-repeats) plus the executor's cache events (``executor.cache_listener``),
-and exports the whole timeline as Chrome-trace JSON (``chrome://tracing``
-/ Perfetto). Every span also opens ``torch.profiler.record_function`` so
-the same names show up inside a device profile when one is being taken
-(``torch_profile``).
+Collection is opt-in. ``span()`` records only
 
-Spans time the host. PyTorch runs eagerly and returns before the card
-finishes, so a block span measures how long the block takes to ENQUEUE,
-plus the block's read of the stop flag when a stop is armed (that read
-waits for the card). The device's time is the profiler's or CUDA events'.
+* inside a scoped tracer (``use(Tracer())``, ``run_tracer()``), or
+* while a ``torch.profiler`` session is on: the module's default tracer
+  then collects, so a profile's spans are exactly those of the work it
+  traced.
 
-A module-level default tracer is always installed — ``span()`` costs two
-``perf_counter`` calls, a ``record_function`` and a deque append, so
-instrumented code paths (executor block dispatches) call it
-unconditionally. Scoped collection swaps in a fresh tracer::
+Otherwise ``span()`` returns one shared no-op context: no
+``record_function``, no clock read, no allocation; what it costs is the
+gate's two lookups (a fraction of a microsecond a span).
+
+A collecting span opens ``torch.profiler.record_function`` (the name is
+then a range of a device profile), reads the host clock at its entry and
+exit and, once CUDA is initialised in the process, records a
+``torch.cuda.Event`` pair on the current stream. It closes into a running
+aggregate by name: ``count``, host seconds ``total_s`` and, where events
+were recorded, device seconds ``device_s``, the card's own clock between
+the two points of the stream. PyTorch returns before the card finishes,
+so a span around enqueued work times its enqueue on the host and its work
+on the device. The event pairs are resolved with one synchronize when
+``summary()`` is read (past a bound, the oldest as spans close). On, a
+span costs the ``record_function`` (microseconds even with no profiler
+running), two clock reads and, on a card, two event records.
+
+The spans the port opens (``repro_torch.core``):
+
+=======================  ====================================================
+``cola.setup``           ``run_cola``: ``build_env`` (A's blocks, the Gram
+                         blocks or the residual layout), the recorder (σ_k),
+                         the schedule, the round body
+``round``                the executor: one executed round (body, record,
+                         stop update, select)
+``cola.mix``             the round body: Step 4, the gossip mix (every wire)
+``cola.local_solve``     grad f (and the mixed gradient), the CD solve, the
+                         active and work masks
+``cola.update``          Steps 6-8: x, A dx, v (and the pipelined encode)
+``round-record``         the executor: the recorder's row and the stop update
+``record.certificate``   the certificate recorder's row
+``block-first-dispatch``,
+``block-dispatch``       the executor: a block's enqueue only
+``block-stop-read``      the executor: the host's read of the stop flag
+``block-gap``            the executor: from the flag read's return to the
+                         next block's first round (the card is drained)
+=======================  ====================================================
+
+A scoped collection::
 
     with obs.trace.use(obs.trace.Tracer()) as tr, tr.attach():
         run()
-    tr.export("trace.json")
+    tr.summary()["spans"]        # {name: {"count", "total_s"[, "device_s"]}}
+    tr.export("trace.json")      # the raw spans, bounded by ``maxlen``
 """
 from __future__ import annotations
 
@@ -30,15 +61,69 @@ import time
 from typing import Any
 
 import torch
+import torch.autograd.profiler as _profiler
 
 from repro_torch.core import executor
 
-#: default tracer keeps a bounded window so long sessions don't grow it
+#: the raw spans the default tracer keeps for the Chrome export (the
+#: aggregate counts every span)
 _DEFAULT_MAXLEN = 4096
+#: event pairs held before the oldest are folded in as spans close
+_PENDING_MAX = 4096
+
+
+class _Off:
+    """The shared no-op span."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """One collecting span of ``tracer`` (see the module)."""
+
+    __slots__ = ("_tracer", "_name", "_meta", "_rf", "_events", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, meta: dict):
+        self._tracer, self._name, self._meta = tracer, name, meta
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function(self._name)
+        self._rf.__enter__()
+        self._events = None
+        if torch.cuda.is_initialized():
+            stream = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            self._events = (start, stream)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        pair = None
+        if self._events is not None:
+            start, stream = self._events
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            pair = (start, end)
+        self._rf.__exit__(*exc)
+        self._tracer._close(self._name, self._t0, t1, self._meta, pair)
+        return False
 
 
 class Tracer:
-    """Collects spans + executor cache events relative to its creation."""
+    """Collects spans + executor cache events relative to its creation.
+    ``maxlen`` bounds the raw spans kept for the Chrome export; the
+    aggregate that ``summary()`` returns counts every span."""
 
     def __init__(self, name: str = "repro_torch", maxlen: int | None = None):
         self.name = name
@@ -46,17 +131,46 @@ class Tracer:
         self.cache_events: collections.deque = collections.deque(
             maxlen=maxlen)
         self._t0 = time.perf_counter()
+        # name -> [count, host seconds, device seconds, device pairs]
+        self._agg: dict = {}
+        # (name, start event, end event), oldest first
+        self._pending: collections.deque = collections.deque()
 
-    @contextlib.contextmanager
     def span(self, name: str, **meta: Any):
-        t0 = time.perf_counter()
-        try:
-            with torch.profiler.record_function(name):
-                yield
-        finally:
-            self.spans.append({"name": name, "t0": t0 - self._t0,
-                               "dur": time.perf_counter() - t0,
-                               "meta": meta})
+        """A span on this tracer, collected whatever the gate says."""
+        return _Span(self, name, meta)
+
+    def _close(self, name: str, t0: float, t1: float, meta: dict,
+               pair) -> None:
+        self.spans.append({"name": name, "t0": t0 - self._t0,
+                           "dur": t1 - t0, "meta": meta})
+        ent = self._agg.get(name)
+        if ent is None:
+            ent = self._agg[name] = [0, 0.0, 0.0, 0]
+        ent[0] += 1
+        ent[1] += t1 - t0
+        if pair is not None:
+            self._pending.append((name, *pair))
+            # past the bound, each close folds the oldest pair if the card
+            # has passed it: the list stays near the bound and no close
+            # holds the host up (a held-up host lets the card run dry)
+            if len(self._pending) > _PENDING_MAX and \
+                    self._pending[0][2].query():
+                self._fold(*self._pending.popleft())
+
+    def _fold(self, name: str, start, end) -> None:
+        ent = self._agg[name]
+        ent[2] += start.elapsed_time(end) * 1e-3
+        ent[3] += 1
+
+    def _resolve(self) -> None:
+        """Fold every recorded event pair into ``device_s``, after one
+        synchronize."""
+        if not self._pending:
+            return
+        torch.cuda.synchronize()
+        while self._pending:
+            self._fold(*self._pending.popleft())
 
     def _on_cache(self, key, kind: str) -> None:
         self.cache_events.append({"t": time.perf_counter() - self._t0,
@@ -77,15 +191,15 @@ class Tracer:
         return out
 
     def summary(self) -> dict:
-        """Span timings aggregated by name (count + total seconds) — the
-        compact form a RunReport stores."""
-        agg: dict = {}
-        for s in self.spans:
-            ent = agg.setdefault(s["name"], {"count": 0, "total_s": 0.0})
-            ent["count"] += 1
-            ent["total_s"] += s["dur"]
-        for ent in agg.values():
-            ent["total_s"] = round(ent["total_s"], 6)
+        """Span timings aggregated by name (``count``, host ``total_s`` and,
+        for spans timed on a card, ``device_s``), over every span the
+        tracer collected — the compact form a RunReport stores."""
+        self._resolve()
+        agg = {}
+        for name, (count, host_s, dev_s, pairs) in self._agg.items():
+            agg[name] = {"count": count, "total_s": round(host_s, 6)}
+            if pairs:
+                agg[name]["device_s"] = round(dev_s, 6)
         return {"spans": agg, "cache": self.cache_stats()}
 
     def chrome_trace(self) -> dict:
@@ -130,7 +244,7 @@ def use(tracer: Tracer):
 def run_tracer(on: bool = True):
     """A fresh tracer, with its executor cache listener, active for one
     telemetry run (yields None when ``on`` is False), so the run's report
-    holds exactly its own block dispatches."""
+    holds exactly its own spans."""
     if not on:
         yield None
         return
@@ -139,17 +253,24 @@ def run_tracer(on: bool = True):
 
 
 def span(name: str, **meta: Any):
-    """Record a span on the ACTIVE tracer: ``with obs.trace.span("x"): ...``"""
-    return current().span(name, **meta)
+    """A span on the active tracer where collection is on (a scoped tracer,
+    or a profiler session for the default one), else the shared no-op:
+    ``with obs.trace.span("x"): ...``"""
+    if len(_STACK) > 1:
+        return _STACK[-1].span(name, **meta)
+    if _profiler._is_profiler_enabled:   # set by every profiler session
+        return _STACK[0].span(name, **meta)
+    return _OFF
 
 
 @contextlib.contextmanager
 def torch_profile(logdir: str, device="cuda"):
     """Bridge to ``torch.profiler``: profiles the scope's CPU activity and,
     when ``device`` is a card, its CUDA activity, and writes the Chrome
-    trace ``<logdir>/trace.json`` on exit; span annotations recorded inside
-    the scope appear as named host regions in it. Yields the profiler
-    (``key_averages()`` sums device time by kernel)."""
+    trace ``<logdir>/trace.json`` on exit; spans opened inside the scope
+    (on the default tracer when no scoped one is active) appear as named
+    host regions in it. Yields the profiler (``key_averages()`` sums
+    device time by kernel)."""
     import os
 
     from torch.profiler import ProfilerActivity, profile

@@ -21,6 +21,11 @@ twin of ``tests/test_obs.py``, at its size (a 120 x 48 lasso, torus2d(16),
   tracer's spans and Chrome export, ``torch_profile``, ``sparkline``, the
   content fingerprint, the block-executor requirement, and
   ``python -m repro_torch.obs smoke --device cpu``.
+* The spans inside a solve (``obs.trace``): off without a scoped tracer
+  or a profiler session (no ``record_function`` at all), counted per
+  executed round, block and record under either, nested as the round
+  nests them, aggregated past the raw deque's bound, and the run's values
+  bitwise the same with them on and off.
 
 The reference's ``test_telemetry_carry_pass`` (a jaxpr lint) belongs to
 the contract analysis, and its dist counters are held over gloo ranks
@@ -282,7 +287,8 @@ def test_tracer_spans_chrome_export_and_profile(probs, graphs, tmp_path):
     assert summ["spans"]["block-first-dispatch"]["count"] == 1
     assert summ["spans"]["block-dispatch"]["count"] == 2
     assert summ["cache"] == {"hits": 0, "misses": 0, "bypass": 1}
-    assert [s["meta"] for s in tr.spans] == [
+    assert [s["meta"] for s in tr.spans
+            if s["name"] in ("block-first-dispatch", "block-dispatch")] == [
         {"start": 0, "rounds": 4}, {"start": 4, "rounds": 4},
         {"start": 8, "rounds": 2}]
     trace = json.loads(Path(tr.export(str(tmp_path / "t.json"))).read_text())
@@ -291,6 +297,188 @@ def test_tracer_spans_chrome_export_and_profile(probs, graphs, tmp_path):
     assert "driver-cache bypass" in names
     prof = (tmp_path / "prof" / "trace.json").read_text()
     assert "block-first-dispatch" in prof
+
+
+SPAN_BLOCK = 4
+# certified first at round 8 or 10 of the 120 x 48 lasso on torus2d(16)
+# (round 6 needs eps above 2,200, round 12 below 1,600)
+CERT_EPS = 1900.0
+BODY_SPANS = ("cola.mix", "cola.local_solve", "cola.update")
+
+
+@pytest.fixture
+def fresh_default(monkeypatch):
+    """A fresh default tracer (the module's own collects under every
+    profiler session in the process)."""
+    tracer = obs_trace.Tracer()
+    monkeypatch.setattr(obs_trace, "_STACK", [tracer])
+    return tracer
+
+
+def _span_run(port, graph, eps=CERT_EPS, rounds=5 * SPAN_BLOCK):
+    """A run with spans to count: the certificate every second round
+    stops it in its third block; ``eps=None``: the gap alone, no stop."""
+    return tcola.run_cola(port, graph, tcola.ColaConfig(), rounds,
+                          recorder="gap" if eps is None
+                          else "gap+certificate", record_every=2, eps=eps,
+                          block_size=SPAN_BLOCK, device="cpu")
+
+
+def test_spans_off_without_tracer_or_profiler(probs, graphs, monkeypatch,
+                                               fresh_default):
+    """No scoped tracer and no profiler: not one ``record_function``, and
+    the default tracer collects nothing."""
+    calls = []
+    real = torch.profiler.record_function
+
+    def counted(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    res = _span_run(probs[1], graphs[1])
+    assert res.history["stop_round"] is not None
+    assert calls == []
+    assert fresh_default.summary()["spans"] == {}
+    assert len(fresh_default.spans) == 0
+    # the gate lets a scoped tracer through
+    with obs_trace.use(obs_trace.Tracer()):
+        _span_run(probs[1], graphs[1], rounds=SPAN_BLOCK)
+    assert calls
+
+
+def _within(inner, outer) -> bool:
+    return (outer["t0"] <= inner["t0"]
+            and inner["t0"] + inner["dur"] <= outer["t0"] + outer["dur"])
+
+
+def test_spans_count_rounds_blocks_and_records(probs, graphs):
+    """Under a scoped tracer: ``round`` and the round body's spans count
+    the executed rounds, ``round-record`` and ``record.certificate`` the
+    record rounds run; with a stop armed one ``block-stop-read`` a block
+    and one ``block-gap`` fewer, without one neither; the body's spans lie
+    inside a ``round``, the certificate inside a ``round-record``."""
+    _, port = probs
+    with obs_trace.use(obs_trace.Tracer()) as tr:
+        res = _span_run(port, graphs[1])
+    stop = res.history["stop_round"]
+    assert stop is not None and stop // SPAN_BLOCK == 2
+    executed = 3 * SPAN_BLOCK
+    spans = tr.summary()["spans"]
+    assert spans["round"]["count"] == executed
+    for name in BODY_SPANS:
+        assert spans[name]["count"] == executed, name
+    records = len(range(0, executed, 2))
+    assert spans["round-record"]["count"] == records
+    assert spans["record.certificate"]["count"] == records
+    assert spans["cola.setup"]["count"] == 1
+    assert spans["block-first-dispatch"]["count"] == 1
+    assert spans["block-dispatch"]["count"] == 2
+    assert spans["block-stop-read"]["count"] == 3
+    assert spans["block-gap"]["count"] == 2
+    assert all("device_s" not in v for v in spans.values())   # the CPU
+    raw = list(tr.spans)
+    rounds = [s for s in raw if s["name"] == "round"]
+    records_raw = [s for s in raw if s["name"] == "round-record"]
+    for s in raw:
+        if s["name"] in BODY_SPANS + ("round-record",):
+            assert any(_within(s, r) for r in rounds), s
+        if s["name"] == "record.certificate":
+            assert any(_within(s, r) for r in records_raw), s
+    # neither a block-stop-read nor a block-gap without a stop
+    with obs_trace.use(obs_trace.Tracer()) as tr:
+        _span_run(port, graphs[1], eps=None)
+    spans = tr.summary()["spans"]
+    assert spans["round"]["count"] == 5 * SPAN_BLOCK
+    assert "block-stop-read" not in spans and "block-gap" not in spans
+
+
+def test_spans_collect_on_default_tracer_under_profiler(probs, graphs,
+                                                        fresh_default):
+    """A profiler session and no scoped tracer: the default tracer
+    collects, and the profiler's events hold every span's name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _span_run(probs[1], graphs[1])
+    names = {"cola.setup", "round", "round-record", "record.certificate",
+             "block-first-dispatch", "block-dispatch", "block-stop-read",
+             "block-gap", *BODY_SPANS}
+    spans = fresh_default.summary()["spans"]
+    assert set(spans) == names
+    assert spans["round"]["count"] == 3 * SPAN_BLOCK
+    assert names <= {e.name for e in prof.events()}
+    # and nothing more once the session is over
+    _span_run(probs[1], graphs[1], rounds=SPAN_BLOCK)
+    assert fresh_default.summary()["spans"]["round"]["count"] == \
+        3 * SPAN_BLOCK
+
+
+def test_tracer_aggregate_outlives_its_bounded_deque(probs, graphs):
+    _, port = probs
+    with obs_trace.use(obs_trace.Tracer(maxlen=8)) as tr:
+        _span_run(port, graphs[1], eps=None, rounds=40)
+    assert len(tr.spans) == 8
+    spans = tr.summary()["spans"]
+    assert spans["round"]["count"] == 40
+    assert spans["cola.mix"]["count"] == 40
+
+
+class _FakeEvent:
+    """A stand-in for a recorded ``torch.cuda.Event`` at ``ms``."""
+
+    def __init__(self, ms: float, done: bool = True):
+        self.ms, self.done = ms, done
+
+    def query(self) -> bool:
+        return self.done
+
+    def elapsed_time(self, end) -> float:
+        return end.ms - self.ms
+
+
+def test_tracer_folds_device_event_pairs(monkeypatch):
+    """Event pairs give ``device_s``: past the bound each close folds the
+    oldest pair the card has passed, and ``summary()`` folds the rest
+    after one synchronize; a pair still on the card waits."""
+    monkeypatch.setattr(obs_trace, "_PENDING_MAX", 4)
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: syncs.append(1))
+    tr = obs_trace.Tracer()
+    for i in range(10):
+        tr._close("round", 0.0, 0.25, {}, (_FakeEvent(i), _FakeEvent(i + 2)))
+    assert len(tr._pending) == 4 and not syncs
+    tr._close("cola.mix", 0.0, 0.5, {}, None)
+    assert tr.summary()["spans"] == {
+        "round": {"count": 10, "total_s": 2.5, "device_s": 0.02},
+        "cola.mix": {"count": 1, "total_s": 0.5}}
+    assert syncs == [1] and not tr._pending
+    late = obs_trace.Tracer()
+    for i in range(6):
+        late._close("round", 0.0, 0.0, {},
+                    (_FakeEvent(0), _FakeEvent(1, done=False)))
+    assert len(late._pending) == 6
+
+
+def test_spans_leave_values_bitwise(probs, graphs, fresh_default):
+    """x, v and every history column with the spans off, under a scoped
+    tracer and under a profiler: bitwise the same."""
+    from torch.profiler import ProfilerActivity, profile
+    _, port = probs
+    off = _span_run(port, graphs[1])
+    with obs_trace.use(obs_trace.Tracer()):
+        scoped = _span_run(port, graphs[1])
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiled = _span_run(port, graphs[1])
+    for on in (scoped, profiled):
+        assert torch.equal(on.state.x_parts, off.state.x_parts)
+        assert torch.equal(on.state.v_stack, off.state.v_stack)
+        assert on.history.keys() == off.history.keys()
+        for key, val in off.history.items():
+            if isinstance(val, list):
+                np.testing.assert_array_equal(np.asarray(on.history[key]),
+                                              np.asarray(val), err_msg=key)
+            else:
+                assert on.history[key] == val, key
 
 
 def test_fingerprint_is_content_addressed_and_memoized(probs):
